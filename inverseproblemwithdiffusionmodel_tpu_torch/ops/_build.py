@@ -1,12 +1,13 @@
-"""Build and load the port's CUDA kernels: `nvcc` into a shared library with
-a plain C interface, loaded with `ctypes`.
+"""Build and load the port's CUDA kernels: one `nvcc` call compiles every
+`csrc/*.cu` into one shared library with a plain C interface, loaded with
+`ctypes`.
 
-The library is built on first use into `_build/<key>/libfir2x.so` at the root
-of this package, where `<key>` is the sha256 of the sources and the flags, so
-an edited source gets a fresh build and an unchanged one is reused. `nvcc`
-writes a temporary file that `os.replace` then moves into place, so two
-processes building at once need no lock: the last rename wins and both
-results are the same library.
+The library is built on first use into `_build/<key>/libport_kernels.so` at
+the root of this package, where `<key>` is the sha256 of the sources and the
+flags, so an edited source gets a fresh build and an unchanged one is
+reused. `nvcc` writes a temporary file that `os.replace` then moves into
+place, so two processes building at once need no lock: the last rename wins
+and both results are the same library.
 """
 from __future__ import annotations
 
@@ -23,16 +24,23 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-_LIB_NAME = "libfir2x.so"
+_LIB_NAME = "libport_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# argtypes of the C launchers in csrc/fir2x.cu: input, output, N, H, W, C,
-# four taps for the H axis, four for the W axis, stream.
-_FIR_ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p]
-                 + [ctypes.c_longlong] * 4 + [ctypes.c_float] * 8
-                 + [ctypes.c_void_p])
+_PTR, _I64, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+# argtypes of the C launchers, by function; every one returns a cudaError_t.
+_ARGTYPES = {
+    # csrc/fir2x.cu: input, output, N, H, W, C, four taps for the H axis,
+    # four for the W axis, stream.
+    "fir_up2x_f32": [_PTR, _PTR] + [_I64] * 4 + [_F32] * 8 + [_PTR],
+    "fir_down2x_f32": [_PTR, _PTR] + [_I64] * 4 + [_F32] * 8 + [_PTR],
+    # csrc/flr.cu: x, bias, y, rows, C, slope, scale, stream.
+    "flr_fwd_f32": [_PTR] * 3 + [_I64] * 2 + [_F32] * 2 + [_PTR],
+    # csrc/flr.cu: x, bias, g, dx, rows, C, scale, scale * slope, stream.
+    "flr_bwd_f32": [_PTR] * 4 + [_I64] * 2 + [_F32] * 2 + [_PTR],
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,8 +106,8 @@ def build() -> Build:
     with open(log_path) as f:
         log = f.read()
     lib = ctypes.CDLL(path)
-    for name in ("fir_up2x_f32", "fir_down2x_f32"):
+    for name, argtypes in _ARGTYPES.items():
         fn = getattr(lib, name)
-        fn.argtypes = _FIR_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return Build(lib=lib, path=path, seconds=seconds, log=log)

@@ -9,11 +9,19 @@ pallas_kernels.py:
   PyTorch version, `upsample2x_plain` / `downsample2x_plain`, which is also
   the oracle the kernels are held against. Each counts its kernel launches in
   `LAUNCHES`.
-- `fir_upsample_2x` / `fir_downsample_2x` (K3, forward): the dispatchers the
-  model calls. A 4-D input with even H and W and a separable 2..4-tap filter
-  goes to K1/K2; anything else to the general plain `upfirdn2d`, as in the
-  JAX package (minus its TPU VMEM guard). Gradients through the kernels are
-  not ported yet; the kernel wrappers refuse inputs that require them.
+- `fir_upsample_2x` / `fir_downsample_2x` (K3): the dispatchers the model
+  calls. A 4-D input with even H and W and a separable 2..4-tap filter goes
+  to K1/K2; anything else to the general plain `upfirdn2d`, differentiated
+  by torch, as in the JAX package (minus its TPU VMEM guard).
+- The K3 backward: both passes are linear, and per axis the exact transpose
+  of the up pass with taps (k0, k1, k2, k3) is the down pass with the taps
+  reversed, (k3, k2, k1, k0), unscaled, with the same zero borders; the
+  transpose of the down pass is the up pass with its taps reversed. So
+  `_Up2x.backward` runs K2 and `_Down2x.backward` runs K1, on either
+  device, through the other direction's Function, which keeps the backward
+  differentiable as JAX's `jax.linear_transpose` VJP is. A kernel launched
+  as a backward counts under "<kernel>.bwd": "up2x.bwd" is K1 launched as
+  the backward of a down pass.
 
 Layout is channel-last (N, H, W, C), float32, as in the JAX package.
 """
@@ -28,8 +36,9 @@ import torch
 from . import _build
 from .upfirdn2d import downsample_2d, upsample_2d
 
-# Kernel launches per wrapper since the last clear(); read by chip_smoke.py to
-# show that a run went through the kernels.
+# Kernel launches since the last clear(), by kernel and direction ("up2x",
+# "up2x.bwd", "down2x", "down2x.bwd"); read by chip_smoke.py to show that a
+# run went through the kernels.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -88,16 +97,12 @@ def downsample2x_plain(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
 
 
 def _launch(name: str, x: torch.Tensor, out: torch.Tensor,
-            taps: np.ndarray) -> torch.Tensor:
+            taps: np.ndarray, tag: str) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: the kernel takes a contiguous (N, H, W, C) "
                          "tensor")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            f"{name}: the backward kernel is not ported yet (ROADMAP: NCSN++ "
-            "continuous training slice); run under torch.no_grad()")
     lib = _build.build().lib
     N, H, W, C = x.shape
     t = [float(v) for v in taps]
@@ -107,8 +112,54 @@ def _launch(name: str, x: torch.Tensor, out: torch.Tensor,
             x.data_ptr(), out.data_ptr(), N, H, W, C, *t, *t, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[tag] += 1
     return out
+
+
+def _up(x: torch.Tensor, taps: np.ndarray, tag: str) -> torch.Tensor:
+    """K1 on a CUDA tensor, its plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return upsample2x_plain(x, taps)
+    N, H, W, C = x.shape
+    out = torch.empty((N, 2 * H, 2 * W, C), dtype=x.dtype, device=x.device)
+    return _launch("up2x", x, out, taps, tag)
+
+
+def _down(x: torch.Tensor, taps: np.ndarray, tag: str) -> torch.Tensor:
+    """K2 on a CUDA tensor, its plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return downsample2x_plain(x, taps)
+    N, H, W, C = x.shape
+    out = torch.empty((N, H // 2, W // 2, C), dtype=x.dtype, device=x.device)
+    return _launch("down2x", x, out, taps, tag)
+
+
+class _Up2x(torch.autograd.Function):
+    """K1 forward; backward K2 with the taps reversed (the exact transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, taps, tag):
+        ctx.taps = taps
+        return _up(x, taps, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_Down2x.apply(g.contiguous(), ctx.taps[::-1].copy(),
+                              "down2x.bwd"), None, None)
+
+
+class _Down2x(torch.autograd.Function):
+    """K2 forward; backward K1 with the taps reversed (the exact transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, taps, tag):
+        ctx.taps = taps
+        return _down(x, taps, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_Up2x.apply(g.contiguous(), ctx.taps[::-1].copy(),
+                            "up2x.bwd"), None, None)
 
 
 def _check(name: str, x: torch.Tensor) -> None:
@@ -124,11 +175,7 @@ def upsample2x(x: torch.Tensor, k: Optional[Sequence[float]] = None,
     upsample_2d(x, k, factor=2, gain)."""
     _check("up2x", x)
     taps = _sep_kernel_1d(k, gain_per_axis=np.sqrt(gain) * 2.0)
-    if x.device.type == "cpu":
-        return upsample2x_plain(x, taps)
-    N, H, W, C = x.shape
-    out = torch.empty((N, 2 * H, 2 * W, C), dtype=x.dtype, device=x.device)
-    return _launch("up2x", x, out, taps)
+    return _Up2x.apply(x, taps, "up2x")
 
 
 def downsample2x(x: torch.Tensor, k: Optional[Sequence[float]] = None,
@@ -140,10 +187,7 @@ def downsample2x(x: torch.Tensor, k: Optional[Sequence[float]] = None,
     if H % 2 or W % 2:
         raise ValueError(f"down2x: H and W must be even, got {H}x{W}")
     taps = _sep_kernel_1d(k, gain_per_axis=np.sqrt(gain))
-    if x.device.type == "cpu":
-        return downsample2x_plain(x, taps)
-    out = torch.empty((N, H // 2, W // 2, C), dtype=x.dtype, device=x.device)
-    return _launch("down2x", x, out, taps)
+    return _Down2x.apply(x, taps, "down2x")
 
 
 def _takes_kernel(x: torch.Tensor, k) -> bool:

@@ -5,9 +5,10 @@ sampler, on the GPU unless --device says otherwise, e.g.:
       --config ve/ffhq_256_ncsnpp_continuous --num_samples 2 \\
       --override model.num_scales=100
 
-Port of inverseproblemwithdiffusionmodel_tpu/scripts/pc_sampling.py. The
-network's weights are drawn from --seed (utils/convert.seeded_weights);
-loading a trained checkpoint (--ckpt_dir) is not ported yet.
+Port of inverseproblemwithdiffusionmodel_tpu/scripts/pc_sampling.py. With
+--ckpt_dir (a training/checkpoint.Checkpointer directory, `<log_dir>/ckpts`
+of a training run) the network takes the latest checkpoint's EMA weights;
+without it, weights drawn from --seed (utils/convert.seeded_weights).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ._common import apply_overrides, save_artifacts
 from ..configs_continuous import get_continuous_config, make_sde
 from ..models.registry import create_model
 from ..sde import get_sampling_fn, get_score_fn
+from ..training.checkpoint import Checkpointer
 from ..utils.convert import seeded_weights
 
 
@@ -40,19 +42,24 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device; "
                            "pass --device cpu to run on the CPU")
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt_dir: loading a trained checkpoint "
-                                  "is not ported yet (ROADMAP)")
-
     config = apply_overrides(get_continuous_config(args.config),
                              args.override)
     if args.method:
         config = config.replace(**{"sampling.method": args.method})
 
-    model = seeded_weights(create_model(config), args.seed)
+    model = create_model(config)
+    if args.ckpt_dir:
+        # params only, the EMA shadow where the checkpoint has one
+        ckpt = Checkpointer(args.ckpt_dir, track_best=False)
+        params, step = ckpt.restore_params(use_ema=True)
+        ckpt.close()
+        model.load_state_dict(params, strict=True)
+        print(f"restored step {step} from {args.ckpt_dir}")
+    else:
+        seeded_weights(model, args.seed)
+        print("WARNING: sampling with random weights drawn from --seed "
+              f"{args.seed} (no --ckpt_dir)")
     model = model.to(device).eval()
-    print("WARNING: sampling with random weights drawn from --seed "
-          f"{args.seed} (no trained checkpoint)")
     sde = make_sde(config)
     s = config.data.image_size
     shape = (args.num_samples, s, s, config.data.num_channels)
