@@ -13,10 +13,14 @@ phases, each printing one line with its own seconds:
    shared-memory lines for every kernel.
 3. kernels: K1 (FIR 2x up) and K2 (FIR 2x down) against their plain PyTorch
    versions at the 36 shapes one FFHQ-256 NCSN++ forward gives them, at
-   batch 2 (sampling) and batch 8 (training); then, at batch 2, each
-   kernel, its plain version and one library call computing the same
-   function (a depthwise conv, the yardstick) timed with CUDA events,
-   beside the least time the card could take.
+   batch 2 (sampling) and batch 8 (training); each kernel, its plain
+   version and one library call computing the same function (a depthwise
+   conv, the yardstick) timed device-only (graph_ms: 20 calls captured in
+   a CUDA graph, its replay timed by CUDA events), the kernel also with
+   the host's gaps (CUDA events around 20 launches from the host), beside
+   the least time the card could take; per shape and summed per forward
+   at each batch. Then the host's µs per launch at the smallest shape,
+   through the launching wrapper and through the public op.
    kernels_bwd: the K3 backward (K2 as the backward of an up pass, K1 as
    the backward of a down pass) at the 30 shapes one training step gives
    it, batch 8: the gradients of the autograd Functions against the plain
@@ -29,9 +33,10 @@ phases, each printing one line with its own seconds:
    batch 1 and, in the float32 mode, at batch 2, and the kernels' launch
    counts over that forward (18 each).
 5. sample: scripts.pc_sampling.main with that config at num_scales 100
-   (reduced from 2000), 2 samples: finite samples, 200 network evaluations,
-   18 launches of each kernel per evaluation; and a tiny PC run on the card
-   against the same run on the CPU, fed the same noise.
+   (reduced from 2000), 2 samples: finite samples, 200 network evaluations
+   (the nfe it prints), 18 launches of each kernel per evaluation; and a
+   tiny PC run on the card against the same run on the CPU, fed the same
+   noise.
 6. train: training.fit with make_continuous_score_train_step on the
    full-width FFHQ-256 NCSN++ (seeded weights), seeded synthetic images,
    batch 8 (reduced from 64, the leaf's), Adam at the leaf's lr and
@@ -44,7 +49,8 @@ phases, each printing one line with its own seconds:
    on the CPU, same weights, batch and injected t and z, TF32 off: loss
    difference and relative L2 of the gradients over all parameters.
 8. sample_ckpt: scripts.pc_sampling.main --ckpt_dir on the trained run's
-   checkpoint, num_scales 10: the restored step, finite samples.
+   checkpoint, num_scales 10: the restored step, finite samples, 20
+   network evaluations and 18 launches of each kernel per evaluation.
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -55,7 +61,10 @@ user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op) and read just
 after it. Any failure raises and exits non-zero. The last lines are
 nvidia-smi's name and power limit, a JSON line of per-kernel numbers, and
-`{"ok": true, "device": {...}}`.
+`{"ok": true, "device": {...}}`. In the JSON line `ms`, `plain_ms` and
+`library_ms` are device-only; `ms_with_host` is the kernel with the host's
+gaps; K1's and K2's entries add their batch-8 forward sums and the host's
+µs per launch.
 """
 from __future__ import annotations
 
@@ -64,6 +73,7 @@ import copy
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -159,19 +169,42 @@ def cuda_ms(fn, reps: int = 20, host: bool = False):
     return (device_ms, host_ms) if host else device_ms
 
 
-def library_call(up: bool, x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device ms per call with the host's gaps taken out: after a warm-up
+    call, `reps` calls captured into one CUDA graph (the kernels' ctypes
+    launch takes torch's current stream, so it is captured too), the graph
+    replayed `replays` times between CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def library_fn(up: bool, x: torch.Tensor, taps: np.ndarray):
     """One depthwise PyTorch conv computing the up (K1) or down (K2) pass
     with these 4 taps per axis: conv_transpose2d with the outer product of
-    the taps (up), conv2d with that of the reversed taps (down)."""
+    the taps (up), conv2d with that of the reversed taps (down). The weight
+    is made here, so the call it returns can be captured in a CUDA graph."""
     C = x.shape[-1]
     t = np.asarray(taps, np.float32)
     if not up:
         t = t[::-1]
     w = torch.tensor(np.outer(t, t), device=x.device).expand(C, 1, 4, 4)
+    w = w.contiguous()
     conv = F.conv_transpose2d if up else F.conv2d
-    out = conv(x.permute(0, 3, 1, 2), w.contiguous(), stride=2, padding=1,
-               groups=C)
-    return out.permute(0, 2, 3, 1)
+    return lambda: conv(x.permute(0, 3, 1, 2), w, stride=2, padding=1,
+                        groups=C).permute(0, 2, 3, 1)
 
 
 def bound(bytes_moved: float, flop: float) -> dict:
@@ -182,9 +215,9 @@ def bound(bytes_moved: float, flop: float) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def kernel_numbers(tag, C, R, k, fk, gen, batch, timed=True):
-    """Check one FIR kernel launch site against its plain version and, if
-    `timed`, time kernel, plain version and library call. `tag` "up2x" /
+def kernel_numbers(tag, C, R, k, fk, gen, batch):
+    """Check one FIR kernel launch site against its plain version, then
+    time kernel, plain version and library call. `tag` "up2x" /
     "down2x" is the forward pass of a call at (batch, R, R, C);
     "down2x.bwd" / "up2x.bwd" is K2 / K1 as the backward of an up / down
     call at that shape, checked through the autograd Functions."""
@@ -208,7 +241,7 @@ def kernel_numbers(tag, C, R, k, fk, gen, batch, timed=True):
     plain_fn = fk.upsample2x_plain if up else fk.downsample2x_plain
     kern = lambda: launch(inp, taps, tag)
     plain = lambda: plain_fn(inp, taps)
-    lib = lambda: library_call(up, inp, taps)
+    lib = library_fn(up, inp, taps)
     out, ref, lib_out = check(), plain(), lib()
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
@@ -220,35 +253,75 @@ def kernel_numbers(tag, C, R, k, fk, gen, batch, timed=True):
     if not lib_err <= KERNEL_RTOL * scale:
         raise AssertionError(f"{tag} C={C} R={R}: the library yardstick "
                              f"computes another function ({lib_err})")
-    if not timed:
-        return dict(C=C, R=R, B=batch, err=err)
     n_out = ref.numel()
     flop_per_out = 12 if up else 40   # 2x2 (up) or 4x4 (down) taps, H then W
-    return dict(C=C, R=R, B=batch, err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                library_ms=cuda_ms(lib),
+    return dict(C=C, R=R, B=batch, err=err, ms=graph_ms(kern),
+                ms_with_host=cuda_ms(kern), plain_ms=graph_ms(plain),
+                library_ms=graph_ms(lib),
                 **bound(4 * (inp.numel() + n_out), n_out * flop_per_out))
 
 
+def host_us(fn, reps: int = 500) -> float:
+    """Host µs per call of a launch the card finishes before the host has
+    the next one ready."""
+    return 1e3 * cuda_ms(fn, reps=reps, host=True)[1]
+
+
+def launch_paths(fk, k, shapes, name):
+    """(C, R) of kernel `name`'s smallest call in `shapes` and, on a batch-2
+    input of that shape, the call of the wrapper that launches the kernel
+    (`_up` / `_down`) and of the public op the model calls (taps, checks
+    and the autograd Function on top)."""
+    C, R = min(((C, R) for n, C, R in shapes if n == name),
+               key=lambda cr: cr[0] * cr[1] ** 2)
+    x = torch.randn(BATCH, R, R, C, device="cuda")
+    up = name == "up2x"
+    taps = fk._sep_kernel_1d(k, 2.0 if up else 1.0)
+    wrapper, public = ((fk._up, fk.upsample2x) if up
+                       else (fk._down, fk.downsample2x))
+    return C, R, dict(wrapper=lambda: wrapper(x, taps, name),
+                      public=lambda: public(x, k))
+
+
+def host_us_per_launch(fk, k, shapes):
+    """Host µs per launch of K1 and K2 at their smallest shape of a
+    forward, through the wrapper and through the public op."""
+    out = {}
+    for name in ("up2x", "down2x"):
+        C, R, fns = launch_paths(fk, k, shapes, name)
+        out[name] = dict(C=C, R=R, wrapper_us=host_us(fns["wrapper"]),
+                         public_us=host_us(fns["public"]))
+    return out
+
+
 def summarize(rows, what: str):
-    """Sums over one kernel's rows; prints the three largest and the sum."""
+    """Sums over one kernel's rows; prints the three largest and the sum.
+    `ms`, `plain_ms` and `library_ms` are device-only (graph replay);
+    `ms_with_host` is the kernel timed by CUDA events around a loop of
+    launches from the host."""
     summary = {}
     for name, rs in rows.items():
         tot = {key: sum(r[key] for r in rs) for key in
-               ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
-                "ops_ms")}
+               ("ms", "ms_with_host", "plain_ms", "library_ms", "bound_ms",
+                "bytes_ms", "ops_ms")}
         summary[name] = dict(tot, err=max(r["err"] for r in rs),
                              bound_by="bytes" if tot["bytes_ms"]
                              >= tot["ops_ms"] else "operations")
         for r in sorted(rs, key=lambda r: -r["bound_ms"])[:3]:
             print(f"    {name} (C={r['C']}, R={r['R']}, B={r['B']}): "
-                  f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+                  f"kernel_ms device {r['ms']:.4f} with host "
+                  f"{r['ms_with_host']:.4f}, plain_ms {r['plain_ms']:.4f} "
                   f"library_ms {r['library_ms']:.4f} bound_us "
                   f"{1e3 * r['bound_ms']:.2f} ({r['bound_by']}) "
                   f"max_abs_err {r['err']:.3g}", flush=True)
         print(f"    {name}, sum over its {len(rs)} calls of {what}: "
-              f"kernel_ms {tot['ms']:.4f} plain_ms {tot['plain_ms']:.4f} "
+              f"kernel_ms device {tot['ms']:.4f} with host "
+              f"{tot['ms_with_host']:.4f}, plain_ms {tot['plain_ms']:.4f} "
               f"library_ms {tot['library_ms']:.4f} bound_us "
               f"{1e3 * tot['bound_ms']:.2f}", flush=True)
+        print(f"    {name} per call, device us: " + " ".join(
+            f"C{r['C']}/R{r['R']}:{1e3 * r['ms']:.2f}" for r in rs),
+            flush=True)
     return summary
 
 
@@ -268,15 +341,33 @@ def flr_numbers(shape, y, dx, db, x, b, g, fl, fused_leaky_relu):
         if not errs[name] <= KERNEL_RTOL * top:
             raise AssertionError(f"flr {shape} {name}: max_abs_err "
                                  f"{errs[name]} > {KERNEL_RTOL} * {top}")
-    fwd = dict(err=errs["y"], ms=cuda_ms(
-        lambda: fl.flr_forward(x, b, slope, scale)), plain_ms=cuda_ms(
-        lambda: fused_leaky_relu(x, b, slope, scale)),
-        **bound(4 * (2 * n + C), 3 * n))      # read x, b; write y
-    bwd = dict(err=errs["dx"], db_err=errs["db"], ms=cuda_ms(
-        lambda: fl.flr_backward(x, b, g, slope, scale)), plain_ms=cuda_ms(
-        lambda: fl.fused_leaky_relu_bwd_plain(x, b, g, slope, scale)),
-        **bound(4 * (3 * n + C), 2 * n))      # read x, b, g; write dx
+    fwd_k = lambda: fl.flr_forward(x, b, slope, scale)
+    bwd_k = lambda: fl.flr_backward(x, b, g, slope, scale)
+    fwd = dict(err=errs["y"], ms=graph_ms(fwd_k),
+               ms_with_host=cuda_ms(fwd_k), plain_ms=graph_ms(
+                   lambda: fused_leaky_relu(x, b, slope, scale)),
+               **bound(4 * (2 * n + C), 3 * n))      # read x, b; write y
+    bwd = dict(err=errs["dx"], db_err=errs["db"], ms=graph_ms(bwd_k),
+               ms_with_host=cuda_ms(bwd_k), plain_ms=graph_ms(
+                   lambda: fl.fused_leaky_relu_bwd_plain(x, b, g, slope,
+                                                         scale)),
+               **bound(4 * (3 * n + C), 2 * n))      # read x, b, g; write dx
     return fwd, bwd
+
+
+def run_pc_sampling(pc_sampling, argv):
+    """pc_sampling.main(argv), its output echoed indented: the samples, the
+    nfe its printed line gives, and that output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        samples = pc_sampling.main(argv)
+    for line in out.getvalue().splitlines():
+        print(f"    {line}", flush=True)
+    found = re.search(r"\(nfe=(\d+)\)", out.getvalue())
+    if found is None:
+        raise AssertionError("pc_sampling printed no nfe")
+    nfe = int(found.group(1))
+    return samples, nfe, out.getvalue()
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -325,7 +416,8 @@ def main() -> None:
     t = time.perf_counter()
     build = _build.build()
     ptxas = [line.strip() for line in build.log.splitlines()
-             if "registers" in line or "Compiling entry" in line]
+             if "registers" in line or "Compiling entry" in line
+             or "spill" in line]
     say("build", t, f"nvcc {build.seconds:.2f} s "
         f"({'reused' if build.seconds == 0.0 else 'built'}) -> {build.path}")
     for line in ptxas:
@@ -337,20 +429,25 @@ def main() -> None:
     k = tuple(cfg.model.fir_kernel)
     gen = torch.Generator().manual_seed(0)
     rows = {"up2x": [], "down2x": []}
+    rows8 = {"up2x": [], "down2x": []}
     with float32_exact():
         for name, C, R in fir_shapes(cfg):
             rows[name].append(kernel_numbers(name, C, R, k, fk, gen, BATCH))
-        train_err = {name: 0.0 for name in rows}
         for name, C, R in fir_shapes(cfg):
-            train_err[name] = max(train_err[name], kernel_numbers(
-                name, C, R, k, fk, gen, TRAIN_BATCH, timed=False)["err"])
-    summary = summarize(rows, "one forward")
-    for name, err in train_err.items():
-        summary[name]["err"] = max(summary[name]["err"], err)
+            rows8[name].append(kernel_numbers(name, C, R, k, fk, gen,
+                                              TRAIN_BATCH))
+    summary = summarize(rows, f"one forward at batch {BATCH}")
+    summary8 = summarize(rows8, f"one forward at batch {TRAIN_BATCH}")
+    for name in rows:
+        summary[name]["err"] = max(summary[name]["err"],
+                                   summary8[name]["err"])
+    host_us = host_us_per_launch(fk, k, fir_shapes(cfg))
     say("kernels", t, f"K1/K2 match their plain versions at all "
         f"{sum(len(r) for r in rows.values())} shapes of a forward, at batch "
-        f"{BATCH} and at batch {TRAIN_BATCH} (max_abs_err there {train_err}; "
-        f"rtol {KERNEL_RTOL})")
+        f"{BATCH} and at batch {TRAIN_BATCH} (max_abs_err at batch "
+        f"{TRAIN_BATCH} { {n: s['err'] for n, s in summary8.items()} }; rtol "
+        f"{KERNEL_RTOL}); host us per launch at the smallest shape "
+        f"{json.dumps(host_us)}")
 
     t = time.perf_counter()
     bwd_rows = {"up2x.bwd": [], "down2x.bwd": []}
@@ -391,14 +488,16 @@ def main() -> None:
         flr_rows["flr_fwd"].append(fwd)
         flr_rows["flr_bwd"].append(bwd)
         for name, r in (("flr_fwd", fwd), ("flr_bwd", bwd)):
-            print(f"    {name} {shape}: kernel_ms {r['ms']:.4f} plain_ms "
+            print(f"    {name} {shape}: kernel_ms device {r['ms']:.4f} "
+                  f"with host {r['ms_with_host']:.4f}, plain_ms "
                   f"{r['plain_ms']:.4f} library_ms: no single call, bound_us "
                   f"{1e3 * r['bound_ms']:.2f} ({r['bound_by']}) max_abs_err "
                   f"{r['err']:.3g}" + (f" (db {r['db_err']:.3g})"
                                        if "db_err" in r else ""), flush=True)
     for name, rs in flr_rows.items():
         tot = {key: sum(r[key] for r in rs) for key in
-               ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+               ("ms", "ms_with_host", "plain_ms", "bound_ms", "bytes_ms",
+                "ops_ms")}
         summary[name] = dict(tot, err=max(r["err"] for r in rs),
                              library_ms=None,
                              bound_by="bytes" if tot["bytes_ms"]
@@ -464,7 +563,7 @@ def main() -> None:
         fk.LAUNCHES.clear()
         torch.cuda.synchronize()
         t_run = time.perf_counter()
-        samples, nfe = pc_sampling.main([
+        samples, nfe, _ = run_pc_sampling(pc_sampling, [
             "--config", CONFIG, "--num_samples", str(BATCH), "--seed", "0",
             "--override", f"model.num_scales={NUM_SCALES}",
             "--save_dir", save_dir])
@@ -474,7 +573,9 @@ def main() -> None:
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated()
-    expect = {name: n * nfe for name, n in per_forward.items()}
+    # Each evaluation launches each kernel per_forward times: the counts
+    # hold the printed nfe to 2 per step (reverse diffusion + Langevin).
+    expect = {name: n * NUM_SCALES * 2 for name, n in per_forward.items()}
     if nfe != NUM_SCALES * 2:
         raise AssertionError(f"nfe {nfe} != {NUM_SCALES * 2}")
     if launches["sample"] != expect:
@@ -624,27 +725,24 @@ def main() -> None:
         # 8. sample_ckpt ----------------------------------------------------
         t = time.perf_counter()
         save_dir = os.path.join(log_dir, "samples")
-        out_text = io.StringIO()
         fk.LAUNCHES.clear()
-        with contextlib.redirect_stdout(out_text):
-            samples, nfe = pc_sampling.main([
-                "--config", CONFIG, "--num_samples", str(BATCH), "--seed",
-                "0", "--ckpt_dir", ckpt_dir, "--override",
-                f"model.num_scales={CKPT_NUM_SCALES}", "--save_dir",
-                save_dir])
+        samples, nfe, text = run_pc_sampling(pc_sampling, [
+            "--config", CONFIG, "--num_samples", str(BATCH), "--seed", "0",
+            "--ckpt_dir", ckpt_dir, "--override",
+            f"model.num_scales={CKPT_NUM_SCALES}", "--save_dir", save_dir])
         torch.cuda.synchronize()
         launches["sample_ckpt"] = dict(fk.LAUNCHES)
-        for line in out_text.getvalue().splitlines():
-            print(f"    {line}", flush=True)
-        expect = {name: n * nfe for name, n in per_forward.items()}
-        if f"restored step {TRAIN_STEPS} from" not in out_text.getvalue():
+        expect = {name: n * CKPT_NUM_SCALES * 2
+                  for name, n in per_forward.items()}
+        if f"restored step {TRAIN_STEPS} from" not in text:
             raise AssertionError("pc_sampling printed no restored step "
                                  f"{TRAIN_STEPS}")
         if samples.shape != (BATCH, size, size, ch) or not np.isfinite(
-                samples).all() or launches["sample_ckpt"] != expect:
+                samples).all() or launches["sample_ckpt"] != expect or \
+                nfe != CKPT_NUM_SCALES * 2:
             raise AssertionError(f"samples {samples.shape}, finite "
                                  f"{np.isfinite(samples).all()}, launches "
-                                 f"{launches['sample_ckpt']}")
+                                 f"{launches['sample_ckpt']}, nfe {nfe}")
         say("sample_ckpt", t, f"pc_sampling.main --ckpt_dir (the train "
             f"phase's checkpoint, EMA weights) num_scales {CKPT_NUM_SCALES}: "
             f"restored step {TRAIN_STEPS}, nfe {nfe}, finite samples "
@@ -665,7 +763,15 @@ def main() -> None:
             "launches_by_path": by_path, "max_abs_err": s["err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": s["library_ms"]})
+            "library_ms": s["library_ms"],
+            "ms_with_host": s["ms_with_host"]})
+        if name in summary8:
+            s8 = summary8[name]
+            kernels[-1][f"batch{TRAIN_BATCH}"] = {
+                key: s8[key] for key in ("ms", "ms_with_host", "plain_ms",
+                                         "library_ms", "bound_ms")}
+        if name in host_us:
+            kernels[-1]["host_us_per_launch"] = host_us[name]
     say("total", t0, "all phases passed")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

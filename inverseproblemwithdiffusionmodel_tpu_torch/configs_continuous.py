@@ -336,6 +336,6 @@ def make_sde(config):
                      sigma_max=m.sigma_max)
     if name in ("vpsde", "subvpsde"):
         raise NotImplementedError(
-            f"{config.training.sde} is not ported yet (ROADMAP: VP/subVP + "
-            "DDPM + with_conv FIR slice)")
+            f"{config.training.sde} is not ported yet (ROADMAP: Slice 2, "
+            "VP/subVP + DDPM)")
     raise ValueError(f"unknown SDE {config.training.sde!r}")

@@ -8,8 +8,9 @@ Module and parameter names are the JAX package's, so a Flax parameter tree
 maps onto a state dict name by name (utils/convert.py).
 
 FIR resampling goes through ops/fir_kernels.py, which launches the CUDA
-kernels for CUDA tensors. The FIR branches that fuse a convolution
-(`with_conv=True`) and the non-FIR resamplers belong to the DDPM++ slice and
+kernels for CUDA tensors; the FIR resamplers that fuse a convolution
+(`with_conv=True`) are plain PyTorch (ops/upfirdn2d.py), as the JAX package
+leaves them to XLA. The non-FIR resamplers belong to the DDPM++ slice and
 raise NotImplementedError.
 """
 from __future__ import annotations
@@ -22,9 +23,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fir_kernels import fir_downsample_2x, fir_upsample_2x
+from ..ops.upfirdn2d import conv_downsample_2d, upsample_conv_2d
 
-_NOT_PORTED = ("is not ported yet (ROADMAP: VP/subVP + DDPM + with_conv FIR "
-               "slice)")
+_NOT_PORTED = "is not ported yet (ROADMAP: Slice 2, VP/subVP + DDPM)"
 
 
 def default_init(tensor: torch.Tensor, fan_in: int, fan_out: int,
@@ -173,34 +174,53 @@ class AttnBlockpp(nn.Module):
         return out / math.sqrt(2.0) if self.skip_rescale else out
 
 
-class Upsample(nn.Module):
-    """2x FIR upsample (the NCSN++ output pyramid)."""
+class _FIRResample(nn.Module):
+    """2x FIR resampling, alone or fused with a 3x3 convolution
+    (`with_conv`; the parameters are the JAX package's `Conv2d_0_weight`,
+    (3, 3, in_ch, out_ch) HWIO, and `Conv2d_0_bias`). The resamplers
+    without FIR belong to a later slice and raise."""
 
-    def __init__(self, with_conv: bool = False, fir: bool = False,
-                 fir_kernel: Sequence[int] = (1, 3, 3, 1)):
+    def __init__(self, in_ch: Optional[int] = None,
+                 out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = False, fir_kernel: Sequence[int] = (1, 3, 3, 1)):
         super().__init__()
-        if not fir or with_conv:
+        if not fir:
             raise NotImplementedError(
-                f"Upsample(fir={fir}, with_conv={with_conv}) {_NOT_PORTED}")
+                f"{type(self).__name__}(fir={fir}, with_conv={with_conv}) "
+                f"{_NOT_PORTED}")
+        self.with_conv = with_conv
         self.fir_kernel = tuple(fir_kernel)
+        if with_conv:
+            if in_ch is None:
+                raise ValueError("with_conv needs in_ch")
+            out_ch = out_ch or in_ch
+            self.Conv2d_0_weight = nn.Parameter(default_init(
+                torch.empty(3, 3, in_ch, out_ch), 9 * in_ch, 9 * out_ch))
+            self.Conv2d_0_bias = nn.Parameter(torch.zeros(out_ch))
+
+
+class Upsample(_FIRResample):
+    """2x FIR upsample (the NCSN++ output pyramids): with_conv fuses a
+    transposed 3x3 conv (ops/upfirdn2d.upsample_conv_2d, plain PyTorch as
+    in the JAX package), else the FIR kernel K1."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fir_upsample_2x(x, self.fir_kernel)
+        if not self.with_conv:
+            return fir_upsample_2x(x, self.fir_kernel)
+        return upsample_conv_2d(x, self.Conv2d_0_weight, k=self.fir_kernel,
+                                factor=2) + self.Conv2d_0_bias
 
 
-class Downsample(nn.Module):
-    """2x FIR downsample (the NCSN++ input pyramid)."""
-
-    def __init__(self, with_conv: bool = False, fir: bool = False,
-                 fir_kernel: Sequence[int] = (1, 3, 3, 1)):
-        super().__init__()
-        if not fir or with_conv:
-            raise NotImplementedError(
-                f"Downsample(fir={fir}, with_conv={with_conv}) {_NOT_PORTED}")
-        self.fir_kernel = tuple(fir_kernel)
+class Downsample(_FIRResample):
+    """2x FIR downsample (the NCSN++ input pyramids): with_conv fuses a
+    strided 3x3 conv (ops/upfirdn2d.conv_downsample_2d), else the FIR
+    kernel K2."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fir_downsample_2x(x, self.fir_kernel)
+        if not self.with_conv:
+            return fir_downsample_2x(x, self.fir_kernel)
+        return conv_downsample_2d(x, self.Conv2d_0_weight, k=self.fir_kernel,
+                                  factor=2) + self.Conv2d_0_bias
 
 
 class ResnetBlockDDPMpp(nn.Module):

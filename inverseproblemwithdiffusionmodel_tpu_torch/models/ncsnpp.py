@@ -2,20 +2,21 @@
 
 Port of inverseproblemwithdiffusionmodel_tpu/models/ncsnpp.py: Fourier or
 positional noise embedding, the FIR input/output pyramids (`input_skip`,
-`output_skip`), BigGAN or DDPM residual blocks, attention at the configured
-resolutions and `scale_by_sigma` output division. `forward(x, time_cond)`
-takes channel-last x (N, H, W, C) and returns the same layout; for
-`embedding_type='fourier'` time_cond is the per-sample sigma values, for
-'positional' the integer ladder indices.
+`output_skip`, `residual`), BigGAN or DDPM residual blocks, attention at
+the configured resolutions and `scale_by_sigma` output division.
+`forward(x, time_cond)` takes channel-last x (N, H, W, C) and returns the
+same layout; for `embedding_type='fourier'` time_cond is the per-sample
+sigma values, for 'positional' the integer ladder indices.
 
 Modules are built in `__init__` by the same walk over levels that `forward`
 takes, and carry the Flax module names (`res_<i>`, `attn_d<level>_<block>`,
-`pyr_conv_<level>`, ...). The `residual` pyramids need the FIR branches that
-fuse a convolution, which are not ported yet.
+`pyr_conv_<level>`, ...). The `residual` pyramids resample through the FIR
+resamplers that fuse a convolution (layerspp `with_conv=True`).
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn as nn
@@ -44,7 +45,7 @@ class NCSNpp(nn.Module):
         attn_resolutions = tuple(m.attn_resolutions)
         self.conditional = m.conditional
         fir, fir_kernel = m.fir, tuple(m.fir_kernel)
-        skip_rescale = m.skip_rescale
+        self.skip_rescale = skip_rescale = m.skip_rescale
         self.resblock_type = resblock_type = m.resblock_type.lower()
         self.progressive = progressive = m.progressive.lower()
         self.progressive_input = progressive_input = m.progressive_input.lower()
@@ -58,9 +59,6 @@ class NCSNpp(nn.Module):
         if progressive_input not in ("none", "input_skip", "residual"):
             raise ValueError(f"progressive_input {progressive_input!r} "
                              "unrecognized")
-        if "residual" in (progressive, progressive_input):
-            raise NotImplementedError(
-                f"residual pyramids {layerspp._NOT_PORTED}")
         if embedding_type not in ("fourier", "positional"):
             raise ValueError(f"embedding type {embedding_type!r} unrecognized")
 
@@ -107,6 +105,7 @@ class NCSNpp(nn.Module):
         self.conv_in = conv3x3(channels, nf)
         hs_ch = [nf]
         in_ch = nf
+        pyr_ch = channels    # channels of the residual pyramid
         for i_level in range(num_resolutions):
             for i_block in range(num_res_blocks):
                 out_ch = nf * ch_mult[i_level]
@@ -128,6 +127,11 @@ class NCSNpp(nn.Module):
                         fir=fir, fir_kernel=fir_kernel, with_conv=False))
                     self.add_module(f"combine_{i_level}", layerspp.Combine(
                         channels, in_ch, method=m.progressive_combine.lower()))
+                elif progressive_input == "residual":
+                    self.add_module(f"pyr_down_{i_level}", layerspp.Downsample(
+                        in_ch=pyr_ch, out_ch=in_ch, fir=fir,
+                        fir_kernel=fir_kernel, with_conv=True))
+                    pyr_ch = in_ch
                 hs_ch.append(in_ch)
 
         add_rb(in_ch)
@@ -149,6 +153,17 @@ class NCSNpp(nn.Module):
                                 layerspp.GroupNorm(in_ch))
                 self.add_module(f"pyr_conv_{i_level}",
                                 conv3x3(in_ch, channels, init_scale))
+            elif progressive == "residual":
+                if i_level == num_resolutions - 1:
+                    self.add_module(f"pyr_norm_{i_level}",
+                                    layerspp.GroupNorm(in_ch))
+                    self.add_module(f"pyr_conv_{i_level}",
+                                    conv3x3(in_ch, in_ch))
+                else:
+                    self.add_module(f"pyr_up_{i_level}", layerspp.Upsample(
+                        in_ch=pyr_ch, out_ch=in_ch, fir=fir,
+                        fir_kernel=fir_kernel, with_conv=True))
+                pyr_ch = in_ch
             if i_level != 0:
                 if resblock_type == "ddpm":
                     self.add_module(f"up_{i_level}", layerspp.Upsample(
@@ -159,6 +174,10 @@ class NCSNpp(nn.Module):
         if progressive != "output_skip":
             self.norm_out = layerspp.GroupNorm(in_ch)
             self.conv_out = conv3x3(in_ch, channels, init_scale)
+
+    def _skip(self, s: torch.Tensor) -> torch.Tensor:
+        """A residual pyramid's sum, divided by sqrt(2) with skip_rescale."""
+        return s / math.sqrt(2.0) if self.skip_rescale else s
 
     def forward(self, x: torch.Tensor, time_cond: torch.Tensor
                 ) -> torch.Tensor:
@@ -206,6 +225,10 @@ class NCSNpp(nn.Module):
                     input_pyramid = getattr(self, f"pyr_down_{i_level}")(
                         input_pyramid)
                     h = getattr(self, f"combine_{i_level}")(input_pyramid, h)
+                elif self.progressive_input == "residual":
+                    input_pyramid = self._skip(getattr(
+                        self, f"pyr_down_{i_level}")(input_pyramid) + h)
+                    h = input_pyramid
                 hs.append(h)
 
         h = rb(hs[-1], temb)
@@ -227,6 +250,14 @@ class NCSNpp(nn.Module):
                 else:
                     pyramid = getattr(self, f"pyr_up_{i_level}")(pyramid) \
                         + pyramid_h
+            elif self.progressive == "residual":
+                if i_level == self.num_resolutions - 1:
+                    pyramid = getattr(self, f"pyr_conv_{i_level}")(
+                        act(getattr(self, f"pyr_norm_{i_level}")(h)))
+                else:
+                    pyramid = self._skip(getattr(
+                        self, f"pyr_up_{i_level}")(pyramid) + h)
+                    h = pyramid
             if i_level != 0:
                 if self.resblock_type == "ddpm":
                     h = getattr(self, f"up_{i_level}")(h)

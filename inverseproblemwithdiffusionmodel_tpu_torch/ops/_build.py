@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from typing import Optional, Tuple
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_ROOT = os.path.join(
@@ -81,9 +82,12 @@ def _key(sources) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> Build:
-    """Build the library if no build of these sources exists, then load it."""
-    sources = _sources()
+def build(sources: Optional[Tuple[str, ...]] = None) -> Build:
+    """Build the library if no build of these sources exists, then load it.
+    `sources` defaults to every csrc/*.cu; another set (the same C
+    functions from other files, as fir_ab.py builds a second version to
+    time against) gets a library of its own."""
+    sources = _sources() if sources is None else list(sources)
     out_dir = os.path.join(_BUILD_ROOT, _key(sources))
     path = os.path.join(out_dir, _LIB_NAME)
     log_path = path + ".log"

@@ -28,6 +28,8 @@ Layout is channel-last (N, H, W, C), float32, as in the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -44,7 +46,16 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 def _sep_kernel_1d(k: Optional[Sequence[float]], gain_per_axis: float
                    ) -> np.ndarray:
-    """The 4 taps of one axis: normalised, scaled, shorter kernels aligned."""
+    """The 4 taps of one axis: normalised, scaled, shorter kernels aligned.
+    Computed once per (k, gain) and shared, read-only: a model asks for
+    the same taps at every call."""
+    key = k if k is None or isinstance(k, tuple) else tuple(
+        np.ravel(k).tolist())
+    return _sep_taps(key, gain_per_axis)
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def _sep_taps(k: Optional[tuple], gain_per_axis: float) -> np.ndarray:
     k = np.asarray([1.0, 1.0] if k is None else k, dtype=np.float32)
     if not (k.ndim == 1 and 2 <= k.shape[0] <= 4):
         raise ValueError("the FIR kernels take separable kernels of length "
@@ -56,6 +67,7 @@ def _sep_kernel_1d(k: Optional[Sequence[float]], gain_per_axis: float
         # step); trailing zeros are inert.
         k = np.concatenate([np.zeros(1, np.float32), k,
                             np.zeros(3 - k.shape[0], np.float32)])
+    k.flags.writeable = False
     return k
 
 
@@ -96,6 +108,13 @@ def downsample2x_plain(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     return _down2_axis(_down2_axis(x, taps, 1), taps, 2)
 
 
+@functools.lru_cache(maxsize=None)
+def _c_launcher(name: str):
+    """The C launcher of one kernel, looked up once; the first lookup builds
+    the library (ops/_build.py)."""
+    return getattr(_build.build().lib, f"fir_{name}_f32")
+
+
 def _launch(name: str, x: torch.Tensor, out: torch.Tensor,
             taps: np.ndarray, tag: str) -> torch.Tensor:
     if x.dtype != torch.float32:
@@ -103,13 +122,16 @@ def _launch(name: str, x: torch.Tensor, out: torch.Tensor,
     if not x.is_contiguous():
         raise ValueError(f"{name}: the kernel takes a contiguous (N, H, W, C) "
                          "tensor")
-    lib = _build.build().lib
+    fn = _c_launcher(name)
     N, H, W, C = x.shape
-    t = [float(v) for v in taps]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"fir_{name}_f32")(
-            x.data_ptr(), out.data_ptr(), N, H, W, C, *t, *t, stream)
+    t = taps.tolist()
+    index = x.get_device()
+    # The device guard costs host time; it is needed only off the current
+    # device.
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
+        rc = fn(x.data_ptr(), out.data_ptr(), N, H, W, C, *t, *t,
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     LAUNCHES[tag] += 1

@@ -1,8 +1,10 @@
 """upfirdn2d (upsample -> FIR filter -> downsample) in plain PyTorch.
 
 Port of inverseproblemwithdiffusionmodel_tpu/ops/upfirdn2d.py. These are the
-plain versions behind the FIR kernels (ops/fir_kernels.py) and the general
-path the dispatchers take for shapes or filters the kernels do not handle.
+plain versions behind the FIR kernels (ops/fir_kernels.py), the general
+path the dispatchers take for shapes or filters the kernels do not handle,
+and the resamplers that fuse a convolution (`upsample_conv_2d`,
+`conv_downsample_2d`), which the JAX package leaves to XLA.
 
 Arrays are channel-last, as in the JAX package: x (N, H, W, C); filter
 k (kh, kw), applied to each channel.
@@ -81,3 +83,46 @@ def downsample_2d(x: torch.Tensor, k: Optional[Sequence[float]] = None,
     kern = _setup_kernel([1.0] * factor if k is None else k) * gain
     p = kern.shape[0] - factor
     return upfirdn2d(x, kern, down=factor, pad=((p + 1) // 2, p // 2))
+
+
+def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor,
+                     k: Optional[Sequence[float]] = None, factor: int = 2,
+                     gain: float = 1.0) -> torch.Tensor:
+    """Fused 2x transposed-conv upsample + FIR (N, H, W, C_in) ->
+    (N, factor H, factor W, C_out); w is (kh, kw, C_in, C_out), HWIO.
+
+    The JAX package correlates w with the zero-dilated, fully padded input
+    in one XLA convolution; conv_transpose2d with w flipped computes the
+    same. Plain PyTorch on every device: this path reaches no kernel.
+    """
+    if not (isinstance(factor, int) and factor >= 1):
+        raise ValueError(f"factor must be a positive int, got {factor!r}")
+    kh, kw = w.shape[0], w.shape[1]
+    if kh != kw:
+        raise ValueError(f"conv kernel must be square, got {kh}x{kw}")
+    kern = _setup_kernel([1.0] * factor if k is None else k) \
+        * (gain * factor ** 2)
+    p = (kern.shape[0] - factor) - (kw - 1)
+    weight = torch.flip(w.permute(2, 3, 0, 1), (2, 3))       # I O kh kw
+    out = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight, stride=factor)
+    return upfirdn2d(out.permute(0, 2, 3, 1), kern,
+                     pad=((p + 1) // 2 + factor - 1, p // 2 + 1))
+
+
+def conv_downsample_2d(x: torch.Tensor, w: torch.Tensor,
+                       k: Optional[Sequence[float]] = None, factor: int = 2,
+                       gain: float = 1.0) -> torch.Tensor:
+    """Fused FIR + strided-conv downsample (N, H, W, C_in) ->
+    (N, H / factor, W / factor, C_out); w is (kh, kw, C_in, C_out), HWIO.
+    Plain PyTorch on every device, as the JAX package leaves it to XLA."""
+    if not (isinstance(factor, int) and factor >= 1):
+        raise ValueError(f"factor must be a positive int, got {factor!r}")
+    kh, kw = w.shape[0], w.shape[1]
+    if kh != kw:
+        raise ValueError(f"conv kernel must be square, got {kh}x{kw}")
+    kern = _setup_kernel([1.0] * factor if k is None else k) * gain
+    p = (kern.shape[0] - factor) + (kw - 1)
+    x = upfirdn2d(x, kern, pad=((p + 1) // 2, p // 2))
+    out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                   stride=factor)
+    return out.permute(0, 2, 3, 1).contiguous()

@@ -25,7 +25,9 @@ from ..utils.convert import seeded_weights
 
 
 def main(argv=None):
-    """Run the sampler; returns (samples as an NHWC numpy array, nfe)."""
+    """Run the sampler; returns the samples as an NHWC numpy array, as the
+    JAX package's main does. The printed line gives the number of network
+    evaluations (nfe)."""
     p = argparse.ArgumentParser()
     p.add_argument("--config", default="ve/cifar10_ncsnpp_continuous")
     p.add_argument("--num_samples", type=int, default=4)
@@ -71,7 +73,7 @@ def main(argv=None):
     samples = samples.cpu().numpy()
     run_dir = save_artifacts(args.save_dir, vars(args), samples=samples)
     print(f"{samples.shape} samples (nfe={nfe}) -> {run_dir}")
-    return samples, nfe
+    return samples
 
 
 if __name__ == "__main__":

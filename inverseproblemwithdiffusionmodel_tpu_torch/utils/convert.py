@@ -7,7 +7,8 @@ port's state dict, name by name (the port keeps the Flax module names):
 - conv kernels (kh, kw, I, O) -> weight (O, I, kh, kw), no flip;
 - Dense kernels (in, out) -> Linear weight (out, in);
 - GroupNorm scale / bias -> weight / bias;
-- NIN W / b, the Fourier W and Conv2d_0_weight / _bias keep name and layout.
+- NIN W / b, the Fourier W and the fused resamplers' Conv2d_0_weight
+  (kh, kw, I, O) / Conv2d_0_bias keep name and layout.
 """
 from __future__ import annotations
 
@@ -107,6 +108,11 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
                 draw(module.bias, 0.1)
             elif isinstance(module, layerspp.GaussianFourierProjection):
                 draw(module.W, module.scale)
+            elif isinstance(module, (layerspp.Upsample, layerspp.Downsample)
+                            ) and module.with_conv:
+                fan_in = module.Conv2d_0_weight[..., 0].numel()
+                draw(module.Conv2d_0_weight, std_scale / math.sqrt(fan_in))
+                draw(module.Conv2d_0_bias, std_scale / math.sqrt(fan_in))
             elif list(module.parameters(recurse=False)):
                 raise TypeError(f"seeded_weights: no rule for the parameters "
                                 f"of {name} ({type(module).__name__})")

@@ -114,18 +114,59 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert sum(fk.LAUNCHES.values()) == 0
 
 
+# (N, H, W, C) for the card tests: the main path's widths, C % 4 != 0
+# (the kernels' scalar variant), C not a multiple of the 8 channel vectors
+# a block takes (132), H != W, sizes that are no multiple of the 32-column
+# tile or of the row chunk, R = 1 (up only), N = 1 and 3.
+CARD_SHAPES = [(2, 64, 64, 128), (2, 8, 8, 3), (2, 4, 4, 256), (2, 6, 6, 5),
+               (1, 6, 10, 6), (3, 10, 6, 12), (1, 2, 2, 132),
+               (3, 34, 66, 132), (1, 70, 2, 8), (3, 12, 36, 3)]
+UP_ONLY_SHAPES = [(1, 1, 1, 4), (3, 1, 5, 3), (1, 7, 3, 12)]
+
+
+def card_close(out, ref):
+    """The kernel's output against its plain version: within 1e-5 of the
+    largest |value| (float32 sums in another order, fused multiply-adds)."""
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     gen = torch.Generator().manual_seed(0)
-    for C, R in [(128, 64), (3, 8), (256, 4), (5, 6)]:
-        x = torch.randn(2, R, R, C, generator=gen).cuda()
+    for shape in CARD_SHAPES + UP_ONLY_SHAPES:
+        x = torch.randn(*shape, generator=gen).cuda()
         for k in KERNELS:
-            up = fk.upsample2x(x, k)
-            dn = fk.downsample2x(x, k)
-            torch.cuda.synchronize()
-            ref_up = fk.upsample2x_plain(x, fk._sep_kernel_1d(k, 2.0))
-            ref_dn = fk.downsample2x_plain(x, fk._sep_kernel_1d(k, 1.0))
-            torch.testing.assert_close(up, ref_up, rtol=1e-5, atol=1e-5)
-            torch.testing.assert_close(dn, ref_dn, rtol=1e-5, atol=1e-5)
+            for gain in GAINS:
+                fk.LAUNCHES.clear()
+                card_close(fk.upsample2x(x, k, gain), fk.upsample2x_plain(
+                    x, fk._sep_kernel_1d(k, 2.0 * gain ** 0.5)))
+                if shape in UP_ONLY_SHAPES:
+                    assert fk.LAUNCHES == {"up2x": 1}
+                    continue
+                card_close(fk.downsample2x(x, k, gain),
+                           fk.downsample2x_plain(
+                               x, fk._sep_kernel_1d(k, gain ** 0.5)))
+                assert fk.LAUNCHES == {"up2x": 1, "down2x": 1}
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_take_unaligned_tensors():
+    # A view 4 bytes into its storage: C % 4 == 0, but the float4 loads
+    # would be misaligned, so the launcher picks the scalar variant.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator().manual_seed(1)
+    for N, H, W, C in [(2, 8, 8, 128), (1, 6, 10, 12)]:
+        flat = torch.randn(N * H * W * C + 1, generator=gen).cuda()
+        x = flat[1:].view(N, H, W, C)
+        assert x.data_ptr() % 16 != 0
+        card_close(fk.upsample2x(x, (1, 3, 3, 1)),
+                   fk.upsample2x_plain(x, fk._sep_kernel_1d((1, 3, 3, 1),
+                                                            2.0)))
+        card_close(fk.downsample2x(x, (1, 3, 3, 1)),
+                   fk.downsample2x_plain(x, fk._sep_kernel_1d((1, 3, 3, 1),
+                                                              1.0)))

@@ -142,26 +142,31 @@ def test_cpu_backward_launches_nothing_and_routes_by_direction(monkeypatch):
 
 @pytest.mark.gpu
 def test_cuda_backward_matches_plain_transpose():
+    # The kernels on reversed taps through the autograd Functions, at the
+    # edges of their tiling (test_torch_fir.CARD_SHAPES).
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from test_torch_fir import CARD_SHAPES, card_close
     gen = torch.Generator().manual_seed(0)
-    for C, R in [(128, 64), (3, 8), (256, 4), (5, 6)]:
+    for N, H, W, C in CARD_SHAPES:
         for k in KERNELS:
-            x = torch.randn(2, R, R, C, generator=gen).cuda()
-            x.requires_grad_()
-            g_up = torch.randn(2, 2 * R, 2 * R, C, generator=gen).cuda()
-            g_dn = torch.randn(2, R // 2, R // 2, C, generator=gen).cuda()
-            fk.LAUNCHES.clear()
-            (dx_up,) = torch.autograd.grad(fk.upsample2x(x, k), x, g_up)
-            (dx_dn,) = torch.autograd.grad(fk.downsample2x(x, k), x, g_dn)
-            torch.cuda.synchronize()
-            assert fk.LAUNCHES == {"up2x": 1, "down2x": 1, "up2x.bwd": 1,
-                                   "down2x.bwd": 1}
-            up_taps, dn_taps = fk._sep_kernel_1d(k, 2.0), \
-                fk._sep_kernel_1d(k, 1.0)
-            torch.testing.assert_close(
-                dx_up, fk.downsample2x_plain(g_up, up_taps[::-1].copy()),
-                rtol=1e-5, atol=1e-5)
-            torch.testing.assert_close(
-                dx_dn, fk.upsample2x_plain(g_dn, dn_taps[::-1].copy()),
-                rtol=1e-5, atol=1e-5)
+            for gain in GAINS:
+                x = torch.randn(N, H, W, C, generator=gen).cuda()
+                x.requires_grad_()
+                g_up = torch.randn(N, 2 * H, 2 * W, C, generator=gen).cuda()
+                g_dn = torch.randn(N, H // 2, W // 2, C,
+                                   generator=gen).cuda()
+                fk.LAUNCHES.clear()
+                (dx_up,) = torch.autograd.grad(fk.upsample2x(x, k, gain), x,
+                                               g_up)
+                (dx_dn,) = torch.autograd.grad(fk.downsample2x(x, k, gain),
+                                               x, g_dn)
+                torch.cuda.synchronize()
+                assert fk.LAUNCHES == {"up2x": 1, "down2x": 1,
+                                       "up2x.bwd": 1, "down2x.bwd": 1}
+                up_taps = fk._sep_kernel_1d(k, 2.0 * gain ** 0.5)
+                dn_taps = fk._sep_kernel_1d(k, gain ** 0.5)
+                card_close(dx_up, fk.downsample2x_plain(
+                    g_up, up_taps[::-1].copy()))
+                card_close(dx_dn, fk.upsample2x_plain(
+                    g_dn, dn_taps[::-1].copy()))

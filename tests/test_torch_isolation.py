@@ -2,12 +2,15 @@
 msgpack and no module of the JAX package, and its entry points refuse to
 fall back to the CPU when asked for the card."""
 import ast
+import contextlib
 import importlib
+import io
 import os
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,6 +28,7 @@ def _sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "fir_ab.py")
 
 
 def _imported_roots(path):
@@ -83,15 +87,18 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path, script):
 
 def test_entry_point_runs_on_the_cpu_when_asked(tmp_path):
     from inverseproblemwithdiffusionmodel_tpu_torch.scripts import pc_sampling
-    samples, nfe = pc_sampling.main([
-        "--config", "ve/ffhq_256_ncsnpp_continuous", "--num_samples", "2",
-        "--device", "cpu", "--save_dir", str(tmp_path),
-        "--override", "data.image_size=16", "--override", "model.nf=16",
-        "--override", "model.ch_mult=(1, 2, 2)",
-        "--override", "model.num_res_blocks=1",
-        "--override", "model.attn_resolutions=(8,)",
-        "--override", "model.num_scales=2"])
-    assert samples.shape == (2, 16, 16, 3) and nfe == 4
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        samples = pc_sampling.main([
+            "--config", "ve/ffhq_256_ncsnpp_continuous", "--num_samples",
+            "2", "--device", "cpu", "--save_dir", str(tmp_path),
+            "--override", "data.image_size=16", "--override", "model.nf=16",
+            "--override", "model.ch_mult=(1, 2, 2)",
+            "--override", "model.num_res_blocks=1",
+            "--override", "model.attn_resolutions=(8,)",
+            "--override", "model.num_scales=2"])
+    assert isinstance(samples, np.ndarray)
+    assert samples.shape == (2, 16, 16, 3) and "(nfe=4)" in out.getvalue()
     (run_dir,) = list(tmp_path.iterdir())
     assert sorted(os.listdir(run_dir)) == ["args.json", "samples.npy"]
 

@@ -215,10 +215,14 @@ def test_timestep_embedding_matches_jax():
 
 
 def test_resamplers_with_conv_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Only the FIR resamplers are ported, alone or fused with a conv; the
+    # conv-fused ones need the input channels.
+    for cls in (layerspp.Upsample, layerspp.Downsample):
+        for with_conv in (False, True):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                cls(in_ch=4, with_conv=with_conv, fir=False)
+    with pytest.raises(ValueError, match="in_ch"):
         layerspp.Upsample(with_conv=True, fir=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layerspp.Downsample(with_conv=False, fir=False)
 
 
 def test_seeded_weights_are_deterministic_and_not_vanishing():
