@@ -68,8 +68,21 @@ phases, each printing one line with its own seconds:
    against float32; one chain on the card against the CPU, same noise,
    float32 mode: the score at the first and last levels, the proximal's
    correction at the step's c and at c = 1, and a whole inner step at the
-   first and last levels. Phases 9 and 10 launch none of K1, K2 or K4
-   (checked).
+   first and last levels.
+11. serve: the serving entry point at the recon geometry, for f32 and
+   bf16: scripts.serve_recon.build_engine (weights from seed 0), the
+   engine's warm-up, 3 requests over HTTP on 127.0.0.1 (npz in and out:
+   the default operator; a new R = 8 mask with lr_scaled 3.0; new coil
+   maps) and one in-process request: shapes, finite values, headers,
+   /healthz's request count, one input signature, chain-steps/s per
+   request, warm-up seconds, peak memory; the f32 engine against
+   make_stepped_pair_reconstructor on the same problem and seed in the
+   float32 mode; a guided bf16 engine (the full-width seg UNet, seed 0) on
+   a disk label, one request over HTTP and one in-process; card against
+   CPU on one chain: a guided inner step at the last level (float32
+   mode), the guidance gradient in float64, and the card's float32
+   gradient against the float64 one. Phases 9 to 11
+   launch none of K1, K2 or K4 (checked).
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -77,9 +90,9 @@ benchmark mode on, since its heuristics would pick an FFT convolution at
 batch >= 2; PERF.md), so the card computes in float32 like the reference.
 The sampling and training runs themselves use torch's defaults, as a
 user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
-before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon)
-and read just after it. Any failure raises and exits non-zero. Phases 9
-and 10 print their numbers as one JSON line before `total`. The last
+before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
+serve) and read just after it. Any failure raises and exits non-zero.
+Phases 9 to 11 print their numbers as one JSON line before `total`. The last
 lines are nvidia-smi's name and power limit, a JSON line of per-kernel
 numbers, and
 `{"ok": true, "device": {...}}`. In the JSON line `ms`, `plain_ms` and
@@ -113,6 +126,12 @@ MODEL_REL_L2 = 1e-4        # card vs CPU forward, float32 with TF32 off
 BF16_REL_L2 = 1e-2         # bf16 net vs float32, whole reconstruction: the
                            # score's bf16 error (about 1e-2) enters scaled
                            # by the step beside the shared injected noise
+ENGINE_REL_L2 = 1e-5       # serving engine vs the direct reconstructor: the
+                           # same operations on the card, float32 mode
+SEG_F64_REL_L2 = 1e-10     # the seg guidance gradient card vs CPU, float64
+SEG_F32_REL_L2 = 5e-3      # the card's float32 seg gradient vs float64:
+                           # float32 loses up to about 3e-3 in the UNet's
+                           # instance norms (PERF.md); TF32 about 3e-2
 TRAIN_BATCH = 8            # the leaf's 64, reduced
 TRAIN_STEPS = 6
 CKPT_NUM_SCALES = 10
@@ -647,6 +666,288 @@ def recon_phase(fk, fl, device="cuda") -> dict:
     return numbers
 
 
+def serve_argv(dtype: str) -> list:
+    """scripts.serve_recon's flags for acdc_problem's geometry, weights
+    drawn from seed 0 (no --ckpt_dir)."""
+    return ["--ds_name", "ACDC", "--R", str(ACDC_R), "--num_sens",
+            str(ACDC_COILS), "--synth_sens", "--chains", str(ACDC_CHAINS),
+            "--levels", str(ACDC_LEVELS), "--lr_scaled", str(ACDC_LR_SCALED),
+            "--prox_iters", str(ACDC_CG_ITERS), "--dtype", dtype, "--mode",
+            "steps", "--seed", "0", "--device", "cuda"]
+
+
+def disk_label(size: int) -> np.ndarray:
+    """A (size, size) int map: 1 inside a centred disk of radius size / 4."""
+    hh, ww = np.mgrid[0:size, 0:size] - (size - 1) / 2
+    return (hh ** 2 + ww ** 2 <= (size / 4) ** 2).astype(np.int64)
+
+
+def post_npz(url: str, **arrays):
+    """POST an npz body; returns (the response's arrays, its headers, the
+    client's wall seconds for the round trip)."""
+    import urllib.request
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+    t_req = time.perf_counter()
+    with urllib.request.urlopen(req) as r:
+        body = r.read()
+        headers = dict(r.headers)
+    wall = time.perf_counter() - t_req
+    with np.load(io.BytesIO(body), allow_pickle=False) as npz:
+        out = {k: npz[k] for k in npz.files}
+    return out, headers, wall
+
+
+def serve_requests(eng, requests, chain_steps: int) -> dict:
+    """Serve `eng` on 127.0.0.1 (a free port) and POST each (query,
+    arrays) of `requests`: every response holds the six arrays at their
+    shapes, finite, and both headers; then /healthz counts the requests.
+    Per request: the engine's latency and chain-steps/s (headers) and the
+    client's round trip."""
+    import urllib.request
+    from inverseproblemwithdiffusionmodel_tpu_torch.serving.server import (
+        serve)
+    s = eng.spec
+    image = (s.height, s.width, s.channels)
+    shapes = {"x_re": (s.chains,) + image, "x_im": (s.chains,) + image,
+              "mean_re": image, "mean_im": image, "mean_mag": image,
+              "std_mag": image}
+    before = eng.stats()["requests"]
+    httpd = serve(eng, "127.0.0.1", 0, background=True)
+    rows = []
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        for query, arrays in requests:
+            out, headers, wall = post_npz(f"{base}/reconstruct?{query}",
+                                          **arrays)
+            got = {k: v.shape for k, v in out.items()}
+            finite = {k: bool(np.isfinite(v).all()) for k, v in out.items()}
+            if got != shapes or not all(finite.values()):
+                raise AssertionError(f"response {query}: shapes {got}, "
+                                     f"finite {finite}")
+            if not {"X-Latency-S", "X-Chain-Steps-Per-S"} <= set(headers):
+                raise AssertionError(f"response {query}: headers {headers}")
+            rows.append(dict(
+                query=query, latency_s=float(headers["X-Latency-S"]),
+                chain_steps_per_s=float(headers["X-Chain-Steps-Per-S"]),
+                client_s=wall, client_chain_steps_per_s=chain_steps / wall))
+        with urllib.request.urlopen(f"{base}/healthz") as r:
+            health = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if health["requests"] != before + len(requests):
+        raise AssertionError(f"/healthz counts {health['requests']} "
+                             f"requests, expected {before + len(requests)}")
+    return dict(requests=rows, healthz_requests=health["requests"])
+
+
+def serve_phase(fk, fl, device="cuda") -> dict:
+    """The serving entry point at acdc_problem's geometry: for f32 and bf16
+    in turn, scripts.serve_recon.build_engine (weights from seed 0), its
+    warm-up, 3 requests over HTTP on 127.0.0.1 (the default operator, seed
+    0; a new R = 8 mask, seed 1, lr_scaled 3.0; new coil maps, seed 2) and
+    one in-process request; one input signature over them; peak memory.
+    The f32 engine against make_stepped_pair_reconstructor on
+    acdc_problem's operator, same measurement and seed, float32 mode. A
+    guided bf16 engine (the full-width seg UNet of load_general_config,
+    seed 0, seg_lamda 1.0 from the first level) on a disk label: one
+    request over HTTP and one in-process. Card against CPU on one chain:
+    a guided inner step at the last level (float32 mode) and
+    compute_seg_grad (float64; float32 against float64). None of K1, K2 or
+    K4 launches."""
+    import dataclasses
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        load_model, make_seg_fn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.fourier import (
+        MASK_PRESETS, _exp_sens_map)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.masks import (
+        generate_mask)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.pair import (
+        PairL2Penalty)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
+        ALDConfig, compute_seg_grad)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald_pair import (
+        make_stepped_pair_reconstructor)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        serve_recon)
+    from inverseproblemwithdiffusionmodel_tpu_torch.serving import (
+        ReconstructionEngine)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.misc import (
+        stack_parts)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    cfg = load_config("ACDC", "real-imag")
+    size = cfg.data.image_size
+    lin_tfm, proximal, sigmas, yr, yi = acdc_problem(cfg, device)
+    # the single-copy measurement of chain 0, as a client sends it
+    y_re, y_im = (v[:, 0].cpu().numpy() for v in (yr, yi))
+    mask1 = generate_mask(1, size, seed=1, **MASK_PRESETS[ACDC_R])
+    maps = np.stack([_exp_sens_map(size, size, 10 + i)
+                     for i in range(ACDC_COILS)])
+    maps = (maps / np.sqrt((maps ** 2).sum(axis=0, keepdims=True)))[..., None]
+    requests = [("seed=0", dict(y_re=y_re, y_im=y_im)),
+                ("seed=1&lr_scaled=3.0", dict(y_re=y_re, y_im=y_im,
+                                              mask=mask1)),
+                ("seed=2", dict(y_re=y_re, y_im=y_im, sens_re=maps))]
+    n_steps = cfg.sampling.n_steps_each
+    chain_steps = ACDC_LEVELS * n_steps * ACDC_CHAINS
+    numbers = dict(chain_steps=chain_steps)
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    for name in ("f32", "bf16"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_build = time.perf_counter()
+        eng = serve_recon.build_engine(serve_recon.parse_args(
+            serve_argv(name)))
+        build_s = time.perf_counter() - t_build
+        warmup_s = eng.warmup()
+        served = serve_requests(eng, requests, chain_steps)
+        res = eng.reconstruct(y_re, y_im, seed=3)
+        # host work of a request outside the engine's latency: the normal
+        # kernel (a W x W einsum) before it, the npz encoding after it
+        t_host = time.perf_counter()
+        PairL2Penalty.with_normal_kernel(eng.default_lin_tfm,
+                                         num_iters=ACDC_CG_ITERS)
+        kernel_s = time.perf_counter() - t_host
+        t_host = time.perf_counter()
+        np.savez(io.BytesIO(), **res.to_npz_dict())
+        npz_s = time.perf_counter() - t_host
+        stats = eng.stats()
+        if stats["input_signatures"] != 1 or stats["requests"] != 4:
+            raise AssertionError(f"{name} engine stats {stats}")
+        if not (np.isfinite(res.x_re).all() and np.isfinite(res.x_im).all()):
+            raise AssertionError(f"{name} in-process request not finite")
+        numbers[name] = dict(
+            build_s=build_s, warmup_s=warmup_s, **served,
+            normal_kernel_s=kernel_s, npz_encode_s=npz_s,
+            in_process=dict(latency_s=res.latency_s,
+                            chain_steps_per_s=res.chain_steps_per_s),
+            input_signatures=stats["input_signatures"],
+            peak=torch.cuda.max_memory_allocated())
+        if name == "f32":
+            # the engine against the direct path on acdc_problem's
+            # operator (built apart from serve_recon's), float32 mode
+            ald_cfg = ALDConfig(n_steps_each=n_steps,
+                                step_lr=cfg.sampling.step_lr)
+            with float32_exact():
+                ours = eng.reconstruct(y_re, y_im, seed=5)
+                recon = make_stepped_pair_reconstructor(
+                    eng.model, sigmas, lin_tfm, proximal, ald_cfg,
+                    lr_scaled=ACDC_LR_SCALED, device=device)
+                shape = (ACDC_COILS, ACDC_CHAINS) + tuple(yr.shape[2:])
+                ref = recon(yr[:, :1].expand(shape).contiguous(),
+                            yi[:, :1].expand(shape).contiguous(), seed=5)
+            numbers["engine_vs_direct_rel_l2"] = max(
+                rel_l2(torch.from_numpy(a), b.cpu())
+                for a, b in zip((ours.x_re, ours.x_im), ref))
+            if not numbers["engine_vs_direct_rel_l2"] <= ENGINE_REL_L2:
+                raise AssertionError(
+                    f"engine vs make_stepped_pair_reconstructor: rel L2 "
+                    f"{numbers['engine_vs_direct_rel_l2']}")
+            del recon, ref
+            del eng
+            continue
+        # the guided bf16 engine: the bf16 engine's net and operator, and
+        # the full-width seg UNet
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seg_cpu, _ = load_model(None, "Seg", seed=0)
+        label = disk_label(size)
+        spec = dataclasses.replace(eng.spec, seg_lamda=1.0,
+                                   seg_start_time=0.0)
+        t_build = time.perf_counter()
+        guided = ReconstructionEngine(
+            eng.model, eng.sigmas, spec=spec,
+            mask=eng.default_lin_tfm.mask.cpu().numpy(),
+            sens_re=eng.default_lin_tfm.sens_re.cpu().numpy(),
+            seg_model=copy.deepcopy(seg_cpu), device=device)
+        build_s = time.perf_counter() - t_build
+        warmup_s = guided.warmup()
+        served = serve_requests(guided, [("seed=0", dict(
+            y_re=y_re, y_im=y_im, seg_label=label))], chain_steps)
+        res = guided.reconstruct(y_re, y_im, seed=3, seg_label=label)
+        if not (np.isfinite(res.x_re).all() and np.isfinite(res.x_im).all()):
+            raise AssertionError("guided in-process request not finite")
+        numbers["guided_bf16"] = dict(
+            build_s=build_s, warmup_s=warmup_s, **served,
+            in_process=dict(latency_s=res.latency_s,
+                            chain_steps_per_s=res.chain_steps_per_s),
+            input_signatures=guided.stats()["input_signatures"],
+            peak=torch.cuda.max_memory_allocated(),
+            seg_params=sum(p.numel() for p in seg_cpu.parameters()))
+        seg_dev = guided.seg_model
+        del guided, eng
+    no_kernel_launches(fk, fl, "the serving phase")
+    torch.cuda.empty_cache()
+
+    # Card against CPU, one chain. The guided inner step at the last level
+    # (the ramp's weight is 0 at the first level and 1 at the last), float32
+    # mode. The guidance gradient at the chain's start, on the same input
+    # on both devices: in float64 (the same function), and each device's
+    # float32 gradient against the CPU's float64 one. In float32 the
+    # gradient loses digits in the backward through the UNet's instance
+    # norms, 4e-4 to 3e-3 on the card and up to 8e-4 on the CPU at 256 px
+    # (PERF.md), so the card's float32 gradient is held to the
+    # float64 one at SEG_F32_REL_L2, not to the CPU's float32 result.
+    _, model_cpu = acdc_model()
+    model = copy.deepcopy(model_cpu).to(device)
+    one = ALDConfig(n_steps_each=1, step_lr=cfg.sampling.step_lr,
+                    denoise=False)
+    gen = torch.Generator().manual_seed(6)
+    draws = [torch.randn((1,) + tuple(yr.shape[2:]), generator=gen)
+             for _ in range(2)]
+    label1 = torch.from_numpy(label)[None]
+    last = ACDC_LEVELS - 1
+    steps = []
+    with float32_exact():
+        for dev, net, seg in ((device, model, seg_dev),
+                              ("cpu", model_cpu, seg_cpu)):
+            recon = make_stepped_pair_reconstructor(
+                net, sigmas, lin_tfm, proximal, one,
+                lr_scaled=ACDC_LR_SCALED, seg_fn=make_seg_fn(seg),
+                seg_label=label1, seg_lamda=1.0, seg_start_time=0.0,
+                device=dev)
+            with torch.no_grad():
+                y1 = yr[:, :1].to(dev), yi[:, :1].to(dev)
+                xr, xi, prox = recon.start(*y1)
+                it = iter(d.to(dev) for d in draws)
+                steps.append([v.cpu() for v in recon.level_step(
+                    prox, xr, xi, *y1, last, lambda s: next(it))])
+        # the chain's start on the CPU (the last loop pass), both labels
+        stacked = stack_parts(xr, xi)
+        label2 = recon.seg_label2
+        grads = {}
+        for dev, seg in ((device, seg_dev), ("cpu", seg_cpu)):
+            for dtype in (torch.float32, torch.float64):
+                net = copy.deepcopy(seg).to(dev, dtype)
+                grads[dev, dtype] = compute_seg_grad(
+                    make_seg_fn(net), stacked.to(dev, dtype),
+                    label2.to(dev)).cpu()
+                del net
+    exact = grads["cpu", torch.float64]
+    checks = {
+        f"guided_step_level{last}": max(rel_l2(a, b) for a, b in
+                                        zip(*steps)),
+        "seg_grad_f64": rel_l2(grads[device, torch.float64], exact),
+        "seg_grad_f32_card_vs_f64": rel_l2(grads[device, torch.float32],
+                                           exact),
+        "seg_grad_f32_cpu_vs_f64": rel_l2(grads["cpu", torch.float32],
+                                          exact),
+        "seg_grad_f32_card_vs_cpu": rel_l2(grads[device, torch.float32],
+                                           grads["cpu", torch.float32])}
+    numbers["guided_card_vs_cpu_rel_l2"] = checks
+    if not (checks[f"guided_step_level{last}"] <= MODEL_REL_L2
+            and checks["seg_grad_f64"] <= SEG_F64_REL_L2
+            and checks["seg_grad_f32_card_vs_f64"] <= SEG_F32_REL_L2):
+        raise AssertionError(f"guided card vs CPU: rel L2 {checks}")
+    return numbers
+
+
 def profile_level(recon, yr, yi, n_steps, device) -> dict:
     """One level step (n_steps inner steps) of `recon` timed by CUDA events
     and by the host clock, then the same under torch.profiler: the top 10
@@ -1116,7 +1417,44 @@ def main() -> None:
         f"(1 chain, float32 mode) rel L2 "
         f"{json.dumps(rec['card_vs_cpu_rel_l2'])} (each <= {MODEL_REL_L2}); "
         f"no K1/K2/K4 launch")
-    print(json.dumps({"ncsnv2": nv2, "recon": rec}), flush=True)
+
+    # 11. serve ---------------------------------------------------------------
+    t = time.perf_counter()
+    srv = serve_phase(fk, fl)
+    launches["serve"] = {}
+    for name in ("f32", "bf16", "guided_bf16"):
+        r = srv[name]
+        http = ", ".join(
+            f"{q['query']}: {q['chain_steps_per_s']:.2f} (engine) / "
+            f"{q['client_chain_steps_per_s']:.2f} (client, "
+            f"{q['client_s']:.4f} s)" for q in r["requests"])
+        print(f"    {name}: build {r['build_s']:.2f} s, warm-up "
+              f"{r['warmup_s']:.2f} s; chain-steps/s over HTTP {http}; "
+              f"in-process {r['in_process']['chain_steps_per_s']:.2f} "
+              f"({r['in_process']['latency_s']:.4f} s); /healthz requests "
+              f"{r['healthz_requests']}; input signatures "
+              f"{r['input_signatures']}; peak {r['peak']} bytes" + (
+                  f"; host: normal kernel {r['normal_kernel_s']:.4f} s, "
+                  f"npz encoding {r['npz_encode_s']:.4f} s"
+                  if "normal_kernel_s" in r else ""), flush=True)
+    say("serve", t, f"serve_recon.build_engine + serving.server at the recon "
+        f"geometry, 3 requests over HTTP per engine (default operator; new "
+        f"R = {ACDC_R} mask, lr_scaled 3.0; new coil maps) and one "
+        f"in-process: f32 "
+        f"{srv['f32']['in_process']['chain_steps_per_s']:.2f} chain-steps/s "
+        f"in-process, bf16 "
+        f"{srv['bf16']['in_process']['chain_steps_per_s']:.2f}, guided bf16 "
+        f"(seg UNet {srv['guided_bf16']['seg_params']} params) "
+        f"{srv['guided_bf16']['in_process']['chain_steps_per_s']:.2f}; "
+        f"engine vs make_stepped_pair_reconstructor (float32 mode) rel L2 "
+        f"{srv['engine_vs_direct_rel_l2']:.3g} (<= {ENGINE_REL_L2}); guided "
+        f"card vs CPU (1 chain) rel L2 "
+        f"{json.dumps(srv['guided_card_vs_cpu_rel_l2'])} (the step <= "
+        f"{MODEL_REL_L2} in the float32 mode, the float64 gradient <= "
+        f"{SEG_F64_REL_L2}, the card's float32 gradient vs float64 <= "
+        f"{SEG_F32_REL_L2}); one input signature per engine; no K1/K2/K4 "
+        f"launch")
+    print(json.dumps({"ncsnv2": nv2, "recon": rec, "serve": srv}), flush=True)
 
     kernels = []
     for name in ("up2x", "down2x", "up2x.bwd", "down2x.bwd", "flr_fwd",

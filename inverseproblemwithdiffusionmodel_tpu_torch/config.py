@@ -1,8 +1,9 @@
 """Nested attribute-access config and the dataset config loader.
 
-Port of `Config` and `load_config` of inverseproblemwithdiffusionmodel_tpu/
-config.py. The YAML files stay behind: the port's configs are built in code
-(configs_continuous.py, configs_discrete.py).
+Port of `Config`, `load_config` and `load_general_config` of
+inverseproblemwithdiffusionmodel_tpu/config.py. The YAML files stay behind:
+the port's configs are built in code (configs_continuous.py,
+configs_discrete.py).
 """
 from __future__ import annotations
 
@@ -77,3 +78,10 @@ def load_config(ds_name: str, mode: str = "real-valued", **overrides: Any
     if overrides:
         config = config.replace(**overrides)
     return config
+
+
+def load_general_config() -> Config:
+    """The Seg / Clf architecture and trainer constants, as the JAX
+    package's `load_general_config` reads them from general_config.yml."""
+    from .configs_discrete import GENERAL
+    return Config(copy.deepcopy(GENERAL))

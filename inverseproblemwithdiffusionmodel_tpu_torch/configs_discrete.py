@@ -3,7 +3,8 @@
 The JAX package reads these from YAML files (inverseproblemwithdiffusion
 model_tpu/configs/*.yml through `config.load_config`); the port keeps the
 same trees as dicts so it needs no yaml. Only ACDC is ported so far
-(configs/acdc.yml).
+(configs/acdc.yml), with the Seg / Clf architecture and trainer constants
+of configs/general_config.yml (`GENERAL`).
 """
 from __future__ import annotations
 
@@ -51,3 +52,20 @@ ACDC = {
 }
 
 DATASETS = {"ACDC": ACDC}
+
+# Seg / Clf architectures and generic trainer constants (reference:
+# ncsn/configs/general_config.yml, configs/general_configs.py:4-10)
+GENERAL = {
+    "Seg": {
+        "spatial_dims": 2, "in_channels": 1, "out_channels": 2,
+        "channels": [64, 128, 256, 512, 1024], "strides": [2, 2, 2, 2],
+    },
+    "Clf": {
+        "in_channels": 1, "num_cls": 10, "resnet_name": "resnet18",
+        "pretrained": False,
+    },
+    "trainer": {
+        "max_epochs": 30, "batch_size": 256, "lr": 0.0005, "ema_rate": 0.99,
+        "figsize_unit": 3.6,
+    },
+}

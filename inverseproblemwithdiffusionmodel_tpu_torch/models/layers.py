@@ -1,7 +1,8 @@
 """Activations and the NCSN (RefineNet-family) building blocks, NCHW.
 
 Port of inverseproblemwithdiffusionmodel_tpu/models/layers.py: `get_act`,
-`centered_input`, `Conv` (dilation, `pre_pad`), `conv1x1` / `conv3x3`, the
+`centered_input`, `Conv` (dilation, `pre_pad`), `conv1x1` / `conv3x3`,
+`ConvTranspose`, the
 pools, CRP / RCU / MSF / RefineBlock, ConvMeanPool and ResidualBlock
 (reference: ncsn/models/layers.py). The JAX package is channel-last; these
 blocks are NCHW, torch's and cuDNN's own layout, and take their input
@@ -76,6 +77,19 @@ def conv3x3(in_features: int, features: int, stride: int = 1,
             use_bias: bool = True, dilation: int = 1) -> Conv:
     return Conv(in_features, features, 3, stride=stride, dilation=dilation,
                 use_bias=use_bias)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """2-D transposed convolution, output size (in - 1) s - 2p + k + o
+    (`output_padding` o on the high side), as the JAX `ConvTranspose`. The
+    JAX layer correlates the zero-dilated input with the spatially flipped
+    kernel (kh, kw, I, O); torch's weight (I, O, kh, kw) is that kernel
+    transposed, unflipped (utils/convert.py)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int,
+                 stride: int, padding: int, output_padding: int = 0):
+        super().__init__(in_features, features, kernel_size, stride=stride,
+                         padding=padding, output_padding=output_padding)
 
 
 def max_pool(x: torch.Tensor, window: int = 5, stride: int = 1,

@@ -1,18 +1,22 @@
 """Model registry, construction and the score-function adapter.
 
-Port of `create_model`, `get_network` and `make_score_fn` from
-inverseproblemwithdiffusionmodel_tpu/models/registry.py. Ported: NCSN++
-and the NCSNv2 family (with the size-suffixed aliases).
+Port of `create_model`, `get_network`, `build_seg_unet`,
+`TASK_NAME_TO_MODEL_CTOR`, `load_model` and `make_score_fn` from
+inverseproblemwithdiffusionmodel_tpu/models/registry.py. Ported: NCSN++,
+the NCSNv2 family (with the size-suffixed aliases) and the seg UNet;
+`make_seg_fn` is the seg UNet's counterpart of `make_score_fn`.
 """
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..config import load_general_config
 from .ncsnpp import NCSNpp
 from .ncsnv2 import NCSNv2, NCSNv2Deeper, NCSNv2Deepest
+from .unet import UNet
 
 _MODELS = {
     "ncsnpp": NCSNpp,
@@ -49,6 +53,58 @@ def get_network(config):
     if size <= 256:
         return NCSNv2Deepest(config)
     raise NotImplementedError(f"no NCSNv2 variant for image size {size}")
+
+
+def build_seg_unet(general_config=None) -> UNet:
+    """The segmentation UNet of general_config's `Seg` section (2-D)."""
+    seg = (general_config or load_general_config()).Seg
+    if seg.spatial_dims != 2:
+        raise NotImplementedError(f"a {seg.spatial_dims}-D UNet is not "
+                                  "ported (2-D only)")
+    return UNet(out_channels=seg.out_channels, features=tuple(seg.channels),
+                strides=tuple(seg.strides), in_channels=seg.in_channels)
+
+
+def _not_ported(task: str, slice_: str):
+    def ctor(config):
+        raise NotImplementedError(f"task {task!r} is not ported yet "
+                                  f"(ROADMAP: {slice_})")
+    return ctor
+
+
+TASK_NAME_TO_MODEL_CTOR = {
+    "Diffusion": lambda config: NCSNv2Deepest(config),
+    "Diffusion1D": _not_ported("Diffusion1D", "Slice C"),
+    "Diffusion3D": _not_ported("Diffusion3D", "Slice C"),
+    "Clf": _not_ported("Clf", "Slice B"),
+    "Seg": lambda config: build_seg_unet(),
+}
+
+
+def load_model(config, task_name: str, seed: int = 0
+               ) -> Tuple[torch.nn.Module, None]:
+    """Construct the model of a task, on the CPU, with weights drawn from
+    `seed` by utils/convert.seeded_weights. Returns (module, None): the JAX
+    form returns (module, params); here the module holds its weights."""
+    if task_name not in TASK_NAME_TO_MODEL_CTOR:
+        raise ValueError(f"unknown task {task_name!r}; one of "
+                         f"{sorted(TASK_NAME_TO_MODEL_CTOR)}")
+    from ..utils.convert import seeded_weights     # convert imports us
+    module = TASK_NAME_TO_MODEL_CTOR[task_name](config)
+    return seeded_weights(module, seed), None
+
+
+def make_seg_fn(model: torch.nn.Module
+                ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Adapter `x -> logits` for the seg UNet on channel-last tensors, as
+    the guidance gradient calls it (samplers/ald.compute_seg_grad): x (B,
+    H, W, C) in, logits (B, H, W, K) out, the net on contiguous NCHW in
+    between. Runs in the model's dtype and on its device."""
+
+    def seg_fn(x: torch.Tensor) -> torch.Tensor:
+        return model(_to_nchw(x)).permute(0, 2, 3, 1)
+
+    return seg_fn
 
 
 def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,

@@ -39,9 +39,12 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
 def _interp_tensor(in_size: int, out_size: int, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
     """`_interp_matrix` as a tensor, made once per dtype and device (no
-    host-to-device copy in the forward)."""
-    return torch.as_tensor(_interp_matrix(in_size, out_size), dtype=dtype,
-                           device=device)
+    host-to-device copy in the forward). Made outside inference mode
+    whoever asks first: a cached inference tensor could not be saved for
+    the backward of a later call that tracks gradients."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_interp_matrix(in_size, out_size),
+                               dtype=dtype, device=device)
 
 
 def resize_align_corners(x: torch.Tensor, sizes: Sequence[int]

@@ -12,15 +12,26 @@ stepped form loops over levels on the host; here both are the same host
 loop (`SteppedPairReconstructor`), and they give equal results. Each inner
 step draws its noise Re first, then Im, as the JAX key schedule does
 (`key, k_re, k_im = split(key, 3)`), so a test can replay JAX's stream
-through the `noise` hook. The segmentation guidance is not ported yet.
+through the `noise` hook.
+
+With a segmentation net (`seg_fn`, a per-pixel `seg_label`), each inner
+step adds the guidance gradient of samplers/ald.compute_seg_grad, divided
+by sigma and weighted by `seg_lamda` times the ramp of get_lh_weights
+(zero until `seg_start_time`, then linear to 1), as the JAX samplers do
+(reference: ALDInvSegProximalRealImag, ALD_optimizers.py:161-327). The
+unguided chain runs under torch.inference_mode; the guided one under
+torch.no_grad, since its gradient needs autograd.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple, Union
 
 import torch
 
-from .ald import ALDConfig, ScoreFn, _labels, _langevin_update
+from .ald import (ALDConfig, ScoreFn, _labels, _langevin_update,
+                  compute_seg_grad)
+from .sigmas import get_lh_weights
 from ..models.registry import make_score_fn
 from ..operators.pair import PairL2Penalty
 from ..utils.device import Noise, gaussian_noise, resolve_device
@@ -38,24 +49,27 @@ def _bake_ahy(proximal, ahy_r: torch.Tensor, ahy_i: torch.Tensor):
     return proximal
 
 
-def _no_segmentation(*seg_args) -> None:
-    if any(arg is not None for arg in seg_args):
-        raise NotImplementedError("segmentation guidance is not ported yet "
-                                  "(ROADMAP: Slice B)")
-
-
 class SteppedPairReconstructor:
     """`recon(yr, yi, seed=0, noise=None) -> (xr, xi)`: the pair ALD chain
     from the measurement (yr, yi) of shape (num_sens, B, H, W, C) to the
     image pair (B, H, W, C), run under torch.inference_mode on `device`.
     `noise(shape)` overrides the draws from a generator seeded with `seed`.
     `start`, `level_step` and `denoise` are its parts, one noise level at a
-    time (the unit a profile or a CUDA graph takes)."""
+    time (the unit a profile or a CUDA graph takes); a caller of the parts
+    runs a guided chain under torch.no_grad, not torch.inference_mode.
+
+    seg_fn (channel-last x -> logits, models/registry.make_seg_fn) turns
+    the guidance on; seg_label is then the (B, H, W) int target map."""
 
     def __init__(self, score_fn: ScoreFn, sigmas, lin_tfm, proximal,
                  config: ALDConfig = ALDConfig(),
                  lr_scaled: Union[float, torch.Tensor] = 1.0,
-                 snapshot_fn: Optional[Callable] = None, device="cuda"):
+                 snapshot_fn: Optional[Callable] = None, device="cuda", *,
+                 seg_fn: Optional[Callable] = None,
+                 seg_label: Optional[torch.Tensor] = None,
+                 seg_lamda: Union[float, torch.Tensor] = 1.0,
+                 seg_start_time: float = 1.0, seg_step_type: str = "linear",
+                 seg_mode: str = "full"):
         self.device = resolve_device(device)
         self.score_fn = score_fn
         self.sigmas = torch.as_tensor(sigmas, dtype=torch.float32).to(
@@ -69,6 +83,18 @@ class SteppedPairReconstructor:
         self.proximal = proximal.to(self.device)
         self.config = config
         self.snapshot_fn = snapshot_fn
+        self.seg_fn = seg_fn
+        if seg_fn is not None:
+            if seg_label is None:
+                raise ValueError("seg_fn given but seg_label is None")
+            label = torch.as_tensor(seg_label).to(self.device)
+            # the net sees the interleaved [Re, Im] batch: one label each
+            self.seg_label2 = stack_parts(label, label)
+            self.lh_weights = get_lh_weights(
+                self.sigmas, seg_start_time, seg_step_type).to(self.device)
+            self.seg_lamda = torch.as_tensor(
+                seg_lamda, dtype=torch.float32).to(self.device)
+            self.seg_mode = seg_mode
 
     def start(self, yr: torch.Tensor, yi: torch.Tensor):
         """The chain's start A^H y, and the proximal with it baked in."""
@@ -84,6 +110,11 @@ class SteppedPairReconstructor:
         for _ in range(cfg.n_steps_each):
             stacked = stack_parts(xr, xi)
             grads = self.score_fn(stacked, _labels(stacked, c))
+            if self.seg_fn is not None:
+                g_seg = compute_seg_grad(self.seg_fn, stacked,
+                                         self.seg_label2, self.seg_mode)
+                grads = grads + g_seg / sigma * (self.lh_weights[c]
+                                                 * self.seg_lamda)
             g_re, g_im = unstack_parts(grads)
             xr = _langevin_update(xr, g_re, step_size, noise(xr.shape))
             xi = _langevin_update(xi, g_im, step_size, noise(xi.shape))
@@ -105,7 +136,9 @@ class SteppedPairReconstructor:
         if noise is None:
             noise = gaussian_noise(seed, self.device)
         cfg = self.config
-        with torch.inference_mode():
+        grad_mode = (torch.inference_mode() if self.seg_fn is None
+                     else torch.no_grad())
+        with grad_mode:
             yr, yi = yr.to(self.device), yi.to(self.device)
             xr, xi, prox = self.start(yr, yi)
             for c in range(self.sigmas.shape[0]):
@@ -129,18 +162,25 @@ def ald_inverse_proximal_pair(
     lr_scaled: Union[float, torch.Tensor] = 1.0,
     seg_fn: Optional[Callable] = None,
     seg_label: Optional[torch.Tensor] = None,
+    seg_lamda: float = 1.0,
+    seg_start_time: float = 1.0,
+    seg_step_type: str = "linear",
+    seg_mode: str = "full",
     snapshot_fn: Optional[Callable] = None,
     noise: Optional[Noise] = None,
     device="cuda",
 ) -> Pair:
     """measurement: (yr, yi). Returns the reconstruction pair (xr, xi).
     `seed` takes the place of the JAX PRNG key; `noise(shape)` overrides
-    it. `lr_scaled` is a scalar or a per-level (L,) schedule.
+    it. `lr_scaled` is a scalar or a per-level (L,) schedule. seg_fn(x)
+    with the (B, H, W) seg_label turns the segmentation guidance on.
     snapshot_fn(level, sigma, x_re, x_im) runs on the host every
     config.snapshot_every levels."""
-    _no_segmentation(seg_fn, seg_label)
-    recon = SteppedPairReconstructor(score_fn, sigmas, lin_tfm, proximal,
-                                     config, lr_scaled, snapshot_fn, device)
+    recon = SteppedPairReconstructor(
+        score_fn, sigmas, lin_tfm, proximal, config, lr_scaled, snapshot_fn,
+        device, seg_fn=seg_fn, seg_label=seg_label, seg_lamda=seg_lamda,
+        seg_start_time=seg_start_time, seg_step_type=seg_step_type,
+        seg_mode=seg_mode)
     return recon(*measurement, seed=seed, noise=noise)
 
 
@@ -153,6 +193,10 @@ def make_stepped_pair_reconstructor(
     lr_scaled: Union[float, torch.Tensor] = 1.0,
     seg_fn: Optional[Callable] = None,
     seg_label: Optional[torch.Tensor] = None,
+    seg_lamda: float = 1.0,
+    seg_start_time: float = 1.0,
+    seg_step_type: str = "linear",
+    seg_mode: str = "full",
     seg_params=None,
     snapshot_fn: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
@@ -162,10 +206,17 @@ def make_stepped_pair_reconstructor(
     (moved to `device`, eval mode) over the ladder `sigmas`. Returns
     `recon(yr, yi, seed=0, noise=None) -> (xr, xi)`; the JAX form takes
     the params and a PRNG key instead. compute_dtype=torch.bfloat16 runs
-    the net in bf16 (make_score_fn), everything else in float32."""
-    _no_segmentation(seg_fn, seg_label, seg_params)
+    the net in bf16 (make_score_fn), everything else in float32, the
+    segmentation guidance included. With `seg_params`, the guidance calls
+    seg_fn(seg_params, x), else seg_fn(x); seg_fn's net is the caller's to
+    place on `device`."""
     device = resolve_device(device)
     model = model.to(device).eval()
     score_fn = make_score_fn(model, sigmas, compute_dtype)
-    return SteppedPairReconstructor(score_fn, sigmas, lin_tfm, proximal,
-                                    config, lr_scaled, snapshot_fn, device)
+    if seg_fn is not None and seg_params is not None:
+        seg_fn = functools.partial(seg_fn, seg_params)
+    return SteppedPairReconstructor(
+        score_fn, sigmas, lin_tfm, proximal, config, lr_scaled, snapshot_fn,
+        device, seg_fn=seg_fn, seg_label=seg_label, seg_lamda=seg_lamda,
+        seg_start_time=seg_start_time, seg_step_type=seg_step_type,
+        seg_mode=seg_mode)

@@ -1,16 +1,19 @@
-"""Weights for the port's NCSN++ and NCSNv2 family: converted from a Flax
-parameter tree, or drawn from a seed.
+"""Weights for the port's NCSN++, NCSNv2 family and seg UNet: converted
+from a Flax parameter tree, or drawn from a seed.
 
-`flax_to_torch_ncsnpp` and `flax_to_torch_ncsnv2` map the JAX package's
-parameters onto the port's state dict, name by name (the port keeps the
-Flax module names):
+`flax_to_torch_ncsnpp`, `flax_to_torch_ncsnv2` and `flax_to_torch_unet` map
+the JAX package's parameters onto the port's state dict, name by name (the
+port keeps the Flax module names):
 
 - conv kernels (kh, kw, I, O) -> weight (O, I, kh, kw), no flip;
+- transposed-conv kernels (kh, kw, I, O) -> weight (I, O, kh, kw), no
+  flip: the JAX layer flips the kernel itself, as torch's
+  conv_transpose2d does;
 - Dense kernels (in, out) -> Linear weight (out, in);
 - GroupNorm scale / bias -> weight / bias;
 - NIN W / b, the Fourier W, the fused resamplers' Conv2d_0_weight
-  (kh, kw, I, O) / Conv2d_0_bias and the InstanceNorm++ alpha / gamma /
-  beta keep name and layout.
+  (kh, kw, I, O) / Conv2d_0_bias, the InstanceNorm++ alpha / gamma /
+  beta and the PReLU alpha (a scalar) keep name and layout.
 """
 from __future__ import annotations
 
@@ -21,8 +24,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..models import layers, layerspp, normalization
-from ..models.registry import create_model, get_model, get_network
+from ..models import layers, layerspp, normalization, unet
+from ..models.registry import (build_seg_unet, create_model, get_model,
+                               get_network)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -34,10 +38,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield path, np.asarray(value)
 
 
-def _convert_leaf(path: str, value: np.ndarray):
+def _convert_leaf(path: str, value: np.ndarray, transposed=frozenset()):
     module, dot, leaf = path.rpartition(".")
     weight = f"{module}{dot}weight"
     if leaf == "kernel" and value.ndim == 4:
+        if module in transposed:
+            return weight, value.transpose(2, 3, 0, 1)
         return weight, value.transpose(3, 2, 0, 1)
     if leaf == "kernel" and value.ndim == 2:
         return weight, value.T
@@ -46,11 +52,13 @@ def _convert_leaf(path: str, value: np.ndarray):
     return path, value
 
 
-def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """State dict of the port's layers from a Flax params tree of arrays."""
+def flax_to_torch(params: Mapping[str, Any], transposed=frozenset()
+                  ) -> Dict[str, torch.Tensor]:
+    """State dict of the port's layers from a Flax params tree of arrays;
+    `transposed` names the transposed-convolution modules."""
     state = {}
     for path, value in _flatten(params):
-        name, value = _convert_leaf(path, value)
+        name, value = _convert_leaf(path, value, transposed)
         state[name] = torch.tensor(value, dtype=torch.float32)
     return state
 
@@ -60,8 +68,11 @@ def _checked(params: Mapping[str, Any], build, what: str
     """flax_to_torch(params), held name by name and shape by shape to the
     state dict of the model `build()` makes; raises on any difference."""
     with torch.device("meta"):
-        expected = build().state_dict()
-    state = flax_to_torch(params)
+        model = build()
+    expected = model.state_dict()
+    transposed = {name for name, module in model.named_modules()
+                  if isinstance(module, nn.ConvTranspose2d)}
+    state = flax_to_torch(params, transposed)
     for name, value in state.items():
         if name not in expected:
             raise KeyError(f"no parameter {name!r} in the port's {what}")
@@ -98,6 +109,15 @@ def flax_to_torch_ncsnv2(params: Mapping[str, Any], config,
     return _checked(params, lambda: get_model(name)(config), name)
 
 
+def flax_to_torch_unet(params: Mapping[str, Any], general_config=None
+                       ) -> Dict[str, torch.Tensor]:
+    """State dict for `build_seg_unet(general_config)` from the JAX
+    package's seg UNet params tree of numpy arrays (the tree under
+    "params"). Raises if a name or shape does not match."""
+    return _checked(params, lambda: build_seg_unet(general_config),
+                    "seg UNet")
+
+
 def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
                    ) -> nn.Module:
     """Draw every parameter of `model` from a torch.Generator seeded with
@@ -112,6 +132,10 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
     NCSNv2 family: the JAX package's init distributions, convolution
     weights and biases U(+-std_scale / sqrt(fan_in)) (torch's default),
     InstanceNorm++ and VarianceNorm alpha and gamma N(1, 0.02), beta 0.
+    Seg UNet: convolution and transposed-convolution weights and biases
+    U(+-std_scale / sqrt(fan_in)), fan_in = I kh kw for a convolution and
+    O kh kw for a transposed one (torch's default, the JAX init's bounds);
+    the PReLU slopes 0.25.
     The draws happen on the CPU, so a seed gives the same weights whatever
     device the model is on.
     """
@@ -127,11 +151,15 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
 
     with torch.no_grad():
         for name, module in model.named_modules():
-            if isinstance(module, layers.Conv):
+            if isinstance(module, (layers.Conv, layers.ConvTranspose)):
+                # weight[0]: (I, kh, kw) of a conv, (O, kh, kw) of a
+                # transposed one
                 bound = std_scale / math.sqrt(module.weight[0].numel())
                 uniform(module.weight, bound)
                 if module.bias is not None:
                     uniform(module.bias, bound)
+            elif isinstance(module, unet.PReLU):
+                module.alpha.fill_(0.25)
             elif isinstance(module, (normalization.InstanceNormPlus,
                                      normalization.VarianceNorm)):
                 draw(module.alpha, 0.02, mean=1.0)

@@ -394,12 +394,3 @@ def test_scanned_and_stepped_forms_are_equal(slice_setup):
         device="cpu")(*y)
     assert seen == [(c, float(sigmas[c]), (CHAINS, S, S, 1))
                     for c in range(2)]
-
-
-def test_segmentation_guidance_is_not_ported(slice_setup):
-    sigmas = torch.tensor(np.asarray(slice_setup["sigmas"]))
-    with pytest.raises(NotImplementedError, match="Slice B"):
-        make_stepped_pair_reconstructor(
-            slice_setup["model"], sigmas, slice_setup["op"],
-            pair.PairL2Penalty(lin_tfm=slice_setup["op"]),
-            seg_fn=lambda x: x, seg_label=torch.zeros(1), device="cpu")

@@ -67,6 +67,11 @@ def test_importing_the_port_loads_no_jax_module():
         "fft_pair, resize\n"
         "from inverseproblemwithdiffusionmodel_tpu_torch.samplers import "
         "ald, ald_pair, sigmas\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.models import unet\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.serving import "
+        "engine, server\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.scripts import "
+        "serve_recon\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -84,7 +89,8 @@ def test_no_source_of_the_port_imports_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
-@pytest.mark.parametrize("script", ["pc_sampling", "profile_forward"])
+@pytest.mark.parametrize("script", ["pc_sampling", "profile_forward",
+                                    "serve_recon", "seg_grad_precision"])
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path, script):
     module = importlib.import_module(
         f"inverseproblemwithdiffusionmodel_tpu_torch.scripts.{script}")
@@ -146,6 +152,33 @@ def test_reconstruction_runs_on_the_cpu_when_asked():
     xr, xi = recon(*y, seed=0)
     assert xr.shape == xi.shape == (1, 16, 16, 1)
     assert torch.isfinite(xr).all() and torch.isfinite(xi).all()
+
+
+def _tiny_engine(**kw):
+    from inverseproblemwithdiffusionmodel_tpu_torch.serving import (
+        EngineSpec, ReconstructionEngine)
+    model, sigmas, op, _, _ = _tiny_reconstruction()
+    spec = EngineSpec(height=16, width=16, num_sens=2, chains=1, levels=2,
+                      n_steps_each=1, dtype="f32")
+    return model, ReconstructionEngine(
+        model, sigmas, spec=spec, mask=op.mask.numpy(),
+        sens_re=op.sens_re.numpy(), **kw)
+
+
+def test_engine_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _tiny_engine()
+
+
+def test_engine_runs_on_the_cpu_when_asked():
+    model, eng = _tiny_engine(device="cpu")
+    assert eng.device.type == "cpu"
+    assert next(model.parameters()).device.type == "cpu"
+    res = eng.reconstruct(np.zeros((2, 16, 16), np.float32),
+                          np.zeros((2, 16, 16), np.float32))
+    assert res.x_re.shape == (1, 16, 16, 1)
+    assert np.isfinite(res.x_re).all() and np.isfinite(res.x_im).all()
 
 
 def test_entry_point_runs_on_the_cpu_when_asked(tmp_path):

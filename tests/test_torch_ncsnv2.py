@@ -186,6 +186,19 @@ def test_resize_align_corners_matches_the_interpolation_matrix(src, dst):
     np.testing.assert_allclose(ours, ref, rtol=1e-6, atol=1e-6)
 
 
+def test_resize_tracks_gradients_after_an_inference_mode_call():
+    """The interpolation matrices are cached: one first made under
+    torch.inference_mode (an unguided ALD chain) must still serve a later
+    call whose backward saves it."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.ops import resize
+    resize._interp_tensor.cache_clear()
+    with torch.inference_mode():
+        resize_align_corners(torch.rand(1, 2, 5, 5), (9, 9))
+    x = torch.rand(1, 2, 5, 5, requires_grad=True)
+    resize_align_corners(x, (9, 9)).sum().backward()
+    assert x.grad.shape == x.shape
+
+
 # -- normalization and layer blocks ----------------------------------------
 
 NORMS = [("InstanceNorm++", jnorm.InstanceNormPlus,
