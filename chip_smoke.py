@@ -81,7 +81,22 @@ phases, each printing one line with its own seconds:
    a disk label, one request over HTTP and one in-process; card against
    CPU on one chain: a guided inner step at the last level (float32
    mode), the guidance gradient in float64, and the card's float32
-   gradient against the float64 one. Phases 9 to 11
+   gradient against the float64 one.
+12. cine: the 2D+time serving path at README's cine geometry (CINE127,
+   128 px, T = 24, 4 coils, per-frame R = 8 masks; spatial NCSNv2Deepest
+   and temporal NCSN1D on 8 x 8 pixel tubes, ngf 128 each, seed 0; 4
+   chains, the ladder cut to 8 of 1000 levels), for f32 and bf16:
+   scripts.serve_recon.build_engine --workload cine, its warm-up, 3
+   requests over HTTP (default operator; new per-frame masks with
+   lr_scaled 3.0; new coil maps) and one in-process with lamda_T 0.5:
+   shapes, finite values, headers, /healthz, one input signature,
+   chain-steps/s, warm-up, peak memory, the host's seconds for a
+   request's operator and (T, W, W) normal kernel; the f32 engine against
+   make_stepped_2d_time_pair_reconstructor (same card, TF32); bf16
+   against f32; a level step with a temporal step split by CUDA events into the
+   spatial net, the temporal step and net, the proximal and the rest,
+   and profiled; card against CPU: the full-width NCSN1D and one inner
+   step on one chain, random shift off and on. Phases 9 to 12
    launch none of K1, K2 or K4 (checked).
 
 Every comparison with a plain or CPU version runs in the port's float32
@@ -91,8 +106,8 @@ batch >= 2; PERF.md), so the card computes in float32 like the reference.
 The sampling and training runs themselves use torch's defaults, as a
 user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
-serve) and read just after it. Any failure raises and exits non-zero.
-Phases 9 to 11 print their numbers as one JSON line before `total`. The last
+serve, cine) and read just after it. Any failure raises and exits non-zero.
+Phases 9 to 12 print their numbers as one JSON line before `total`. The last
 lines are nvidia-smi's name and power limit, a JSON line of per-kernel
 numbers, and
 `{"ok": true, "device": {...}}`. In the JSON line `ms`, `plain_ms` and
@@ -127,7 +142,8 @@ BF16_REL_L2 = 1e-2         # bf16 net vs float32, whole reconstruction: the
                            # score's bf16 error (about 1e-2) enters scaled
                            # by the step beside the shared injected noise
 ENGINE_REL_L2 = 1e-5       # serving engine vs the direct reconstructor: the
-                           # same operations on the card, float32 mode
+                           # same operations on the card (ACDC in the
+                           # float32 mode, cine in torch's defaults)
 SEG_F64_REL_L2 = 1e-10     # the seg guidance gradient card vs CPU, float64
 SEG_F32_REL_L2 = 5e-3      # the card's float32 seg gradient vs float64:
                            # float32 loses up to about 3e-3 in the UNet's
@@ -144,6 +160,13 @@ ACDC_LEVELS = 8            # of the config's 2311
 ACDC_CG_ITERS = 4
 ACDC_LR_SCALED = 5.0
 ACDC_REPS = 3              # timed runs after one warm-up; the fastest counts
+# The cine (2D+time) serving path: README's 128 px, T = 24, 4 coils, R = 8
+CINE_FRAMES = 24
+CINE_CHAINS = 4            # the CineEngineSpec default; serve_recon's is 16
+CINE_LEVELS = 8            # of the config's 1000
+CINE_WIN = 8               # 8 x 8 pixel tubes: the temporal net's 64 channels
+CINE_LAMDA_T = 0.5         # the in-process request's temporal weight
+CINE_CHECK_LEVEL = 1       # the first level with a temporal step
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, float32 outside tensor cores
 PALLAS = "inverseproblemwithdiffusionmodel_tpu/ops/pallas_kernels.py"
@@ -710,6 +733,8 @@ def serve_requests(eng, requests, chain_steps: int) -> dict:
         serve)
     s = eng.spec
     image = (s.height, s.width, s.channels)
+    if hasattr(s, "frames"):                 # a cine engine: volumes
+        image = (s.frames,) + image
     shapes = {"x_re": (s.chains,) + image, "x_im": (s.chains,) + image,
               "mean_re": image, "mean_im": image, "mean_mag": image,
               "std_mag": image}
@@ -948,8 +973,331 @@ def serve_phase(fk, fl, device="cuda") -> dict:
     return numbers
 
 
-def profile_level(recon, yr, yi, n_steps, device) -> dict:
-    """One level step (n_steps inner steps) of `recon` timed by CUDA events
+def cine_argv(dtype: str) -> list:
+    """scripts.serve_recon's flags for the cine phase: README's cine
+    geometry, spatial NCSNv2Deepest (CINE127) and temporal NCSN1D
+    (CINE127_1D), weights drawn from seed 0 (no --ckpt_dir)."""
+    return ["--workload", "cine", "--ds_name", "CINE127", "--ds_name_T",
+            "CINE127_1D", "--mode_T", "diffusion1d", "--frames",
+            str(CINE_FRAMES), "--win_size", str(CINE_WIN), "--R", "8",
+            "--num_sens", "4", "--synth_sens", "--chains", str(CINE_CHAINS),
+            "--levels", str(CINE_LEVELS), "--dtype", dtype, "--mode", "steps",
+            "--seed", "0", "--device", "cuda"]
+
+
+def cine_problem(size: int, frames: int, coils: int = 4):
+    """serve_recon's default cine operator for --seed 0 (per-frame R = 8
+    masks, 4 synthetic coil maps) and one cine measurement of it, a
+    single copy as a client sends it: frames of uniform magnitude and
+    normal phase (a torch.Generator seeded 0). Returns the mask (T, 1, W,
+    1), the maps (coils, H, W, 1) and y_re, y_im (coils, T, H, W)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.fourier import (
+        MASK_PRESETS, _exp_sens_map)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.masks import (
+        generate_mask)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.pair import (
+        PairSENSE)
+    mask = generate_mask(frames, size, seed=0, **MASK_PRESETS[8]).reshape(
+        frames, 1, size, 1)
+    maps = np.stack([_exp_sens_map(size, size, i) for i in range(coils)])
+    maps = (maps / np.sqrt((maps ** 2).sum(axis=0, keepdims=True))
+            )[..., None].astype(np.float32)
+    sens = torch.tensor(maps)
+    lin = PairSENSE(mask=torch.tensor(mask), sens_re=sens,
+                    sens_im=torch.zeros_like(sens))
+    gen = torch.Generator().manual_seed(0)
+    shape = (frames, size, size, 1)
+    mag, phase = torch.rand(shape, generator=gen), torch.randn(
+        shape, generator=gen)
+    yr, yi = lin(mag * torch.cos(phase), mag * torch.sin(phase))
+    return mask, maps, yr[..., 0].numpy(), yi[..., 0].numpy()
+
+
+def cine_tiled(mask, maps, y_re, y_im, chains: int, device):
+    """The operator, proximal and measurement of `chains` chains: the
+    per-frame mask and the measurement tiled over the chains x frames
+    axis, as the cine engine tiles them."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.pair import (
+        PairL2Penalty, PairSENSE)
+    sens = torch.tensor(maps)
+    lin = PairSENSE(mask=torch.tensor(np.tile(mask, (chains, 1, 1, 1))),
+                    sens_re=sens, sens_im=torch.zeros_like(sens)).to(device)
+    prox = PairL2Penalty.with_normal_kernel(lin, num_iters=4)
+    tile = lambda y: torch.tensor(y)[:, None, ..., None].expand(
+        (y.shape[0], chains) + y.shape[1:] + (1,)).flatten(1, 2).to(device)
+    return lin, prox, tile(y_re), tile(y_im)
+
+
+class PhaseTimer:
+    """CUDA events around each call of wrapped functions, summed per name
+    after a synchronize: the device time of each part of a level step (the
+    stream is busy throughout, the host enqueues ahead of it)."""
+
+    def __init__(self):
+        self.events = {}
+
+    def wrap(self, name: str, fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+            return out
+        return timed
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {name: sum(a.elapsed_time(b) for a, b in pairs)
+                for name, pairs in self.events.items()}
+
+
+def profile_cine_level(eng, y_re, y_im, device) -> dict:
+    """One level step of the engine's chain at CINE_CHECK_LEVEL (a level
+    with a temporal step), torch's defaults: its device ms split by CUDA
+    events into the spatial net (make_score_fn, its NCHW view and casts),
+    the temporal step (apply_in_tube_space: the tube reshapes, the roll,
+    the tube Langevin updates and the temporal net), the temporal net
+    alone (its (B', T, C) <-> (B', C, T) copies included), the proximal
+    (CG), and the rest (the frames' Langevin updates and the Re/Im
+    interleaves); then profile_level's profiler numbers for the same
+    step."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators import (
+        finite_diff)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers import ald_pair
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.device import (
+        gaussian_noise)
+    s = eng.spec
+    yr, yi = (eng._broadcast_chains(eng._canon_measurement(v))
+              for v in (y_re, y_im))
+    recon = eng._reconstructor(eng.default_lin_tfm,
+                               eng._build_proximal(eng.default_lin_tfm),
+                               s.lr_scaled, s.lamda_T)
+    timer = PhaseTimer()
+    split = copy.copy(recon)
+    split.inner = ald_pair._pair_2d_time_inner(
+        timer.wrap("spatial_net", eng._score_S),
+        timer.wrap("temporal_net", eng._score_T), finite_diff.FiniteDiff(1),
+        recon.config, s.mode_T, s.win_size, recon.sigmas[-1],
+        recon.sigmas_T[-1])
+    noise = gaussian_noise(7, device)
+    tubes = ald_pair.apply_in_tube_space
+    with torch.inference_mode():
+        xr, xi, prox = recon.start(yr, yi)
+        split.level_step(prox, xr, xi, yr, yi, CINE_CHECK_LEVEL, noise)
+        timer.events.clear()
+        ald_pair.apply_in_tube_space = timer.wrap("temporal_step", tubes)
+        try:
+            timer.wrap("level", split.level_step)(
+                timer.wrap("proximal", prox), xr, xi, yr, yi,
+                CINE_CHECK_LEVEL, noise)
+        finally:
+            ald_pair.apply_in_tube_space = tubes
+    ms = timer.ms()
+    ms["tube_reshapes_and_langevin"] = ms["temporal_step"] - ms["temporal_net"]
+    ms["frame_langevin_and_rest"] = ms["level"] - sum(
+        ms[k] for k in ("spatial_net", "temporal_step", "proximal"))
+    return dict(split_ms=ms, **profile_level(recon, yr, yi, s.n_steps_each,
+                                             device, CINE_CHECK_LEVEL))
+
+
+def cine_phase(fk, fl, device="cuda") -> dict:
+    """The cine serving path at README's geometry (CINE127 frames, 128 px,
+    T = 24, 4 coils, per-frame R = 8 masks; spatial NCSNv2Deepest ngf 128,
+    temporal NCSN1D ngf 128 on 8 x 8 tubes; 4 chains, the ladder cut to 8
+    of 1000 levels): for f32 and bf16 in turn, scripts.serve_recon.
+    build_engine --workload cine (weights from seed 0), its warm-up, 3
+    requests over HTTP on 127.0.0.1 (the default operator, seed 0; new
+    per-frame R = 8 masks, seed 1, lr_scaled 3.0; new coil maps, seed 2)
+    and one in-process request with lamda_T 0.5 (the f32 engine's against
+    make_stepped_2d_time_pair_reconstructor on the same problem and seed,
+    both in torch's defaults; bf16 against it); one input signature; the
+    host's seconds for a request's operator and normal kernel; peak
+    memory. A profiled level step of the f32 engine. The full-width
+    NCSN1D forward and one inner step at a temporal level (one chain,
+    shift off and on, the same injected noise and shift) card against
+    CPU in the float32 mode. None of K1, K2 or K4 launches."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        make_score_fn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.fourier import (
+        MASK_PRESETS, _exp_sens_map)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.masks import (
+        generate_mask)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
+        ALDConfig)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald_pair import (
+        make_stepped_2d_time_pair_reconstructor)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        serve_recon)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    cfg = load_config("CINE127", "real-imag")
+    size, T = cfg.data.image_size, CINE_FRAMES
+    mask, maps, y_re, y_im = cine_problem(size, T)
+    mask1 = generate_mask(T, size, seed=1, **MASK_PRESETS[8]).reshape(
+        T, 1, size, 1)
+    maps2 = np.stack([_exp_sens_map(size, size, 10 + i) for i in range(4)])
+    maps2 = (maps2 / np.sqrt((maps2 ** 2).sum(axis=0, keepdims=True))
+             )[..., None]
+    requests = [("seed=0", dict(y_re=y_re, y_im=y_im)),
+                ("seed=1&lr_scaled=3.0", dict(y_re=y_re, y_im=y_im,
+                                              mask=mask1)),
+                ("seed=2", dict(y_re=y_re, y_im=y_im, sens_re=maps2))]
+    n_steps = cfg.sampling.n_steps_each
+    chain_steps = CINE_LEVELS * n_steps * CINE_CHAINS
+    numbers = dict(chain_steps=chain_steps, frames=T, chains=CINE_CHAINS,
+                   levels=CINE_LEVELS,
+                   reduced=f"chains {CINE_CHAINS} (serve_recon's default "
+                           f"16), {CINE_LEVELS} of the config's 1000 levels")
+    outputs = {}
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    for name in ("f32", "bf16"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_build = time.perf_counter()
+        eng = serve_recon.build_engine(serve_recon.parse_args(
+            cine_argv(name)))
+        build_s = time.perf_counter() - t_build
+        warmup_s = eng.warmup()
+        served = serve_requests(eng, requests, chain_steps)
+        # a request's host work before the chain: its operator (mask
+        # tiled over the chains) and its (T, W, W) normal kernel
+        t_host = time.perf_counter()
+        lin = eng._build_lin_tfm(mask1, None, None)
+        torch.cuda.synchronize()
+        operator_s = time.perf_counter() - t_host
+        t_host = time.perf_counter()
+        prox = eng._build_proximal(lin)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t_host
+        if tuple(prox.kernel_re.shape) != (T, size, size):
+            raise AssertionError(f"normal kernel of shape "
+                                 f"{tuple(prox.kernel_re.shape)}")
+        res = eng.reconstruct(y_re, y_im, seed=3, lamda_T=CINE_LAMDA_T)
+        outputs[name] = (res.x_re, res.x_im)
+        stats = eng.stats()
+        want = (CINE_CHAINS, T, size, size, 1)
+        if (stats["input_signatures"] != 1 or stats["requests"] != 4
+                or res.x_re.shape != want):
+            raise AssertionError(f"{name} cine engine stats {stats}, shape "
+                                 f"{res.x_re.shape}")
+        if not (np.isfinite(res.x_re).all() and np.isfinite(res.x_im).all()):
+            raise AssertionError(f"{name} cine in-process request not finite")
+        numbers[name] = dict(
+            build_s=build_s, warmup_s=warmup_s, **served,
+            operator_s=operator_s, normal_kernel_s=kernel_s,
+            in_process=dict(latency_s=res.latency_s,
+                            chain_steps_per_s=res.chain_steps_per_s,
+                            lamda_T=CINE_LAMDA_T),
+            input_signatures=stats["input_signatures"], shape=list(want),
+            peak=torch.cuda.max_memory_allocated())
+        if name == "bf16":
+            del eng
+            continue
+        # the engine against the direct path on cine_problem's operator
+        # (built apart from serve_recon's), the same seed and lamda_T: the
+        # same operations on the same card, so torch's defaults (TF32) as
+        # in the request; the float32 mode would take 4.3 times as long
+        # (42.37 s a request, PERF.md)
+        lin_d, prox_d, yb_re, yb_im = cine_tiled(mask, maps, y_re, y_im,
+                                                 CINE_CHAINS, device)
+        direct = make_stepped_2d_time_pair_reconstructor(
+            eng.model_S, eng.model_T, eng.sigmas_S, eng.sigmas_T, lin_d,
+            prox_d, eng.ald_config, lr_scaled=eng.spec.lr_scaled,
+            lamda_T=CINE_LAMDA_T, win_size=CINE_WIN, num_frames=T,
+            device=device)(yb_re, yb_im, seed=3)
+        numbers["engine_vs_direct_rel_l2"] = max(
+            rel_l2(torch.from_numpy(a), b.cpu())
+            for a, b in zip(outputs["f32"], direct))
+        if not numbers["engine_vs_direct_rel_l2"] <= ENGINE_REL_L2:
+            raise AssertionError(
+                f"cine engine vs make_stepped_2d_time_pair_reconstructor: "
+                f"rel L2 {numbers['engine_vs_direct_rel_l2']}")
+        del direct
+        numbers["profile"] = profile_cine_level(eng, y_re, y_im, device)
+        # the two nets alone at the chain's batches, torch's defaults
+        tubes = 2 * CINE_CHAINS * (size // CINE_WIN) ** 2
+        gen = torch.Generator().manual_seed(4)
+        with torch.inference_mode():
+            xs = torch.rand(2 * CINE_CHAINS * T, size, size, 1,
+                            generator=gen).to(device)
+            xt = torch.rand(tubes, T, CINE_WIN ** 2, generator=gen).to(device)
+            lab = lambda n: torch.full((n,), CINE_CHECK_LEVEL, device=device)
+            numbers["spatial_net_ms"] = cuda_ms(
+                lambda: eng._score_S(xs, lab(len(xs))), reps=3)
+            numbers["temporal_net_ms"] = cuda_ms(
+                lambda: eng._score_T(xt, lab(len(xt))), reps=3)
+        numbers["net_batches"] = dict(spatial=len(xs), temporal=tubes)
+        model_S, model_T = eng.model_S, eng.model_T
+        sigmas_S, sigmas_T = eng.sigmas_S, eng.sigmas_T
+        del eng, xs, xt
+    no_kernel_launches(fk, fl, "the cine phase")
+    numbers["bf16_vs_f32_rel_l2"] = max(
+        rel_l2(torch.from_numpy(a), torch.from_numpy(b))
+        for a, b in zip(outputs["bf16"], outputs["f32"]))
+    if not numbers["bf16_vs_f32_rel_l2"] <= BF16_REL_L2:
+        raise AssertionError(f"cine bf16 vs f32: rel L2 "
+                             f"{numbers['bf16_vs_f32_rel_l2']}")
+    torch.cuda.empty_cache()
+
+    # Card against CPU, float32 mode. The full-width NCSN1D through
+    # make_score_fn on channel-last tubes at the first temporal level and
+    # the last; one inner step at CINE_CHECK_LEVEL on one chain of T
+    # frames, the same injected noise (the frames' Re and Im, then the
+    # tubes') and, with the random shift on, the same roll.
+    cpu_S = copy.deepcopy(model_S).cpu()
+    cpu_T = copy.deepcopy(model_T).cpu()
+    gen = torch.Generator().manual_seed(8)
+    tubes = torch.rand(64, T, CINE_WIN ** 2, generator=gen)
+    labels = torch.tensor([57, 342] * 32)
+    outs = []
+    with torch.inference_mode(), float32_exact():
+        for dev, net in ((device, model_T), ("cpu", cpu_T)):
+            outs.append(make_score_fn(net, sigmas_T)(
+                tubes.to(dev), labels.to(dev)).cpu())
+    checks = {"ncsn1d_forward": rel_l2(*outs)}
+    lin1, prox1, y1_re, y1_im = cine_tiled(mask, maps, y_re, y_im, 1, "cpu")
+    frames = (T, size, size, 1)
+    tube_shape = ((size // CINE_WIN) ** 2, T, CINE_WIN ** 2)
+    draws = [torch.randn(shp, generator=gen)
+             for shp in (frames, frames, tube_shape, tube_shape)]
+    one = ALDConfig(n_steps_each=1, step_lr=cfg.sampling.step_lr)
+    cpu_s = 0.0
+    for shift_on in (False, True):
+        steps = []
+        for dev, nets in ((device, (model_S, model_T)),
+                          ("cpu", (cpu_S, cpu_T))):
+            t_dev = time.perf_counter()
+            recon = make_stepped_2d_time_pair_reconstructor(
+                *nets, sigmas_S, sigmas_T, lin1, prox1, one,
+                lr_scaled=5.0, if_random_shift=shift_on, win_size=CINE_WIN,
+                num_frames=T, device=dev)
+            it = iter(d.to(dev) for d in draws)
+            with torch.inference_mode(), float32_exact():
+                y1 = y1_re.to(dev), y1_im.to(dev)
+                xr, xi, prox = recon.start(*y1)
+                steps.append([v.cpu() for v in recon.level_step(
+                    prox, xr, xi, *y1, CINE_CHECK_LEVEL, lambda s: next(it),
+                    lambda win: (3, 5))])
+            if dev == "cpu":
+                cpu_s += time.perf_counter() - t_dev
+        checks[f"inner_step_shift_{'on' if shift_on else 'off'}"] = max(
+            rel_l2(a, b) for a, b in zip(*steps))
+    numbers["card_vs_cpu_rel_l2"] = checks
+    numbers["cpu_check_s"] = cpu_s
+    failed = {k: v for k, v in checks.items() if not v <= MODEL_REL_L2}
+    if failed:
+        raise AssertionError(f"cine card vs CPU: rel L2 {failed}")
+    return numbers
+
+
+def profile_level(recon, yr, yi, n_steps, device, level: int = 0) -> dict:
+    """One level step (n_steps inner steps at `level`) of `recon` timed by
+    CUDA events
     and by the host clock, then the same under torch.profiler: the top 10
     device kernels and the top 10 operators by device time (with call
     counts), launches per inner step, and the device's idle share of the
@@ -960,7 +1308,7 @@ def profile_level(recon, yr, yi, n_steps, device) -> dict:
     noise = gaussian_noise(7, device)
     with torch.inference_mode():
         xr, xi, prox = recon.start(yr, yi)
-        step = lambda: recon.level_step(prox, xr, xi, yr, yi, 0, noise)
+        step = lambda: recon.level_step(prox, xr, xi, yr, yi, level, noise)
         device_ms, host_ms = cuda_ms(step, reps=3, host=True)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -988,6 +1336,58 @@ def profile_level(recon, yr, yi, n_steps, device) -> dict:
                      for e in kernels[:10]],
         top_ops=[(e.key, e.count, e.self_device_time_total / 1e3)
                  for e in ops[:10]])
+
+
+def report_cine(cine: dict, t: float) -> None:
+    """The cine phase's lines: per engine, then the profiled level step,
+    then the phase's summary."""
+    prof = cine["profile"]
+    for name in ("f32", "bf16"):
+        r = cine[name]
+        http = ", ".join(
+            f"{q['query']}: {q['chain_steps_per_s']:.2f} (engine) / "
+            f"{q['client_chain_steps_per_s']:.2f} (client, "
+            f"{q['client_s']:.4f} s)" for q in r["requests"])
+        print(f"    {name}: build {r['build_s']:.2f} s, warm-up "
+              f"{r['warmup_s']:.2f} s; chain-steps/s over HTTP {http}; "
+              f"in-process (lamda_T {CINE_LAMDA_T}) "
+              f"{r['in_process']['chain_steps_per_s']:.2f} "
+              f"({r['in_process']['latency_s']:.4f} s); shape {r['shape']}; "
+              f"/healthz requests {r['healthz_requests']}; input signatures "
+              f"{r['input_signatures']}; peak {r['peak']} bytes; host: "
+              f"operator {r['operator_s']:.4f} s, (T, W, W) normal kernel "
+              f"{r['normal_kernel_s']:.4f} s", flush=True)
+    split = ", ".join(f"{k} {v:.2f}" for k, v in prof["split_ms"].items())
+    print(f"    one level step (f32, level {CINE_CHECK_LEVEL}, "
+          f"{CINE_FRAMES} frames x {CINE_CHAINS} chains): device ms by part: "
+          f"{split}; profiled: wall {prof['profiled_wall_ms']:.2f} ms, "
+          f"kernels {prof['profiled_device_ms']:.2f} ms, idle share "
+          f"{prof['idle_share']:.4f}, launches per inner step "
+          f"{prof['launches_per_inner_step']:.1f}; nets alone (torch "
+          f"defaults): spatial {cine['spatial_net_ms']:.2f} ms at batch "
+          f"{cine['net_batches']['spatial']}, temporal "
+          f"{cine['temporal_net_ms']:.2f} ms at batch "
+          f"{cine['net_batches']['temporal']}", flush=True)
+    for label, rows in (("kernel", prof["top_kernels"]),
+                        ("op", prof["top_ops"])):
+        for key, calls, ms in rows:
+            print(f"    top {label}: {ms:.3f} ms over {calls} calls | {key}",
+                  flush=True)
+    say("cine", t, f"serve_recon --workload cine (CINE127 128 px spatial "
+        f"NCSNv2Deepest + CINE127_1D NCSN1D, ngf 128 each, seed 0; "
+        f"{CINE_FRAMES} frames, 4 coils, per-frame R = 8, {CINE_WIN}x"
+        f"{CINE_WIN} tubes; reduced: {cine['reduced']}), 3 requests over "
+        f"HTTP per engine and one in-process: f32 "
+        f"{cine['f32']['in_process']['chain_steps_per_s']:.2f} "
+        f"chain-steps/s in-process, bf16 "
+        f"{cine['bf16']['in_process']['chain_steps_per_s']:.2f}; engine vs "
+        f"make_stepped_2d_time_pair_reconstructor "
+        f"(same card, TF32) rel L2 {cine['engine_vs_direct_rel_l2']:.3g} (<= "
+        f"{ENGINE_REL_L2}); bf16 vs f32 rel L2 "
+        f"{cine['bf16_vs_f32_rel_l2']:.3g} (<= {BF16_REL_L2}); card vs CPU "
+        f"(float32 mode) rel L2 {json.dumps(cine['card_vs_cpu_rel_l2'])} "
+        f"(each <= {MODEL_REL_L2}; the CPU side {cine['cpu_check_s']:.1f} "
+        f"s); one input signature per engine; no K1/K2/K4 launch")
 
 
 def main() -> None:
@@ -1454,7 +1854,14 @@ def main() -> None:
         f"{SEG_F64_REL_L2}, the card's float32 gradient vs float64 <= "
         f"{SEG_F32_REL_L2}); one input signature per engine; no K1/K2/K4 "
         f"launch")
-    print(json.dumps({"ncsnv2": nv2, "recon": rec, "serve": srv}), flush=True)
+
+    # 12. cine ----------------------------------------------------------------
+    t = time.perf_counter()
+    cine = cine_phase(fk, fl)
+    launches["cine"] = {}
+    report_cine(cine, t)
+    print(json.dumps({"ncsnv2": nv2, "recon": rec, "serve": srv,
+                      "cine": cine}), flush=True)
 
     kernels = []
     for name in ("up2x", "down2x", "up2x.bwd", "down2x.bwd", "flr_fwd",

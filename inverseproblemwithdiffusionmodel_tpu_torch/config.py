@@ -64,7 +64,8 @@ def load_config(ds_name: str, mode: str = "real-valued", **overrides: Any
     """A dataset config, as the JAX package's `load_config` reads it from
     its YAML file. mode == "complex" sets two input channels (real and
     imaginary stacked). Extra keyword args are dotted-key overrides, e.g.
-    ``**{"model.ngf": 32}``. Datasets other than ACDC are not ported yet."""
+    ``**{"model.ngf": 32}``. Ported: ACDC, CINE127, CINE127_1D, CINE64 and
+    CINE64_1D (configs_discrete.DATASETS); others raise."""
     from .configs_discrete import DATASETS
     if mode not in DATA_MODES:
         raise ValueError(f"unknown data mode {mode!r}; one of {DATA_MODES}")

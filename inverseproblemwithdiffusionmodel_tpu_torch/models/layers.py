@@ -1,12 +1,16 @@
-"""Activations and the NCSN (RefineNet-family) building blocks, NCHW.
+"""Activations and the NCSN (RefineNet-family) building blocks, NCHW or
+NCT.
 
 Port of inverseproblemwithdiffusionmodel_tpu/models/layers.py: `get_act`,
 `centered_input`, `Conv` (dilation, `pre_pad`), `conv1x1` / `conv3x3`,
 `ConvTranspose`, the
 pools, CRP / RCU / MSF / RefineBlock, ConvMeanPool and ResidualBlock
-(reference: ncsn/models/layers.py). The JAX package is channel-last; these
-blocks are NCHW, torch's and cuDNN's own layout, and take their input
-widths at construction. Submodules carry the names Flax gives them
+(reference: ncsn/models/layers.py, layers1d.py). As in the JAX package
+every block takes `ndim`, the number of spatial axes: 2 for images, 1 for
+the temporal prior's pixel tubes; the pools follow the rank of their
+input. The JAX package is channel-last; these blocks are channels-first,
+torch's and cuDNN's own layout, and take their input widths at
+construction. Submodules carry the names Flax gives them
 (`Conv_0`, `ConvMeanPool_1`, `adapt_0`, `norm1`, ...), so a Flax parameter
 tree maps onto the state dict leaf by leaf (utils/convert.py). Torch's
 default init, U(+-1/sqrt(fan_in)) for weights and biases, is the JAX
@@ -15,6 +19,7 @@ package's `torch_kernel_init`.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -45,38 +50,53 @@ def centered_input(config) -> bool:
     return bool(data.logit_transform or data.rescaled)
 
 
-class Conv(nn.Conv2d):
-    """2-D convolution, symmetric padding (kernel_size // 2 * dilation by
-    default), optional extra zero padding `pre_pad` = (lo, hi) per axis."""
+_CONV = {1: F.conv1d, 2: F.conv2d}
+
+
+class Conv(nn.Module):
+    """N-D convolution (ndim 1 or 2), symmetric padding (kernel_size // 2
+    * dilation by default), optional extra zero padding `pre_pad` = (lo,
+    hi) per axis. Weight (O, I, *k) and bias (O,), drawn as torch's
+    nn.Conv2d draws them, U(+-1/sqrt(fan_in))."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, padding: Optional[int] = None,
                  dilation: int = 1, use_bias: bool = True,
-                 pre_pad: Optional[Tuple[int, int]] = None):
+                 pre_pad: Optional[Tuple[int, int]] = None, ndim: int = 2):
+        super().__init__()
         k = kernel_size
-        pad = padding if padding is not None else (
+        self.padding = padding if padding is not None else (
             (k // 2) * dilation if k > 1 else 0)
-        super().__init__(in_features, features, k, stride=stride,
-                         padding=pad, dilation=dilation, bias=use_bias)
-        self.pre_pad = pre_pad
+        self.stride, self.dilation, self.pre_pad = stride, dilation, pre_pad
+        self.in_channels, self.out_channels = in_features, features
+        self.ndim = ndim
+        self.weight = nn.Parameter(torch.empty((features, in_features)
+                                               + (k,) * ndim))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        bound = 1.0 / math.sqrt(in_features * k ** ndim)
+        with torch.no_grad():
+            for p in (self.weight, self.bias):
+                if p is not None:
+                    p.uniform_(-bound, bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pre_pad is not None:
-            lo, hi = self.pre_pad
-            x = F.pad(x, (lo, hi, lo, hi))
-        return super().forward(x)
+            x = F.pad(x, tuple(self.pre_pad) * self.ndim)
+        return _CONV[self.ndim](x, self.weight, self.bias, self.stride,
+                                self.padding, self.dilation)
 
 
 def conv1x1(in_features: int, features: int, stride: int = 1,
-            use_bias: bool = True) -> Conv:
+            use_bias: bool = True, ndim: int = 2) -> Conv:
     return Conv(in_features, features, 1, stride=stride, padding=0,
-                use_bias=use_bias)
+                use_bias=use_bias, ndim=ndim)
 
 
 def conv3x3(in_features: int, features: int, stride: int = 1,
-            use_bias: bool = True, dilation: int = 1) -> Conv:
+            use_bias: bool = True, dilation: int = 1, ndim: int = 2
+            ) -> Conv:
     return Conv(in_features, features, 3, stride=stride, dilation=dilation,
-                use_bias=use_bias)
+                use_bias=use_bias, ndim=ndim)
 
 
 class ConvTranspose(nn.ConvTranspose2d):
@@ -92,22 +112,28 @@ class ConvTranspose(nn.ConvTranspose2d):
                          padding=padding, output_padding=output_padding)
 
 
+_MAX_POOL = {3: F.max_pool1d, 4: F.max_pool2d}
+_AVG_POOL = {3: F.avg_pool1d, 4: F.avg_pool2d}
+
+
 def max_pool(x: torch.Tensor, window: int = 5, stride: int = 1,
              padding: int = 2) -> torch.Tensor:
-    """Max pool; the padding counts as -inf."""
-    return F.max_pool2d(x, window, stride, padding)
+    """Max pool over the spatial axes of an NCT or NCHW x; the padding
+    counts as -inf."""
+    return _MAX_POOL[x.ndim](x, window, stride, padding)
 
 
 def avg_pool(x: torch.Tensor, window: int = 5, stride: int = 1,
              padding: int = 2) -> torch.Tensor:
     """Mean over the full window, padding included (count_include_pad)."""
-    return F.avg_pool2d(x, window, stride, padding, count_include_pad=True)
+    return _AVG_POOL[x.ndim](x, window, stride, padding,
+                             count_include_pad=True)
 
 
 def mean_pool_2x(x: torch.Tensor) -> torch.Tensor:
-    """2x decimating mean pool (the reference's sum of shifted slices / 4,
-    layers.py:311-313)."""
-    return F.avg_pool2d(x, 2, 2)
+    """2x decimating mean pool (the reference's sum of shifted slices /
+    2^ndim, layers.py:311-313)."""
+    return _AVG_POOL[x.ndim](x, 2, 2)
 
 
 class _FlaxNamed(nn.Module):
@@ -131,11 +157,12 @@ class CRPBlock(_FlaxNamed):
     """Chained residual pooling (reference: layers.py:62-83)."""
 
     def __init__(self, features: int, n_stages: int, act: Callable,
-                 maxpool: bool = True):
+                 maxpool: bool = True, ndim: int = 2):
         super().__init__()
         self.act = act
         self.pool = max_pool if maxpool else avg_pool
-        self.convs = [self._auto(conv3x3(features, features, use_bias=False))
+        self.convs = [self._auto(conv3x3(features, features, use_bias=False,
+                                         ndim=ndim))
                       for _ in range(n_stages)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -151,11 +178,11 @@ class RCUBlock(_FlaxNamed):
     """Residual conv units (reference: layers.py:112-134)."""
 
     def __init__(self, features: int, n_blocks: int, n_stages: int,
-                 act: Callable):
+                 act: Callable, ndim: int = 2):
         super().__init__()
         self.act = act
         self.blocks = [[self._auto(conv3x3(features, features,
-                                           use_bias=False))
+                                           use_bias=False, ndim=ndim))
                         for _ in range(n_stages)] for _ in range(n_blocks)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -168,12 +195,15 @@ class RCUBlock(_FlaxNamed):
 
 
 class MSFBlock(_FlaxNamed):
-    """Multi-scale fusion: a conv per input, resized (bilinear, aligned
-    corners) to the output shape, summed (reference: layers.py:165-184)."""
+    """Multi-scale fusion: a conv per input, resized (multi-linear,
+    aligned corners) to the output shape, summed (reference:
+    layers.py:165-184)."""
 
-    def __init__(self, in_planes: Sequence[int], features: int):
+    def __init__(self, in_planes: Sequence[int], features: int,
+                 ndim: int = 2):
         super().__init__()
-        self.convs = [self._auto(conv3x3(c, features)) for c in in_planes]
+        self.convs = [self._auto(conv3x3(c, features, ndim=ndim))
+                      for c in in_planes]
 
     def forward(self, xs: Sequence[torch.Tensor], shape: Sequence[int]
                 ) -> torch.Tensor:
@@ -191,15 +221,15 @@ class RefineBlock(nn.Module):
 
     def __init__(self, in_planes: Sequence[int], features: int,
                  act: Callable, start: bool = False, end: bool = False,
-                 maxpool: bool = True):
+                 maxpool: bool = True, ndim: int = 2):
         super().__init__()
         self.n_inputs = len(in_planes)
         for i, c in enumerate(in_planes):
-            self.add_module(f"adapt_{i}", RCUBlock(c, 2, 2, act))
+            self.add_module(f"adapt_{i}", RCUBlock(c, 2, 2, act, ndim))
         if self.n_inputs > 1:
-            self.msf = MSFBlock(in_planes, features)
-        self.crp = CRPBlock(features, 2, act, maxpool)
-        self.output = RCUBlock(features, 3 if end else 1, 2, act)
+            self.msf = MSFBlock(in_planes, features, ndim)
+        self.crp = CRPBlock(features, 2, act, maxpool, ndim)
+        self.output = RCUBlock(features, 3 if end else 1, 2, act, ndim)
 
     def forward(self, xs: Sequence[torch.Tensor],
                 output_shape: Sequence[int]) -> torch.Tensor:
@@ -214,11 +244,12 @@ class ConvMeanPool(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: int = 3, use_bias: bool = True,
-                 adjust_padding: bool = False):
+                 adjust_padding: bool = False, ndim: int = 2):
         super().__init__()
         self.Conv_0 = Conv(
             in_features, features, kernel_size, padding=kernel_size // 2,
-            use_bias=use_bias, pre_pad=(1, 0) if adjust_padding else None)
+            use_bias=use_bias, pre_pad=(1, 0) if adjust_padding else None,
+            ndim=ndim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mean_pool_2x(self.Conv_0(x))
@@ -238,32 +269,31 @@ class ResidualBlock(_FlaxNamed):
     def __init__(self, input_dim: int, output_dim: int, normalization,
                  act: Callable, resample: Optional[str] = None,
                  dilation: Optional[int] = None,
-                 adjust_padding: bool = False):
+                 adjust_padding: bool = False, ndim: int = 2):
         super().__init__()
         self.act = act
         d = dilation if dilation is not None and dilation > 1 else None
+        c3 = functools.partial(conv3x3, dilation=d or 1, ndim=ndim)
         if resample == "down":
             mid = input_dim
             if d:
-                conv1 = conv3x3(input_dim, input_dim, dilation=d)
-                conv2 = conv3x3(input_dim, output_dim, dilation=d)
-                shortcut = conv3x3(input_dim, output_dim, dilation=d)
+                conv1 = c3(input_dim, input_dim)
+                conv2 = c3(input_dim, output_dim)
+                shortcut = c3(input_dim, output_dim)
             else:
-                conv1 = conv3x3(input_dim, input_dim)
+                conv1 = c3(input_dim, input_dim)
                 conv2 = ConvMeanPool(input_dim, output_dim,
-                                     adjust_padding=adjust_padding)
+                                     adjust_padding=adjust_padding,
+                                     ndim=ndim)
                 shortcut = ConvMeanPool(input_dim, output_dim, kernel_size=1,
-                                        adjust_padding=adjust_padding)
+                                        adjust_padding=adjust_padding,
+                                        ndim=ndim)
         elif resample is None:
             mid = output_dim
-            if d:
-                conv1 = conv3x3(input_dim, output_dim, dilation=d)
-                conv2 = conv3x3(output_dim, output_dim, dilation=d)
-                shortcut = conv3x3(input_dim, output_dim, dilation=d)
-            else:
-                conv1 = conv3x3(input_dim, output_dim)
-                conv2 = conv3x3(output_dim, output_dim)
-                shortcut = conv1x1(input_dim, output_dim)
+            conv1 = c3(input_dim, output_dim)
+            conv2 = c3(output_dim, output_dim)
+            shortcut = (c3(input_dim, output_dim) if d
+                        else conv1x1(input_dim, output_dim, ndim=ndim))
         else:
             raise ValueError("invalid resample value")
         identity = output_dim == input_dim and resample is None

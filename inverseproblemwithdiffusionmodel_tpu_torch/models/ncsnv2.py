@@ -7,7 +7,9 @@ RefineNet decoder; the input goes through 2x - 1 unless the data are
 centered; the output is divided by the per-sample noise level.
 
 `forward(x, used_sigmas)` takes x as (B, C, H, W) and the sigma VALUES
-(B,), not ladder labels. The JAX package is channel-last; for the C = 1 of
+(B,), not ladder labels. With ndim=1 the same family runs on (B, C, T)
+pixel tubes (models/ncsn1d.py, the temporal prior), as in the JAX
+package. The JAX package is channel-last; for the C = 1 of
 the MRI configs an NHWC (B, H, W, 1) tensor and its contiguous NCHW form
 share their memory, so the samplers keep the JAX axis order and hand the
 net a view (models/registry.make_score_fn). The view must carry NCHW
@@ -39,24 +41,25 @@ class _NCSNv2Family(nn.Module):
     STAGES = ()
     REFINES = ()
 
-    def __init__(self, config):
+    def __init__(self, config, ndim: int = 2):
         super().__init__()
         self.config = config
+        self.ndim = ndim
         ngf = config.model.ngf
         self.act = act = get_act(config)
         norm = get_normalization(config, conditional=False)
         self.centered = centered_input(config)
-        self.begin_conv = Conv(config.data.channels, ngf, 3)
+        self.begin_conv = Conv(config.data.channels, ngf, 3, ndim=ndim)
         width = ngf
         self.widths = []
         for name, mult, resample, dilation in self.STAGES:
             adjust = self._adjust_padding(name)
             self.add_module(f"{name}_0", ResidualBlock(
                 width, mult * ngf, norm, act, resample=resample,
-                dilation=dilation, adjust_padding=adjust))
+                dilation=dilation, adjust_padding=adjust, ndim=ndim))
             width = mult * ngf
             self.add_module(f"{name}_1", ResidualBlock(
-                width, width, norm, act, dilation=dilation))
+                width, width, norm, act, dilation=dilation, ndim=ndim))
             self.widths.append(width)
         ref_width = None
         last = len(self.REFINES) - 1
@@ -64,10 +67,11 @@ class _NCSNv2Family(nn.Module):
                 zip(self.REFINES, reversed(self.widths))):
             planes = [width] if ref_width is None else [width, ref_width]
             self.add_module(name, RefineBlock(planes, mult * ngf, act,
-                                              start=i == 0, end=i == last))
+                                              start=i == 0, end=i == last,
+                                              ndim=ndim))
             ref_width = mult * ngf
         self.normalizer = norm(ngf)
-        self.end_conv = Conv(ngf, config.data.channels, 3)
+        self.end_conv = Conv(ngf, config.data.channels, 3, ndim=ndim)
 
     def _adjust_padding(self, stage: str) -> bool:
         return False
@@ -84,7 +88,7 @@ class _NCSNv2Family(nn.Module):
         ref = None
         for (name, _), layer in zip(self.REFINES, reversed(layers)):
             xs = [layer] if ref is None else [layer, ref]
-            ref = getattr(self, name)(xs, layer.shape[-2:])
+            ref = getattr(self, name)(xs, layer.shape[2:])
         out = self.end_conv(self.act(self.normalizer(ref)))
         return _divide_by_sigmas(out, used_sigmas)
 

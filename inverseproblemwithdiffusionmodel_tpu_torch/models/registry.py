@@ -3,8 +3,9 @@
 Port of `create_model`, `get_network`, `build_seg_unet`,
 `TASK_NAME_TO_MODEL_CTOR`, `load_model` and `make_score_fn` from
 inverseproblemwithdiffusionmodel_tpu/models/registry.py. Ported: NCSN++,
-the NCSNv2 family (with the size-suffixed aliases) and the seg UNet;
-`make_seg_fn` is the seg UNet's counterpart of `make_score_fn`.
+the NCSNv2 family (with the size-suffixed aliases), its 1-D members (the
+cine temporal prior, task "Diffusion1D") and the seg UNet; `make_seg_fn`
+is the seg UNet's counterpart of `make_score_fn`.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..config import load_general_config
+from .ncsn1d import NCSN1D, NCSN1DDeeper, NCSN1DDeepest, UNET1D
 from .ncsnpp import NCSNpp
 from .ncsnv2 import NCSNv2, NCSNv2Deeper, NCSNv2Deepest
 from .unet import UNet
@@ -22,6 +24,8 @@ _MODELS = {
     "ncsnpp": NCSNpp,
     "ncsnv2": NCSNv2, "ncsnv2_deeper": NCSNv2Deeper,
     "ncsnv2_deepest": NCSNv2Deepest,
+    "ncsn1d": NCSN1D, "ncsn1d_deeper": NCSN1DDeeper,
+    "ncsn1d_deepest": NCSN1DDeepest, "unet1d": UNET1D,
     # size-suffixed aliases (reference: models/ncsnv2.py registers
     # ncsnv2_64/128/256 for the <96 / <=128 / <=256 px variants)
     "ncsnv2_64": NCSNv2, "ncsnv2_128": NCSNv2Deeper,
@@ -74,11 +78,24 @@ def _not_ported(task: str, slice_: str):
 
 TASK_NAME_TO_MODEL_CTOR = {
     "Diffusion": lambda config: NCSNv2Deepest(config),
-    "Diffusion1D": _not_ported("Diffusion1D", "Slice C"),
+    "Diffusion1D": NCSN1D,
     "Diffusion3D": _not_ported("Diffusion3D", "Slice C"),
     "Clf": _not_ported("Clf", "Slice B"),
     "Seg": lambda config: build_seg_unet(),
 }
+
+
+def example_input(config, task_name: str) -> torch.Tensor:
+    """A zero batch of one, channel-last, at the shape the JAX package
+    initializes a task's model with (its `_example_input`): (1, s, s, C)
+    images, (1, T, C) tubes of the 1-D prior."""
+    data = config.data
+    if task_name == "Diffusion1D":
+        return torch.zeros(1, data.image_size, data.channels)
+    if task_name in ("Diffusion", "Seg"):
+        s = data.image_size
+        return torch.zeros(1, s, s, data.channels)
+    raise NotImplementedError(f"no ported model for task {task_name!r}")
 
 
 def load_model(config, task_name: str, seed: int = 0
@@ -102,7 +119,7 @@ def make_seg_fn(model: torch.nn.Module
     between. Runs in the model's dtype and on its device."""
 
     def seg_fn(x: torch.Tensor) -> torch.Tensor:
-        return model(_to_nchw(x)).permute(0, 2, 3, 1)
+        return model(_to_nchw(x)).movedim(1, -1)
 
     return seg_fn
 
@@ -113,7 +130,9 @@ def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
     """Adapter `(x, labels) -> model(x, sigmas[labels])`, the interface of
     the ALD samplers, for the NCSNv2 family. x is channel-last (B, H, W, C)
     as in the JAX package; the net runs on contiguous NCHW (`_to_nchw`, no
-    copy for C = 1) and the score comes back channel-last. `sigmas` moves
+    copy for C = 1) and the score comes back channel-last. The 1-D nets
+    take channel-last tubes (B', T, C) the same way: for the C = win^2
+    channels of a tube the move to (B', C, T) is a copy. `sigmas` moves
     to the model's device.
 
     compute_dtype=torch.bfloat16 runs the net on a bf16 copy of the weights
@@ -135,18 +154,18 @@ def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
         h = _to_nchw(x)
         if compute_dtype is not None:
             h = h.to(compute_dtype)
-        out = net(h, sigmas[labels]).permute(0, 2, 3, 1)
+        out = net(h, sigmas[labels]).movedim(1, -1)
         return out.float()
 
     return score_fn
 
 
 def _to_nchw(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) -> contiguous (B, C, H, W). For C = 1 this is a view of
-    the same memory. The bare permute would not do: for C = 1 its strides
-    are channels-last strides, and torch then runs every convolution of the
-    net in NHWC against NCHW weights, converting them at every call."""
-    b, h, w, c = x.shape
-    if c == 1:
-        return x.reshape(b, 1, h, w)
-    return x.permute(0, 3, 1, 2).contiguous()
+    """(B, H, W, C) -> contiguous (B, C, H, W), or (B, T, C) -> (B, C, T).
+    For C = 1 this is a view of the same memory. The bare permute would
+    not do: for C = 1 its strides are channels-last strides, and torch
+    then runs every convolution of the net in NHWC against NCHW weights,
+    converting them at every call."""
+    if x.shape[-1] == 1:
+        return x.reshape((x.shape[0], 1) + x.shape[1:-1])
+    return x.movedim(-1, 1).contiguous()

@@ -5,14 +5,15 @@ ops/resize.py, which the RefineNet MSF blocks use (reference:
 ncsn/models/layers.py:182, `F.interpolate(mode='bilinear',
 align_corners=True)`). Each axis is contracted with a dense (out, in)
 interpolation matrix built in float64 with numpy, H first, then W, as in
-the JAX package. `F.interpolate` computes its weights in float32 and
+the JAX package; the 1-D RefineNet of the temporal prior resizes its one
+axis. `F.interpolate` computes its weights in float32 and
 differs from it by up to 4e-6 of values of order one (32 -> 64 px), more
 than the 1e-6 it is held to (tests/test_torch_ncsnv2.py).
 """
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,15 +48,24 @@ def _interp_tensor(in_size: int, out_size: int, dtype: torch.dtype,
                                dtype=dtype, device=device)
 
 
-def resize_align_corners(x: torch.Tensor, sizes: Sequence[int]
+def resize_align_corners(x: torch.Tensor, sizes: Sequence[int],
+                         axes: Optional[Sequence[int]] = None
                          ) -> torch.Tensor:
-    """Resize the two spatial axes of an NCHW tensor to `sizes` (H, W), in
-    x's dtype; an axis whose size already matches is left alone."""
-    h_out, w_out = (int(s) for s in sizes)
-    if x.shape[-2] != h_out:
-        W = _interp_tensor(x.shape[-2], h_out, x.dtype, x.device)
-        x = torch.einsum("oh,bchw->bcow", W, x)
-    if x.shape[-1] != w_out:
-        W = _interp_tensor(x.shape[-1], w_out, x.dtype, x.device)
-        x = x @ W.T
+    """Resize the `axes` of x to `sizes`, in order, in x's dtype; an axis
+    whose size already matches is left alone. `axes` defaults to the
+    trailing len(sizes) axes: the spatial axes of an NCHW (or NCT)
+    tensor."""
+    sizes = [int(s) for s in sizes]
+    if axes is None:
+        axes = range(x.ndim - len(sizes), x.ndim)
+    for size, axis in zip(sizes, (a % x.ndim for a in axes)):
+        if x.shape[axis] == size:
+            continue
+        W = _interp_tensor(x.shape[axis], size, x.dtype, x.device)
+        if axis == x.ndim - 1:
+            x = x @ W.T
+        elif axis == x.ndim - 2:
+            x = torch.einsum("oh,...hw->...ow", W, x)
+        else:
+            x = torch.movedim(torch.movedim(x, axis, -1) @ W.T, -1, axis)
     return x

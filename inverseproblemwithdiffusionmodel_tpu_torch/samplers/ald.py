@@ -1,10 +1,11 @@
 """Annealed Langevin dynamics: the sampler parameters and the update step.
 
-Port of `ALDConfig`, `_labels`, `_langevin_update` and the guidance
-gradients `compute_clf_grad` / `compute_seg_grad` from
-inverseproblemwithdiffusionmodel_tpu/samplers/ald.py (reference:
-ncsn/models/ALD_optimizers.py:49-155, ncsn/models/__init__.py:172-215).
-Randomness is injected: the update
+Port of `ALDConfig`, `_labels`, `_langevin_update`, the guidance
+gradients `compute_clf_grad` / `compute_seg_grad` and the 2D+time ladders
+(`interp_sigmas_T`, `interp_sigma_T_indices`, `setup_2d_time_ladders`)
+from inverseproblemwithdiffusionmodel_tpu/samplers/ald.py (reference:
+ncsn/models/ALD_optimizers.py:49-155 and 342-361,
+ncsn/models/__init__.py:172-215). Randomness is injected: the update
 takes its noise tensor, drawn by the caller from a `noise(shape)` function
 (utils/device.gaussian_noise builds one from a seed and an explicit
 torch.Generator), so a test can feed the JAX sampler's own draws.
@@ -16,8 +17,9 @@ builds one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,6 +46,74 @@ def _langevin_update(x: torch.Tensor, grad: torch.Tensor,
                      ) -> torch.Tensor:
     """x + s * grad + noise * sqrt(2 s), s a float32 tensor."""
     return x + step_size * grad + noise * torch.sqrt(step_size * 2.0)
+
+
+# -- 2D+time ladders (host numpy: the level loop reads them on the host) ----
+
+MODES_T = ("tv", "diffusion1d", "none", "diffusion1d-only", "tv-only")
+
+
+def _n_overlap(sigmas_S: np.ndarray, sigmas_T: np.ndarray) -> int:
+    n = int((sigmas_S <= sigmas_T[0]).sum())
+    if n == 0:
+        raise ValueError(
+            f"temporal ladder (max {sigmas_T[0]:g}) lies entirely below "
+            f"the spatial ladder (min {sigmas_S.min():g}); no level would "
+            "run a temporal step - check sigma_begin_T/sigma_end_S")
+    return n
+
+
+def interp_sigmas_T(sigmas_S, sigmas_T) -> np.ndarray:
+    """The temporal ladder nearest-interpolated onto the tail of the
+    spatial ladder (the levels with sigma_S <= sigma_T[0]); earlier levels
+    get the sentinel -1, no temporal step (reference:
+    ALD_optimizers.py:342-345). float32."""
+    sigmas_S, sigmas_T = np.asarray(sigmas_S), np.asarray(sigmas_T)
+    n = _n_overlap(sigmas_S, sigmas_T)
+    out = np.full(sigmas_S.shape, -1.0, dtype=np.float32)
+    # torch F.interpolate(mode="nearest") from len L_T to len n
+    out[-n:] = sigmas_T[(np.arange(n) * sigmas_T.shape[0] / n)
+                        .astype(np.int64)]
+    return out
+
+
+def interp_sigma_T_indices(sigmas_S, sigmas_T) -> np.ndarray:
+    """Per spatial level, the index into the RAW temporal ladder that the
+    temporal net receives as its label (sigmas_T[idx[c]] ==
+    interp_sigmas_T(...)[c] on active levels; 0 on inactive ones). The
+    reference overwrites scorenet_T.sigmas with the interpolated ladder
+    instead (ALD_optimizers.py:342-346). int32."""
+    sigmas_S, sigmas_T = np.asarray(sigmas_S), np.asarray(sigmas_T)
+    n = _n_overlap(sigmas_S, sigmas_T)
+    out = np.zeros(sigmas_S.shape, dtype=np.int32)
+    out[-n:] = (np.arange(n) * sigmas_T.shape[0] / n).astype(np.int32)
+    return out
+
+
+def setup_2d_time_ladders(sigmas, sigmas_T, mode_T: str
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(the ladder the levels run over, per-level sigma_T, per-level RAW
+    temporal label), as numpy arrays on the host:
+
+    - '*-only' modes run over the temporal ladder (reference:
+      ALD_optimizers.py:355-361);
+    - 'diffusion1d' interpolates sigmas_T onto the tail of the spatial
+      ladder, sentinel -1 before it; the non-overlap ValueError applies;
+    - 'tv' / 'none' read no temporal ladder: sentinels, and no overlap
+      check.
+    """
+    if mode_T not in MODES_T:
+        raise ValueError(f"unknown mode_T {mode_T!r}; one of {MODES_T}")
+    sigmas = np.array(sigmas, np.float32)
+    sigmas_T = np.array(sigmas_T, np.float32)
+    if mode_T in ("diffusion1d-only", "tv-only"):
+        return (sigmas_T, sigmas_T,
+                np.arange(sigmas_T.shape[0], dtype=np.int32))
+    if "diffusion1d" in mode_T:
+        return (sigmas, interp_sigmas_T(sigmas, sigmas_T),
+                interp_sigma_T_indices(sigmas, sigmas_T))
+    return (sigmas, np.full(sigmas.shape, -1.0, np.float32),
+            np.zeros(sigmas.shape, np.int32))
 
 
 

@@ -5,16 +5,22 @@
       --ds_name ACDC --ckpt_dir runs/acdc_prior/ckpts --R 8 --chains 16 \\
       --dtype bf16 --port 8471
 
-Port of inverseproblemwithdiffusionmodel_tpu/scripts/serve_recon.py (the
-2-D workload): builds a serving.ReconstructionEngine at a fixed geometry,
-runs it once (--no_warmup skips that), then answers POST /reconstruct
-(k-space pair in, ensemble mean/std out; serving/server.py has the wire
-protocol). --ckpt_dir and --seg_ckpt_dir are training/checkpoint.
+or the 2D+time (cine) workload with a spatial and a temporal prior:
+
+  python -m inverseproblemwithdiffusionmodel_tpu_torch.scripts.serve_recon \\
+      --workload cine --ds_name CINE127 --ds_name_T CINE127_1D \\
+      --mode_T diffusion1d --frames 24 --win_size 8 --R 8 --synth_sens
+
+Port of inverseproblemwithdiffusionmodel_tpu/scripts/serve_recon.py:
+builds a serving.ReconstructionEngine (2d) or a serving.
+CineReconstructionEngine (cine) at a fixed geometry, runs it once
+(--no_warmup skips that), then answers POST /reconstruct (k-space pair
+in, ensemble mean/std out; serving/server.py has the wire protocol).
+--ckpt_dir, --ckpt_dir_T and --seg_ckpt_dir are training/checkpoint.
 Checkpointer directories; without them the nets take weights drawn from a
-seed, with a loud warning. --seg_ckpt_dir builds a seg-guided engine.
-Not ported: the cine workload (ROADMAP: Slice C), chain sharding with
---data_shards (ROADMAP: parallel/) and the int8 dtype (ROADMAP: Slice H);
-each raises NotImplementedError.
+seed, with a loud warning. --seg_ckpt_dir builds a seg-guided 2-D engine.
+Not ported: chain sharding with --data_shards (ROADMAP: parallel/) and
+the int8 dtype (ROADMAP: Slice H); each raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -27,15 +33,68 @@ from ..config import load_config
 from ..operators.fourier import MASK_PRESETS, _exp_sens_map
 from ..operators.masks import generate_mask
 from ..samplers.sigmas import check_ladder_stability, get_sigmas, sigma_ladder
-from ..serving import EngineSpec, ReconstructionEngine
+from ..serving import (CineEngineSpec, CineReconstructionEngine,
+                       EngineSpec, ReconstructionEngine)
 from ..serving.server import serve
 from ..utils.device import resolve_device
 
 
-def build_engine(args) -> ReconstructionEngine:
-    if args.workload == "cine":
-        raise NotImplementedError("the cine workload is not ported yet "
-                                  "(ROADMAP: Slice C)")
+def _ladder(config, levels: int):
+    """The config's recons ladder, or `levels` levels of it."""
+    if not levels:
+        return get_sigmas(config, "recons")
+    r = config.recons
+    return sigma_ladder(r.sigma_begin, r.sigma_end, levels, r.sigma_dist)
+
+
+def _synth_sens(args, size: int):
+    """The reference's synthetic exp coil maps, SOS-normalized, as
+    (coils, size, size, 1); None unless --synth_sens."""
+    if not (args.num_sens and args.synth_sens):
+        return None
+    maps = np.stack([_exp_sens_map(size, size, args.seed + i)
+                     for i in range(args.num_sens)])
+    maps = maps / np.sqrt((maps ** 2).sum(axis=0, keepdims=True))
+    return maps[..., None]
+
+
+def build_cine_engine(args) -> CineReconstructionEngine:
+    """The 2D+time engine: the spatial prior of --ds_name, the temporal
+    1-D prior of --ds_name_T on pixel tubes (where --mode_T uses it),
+    per-frame R masks."""
+    config_S = apply_overrides(load_config(args.ds_name, "real-imag"),
+                               args.override)
+    size = config_S.data.image_size
+    model_S, _ = reload_model(config_S, "Diffusion", args.ckpt_dir)
+    sigmas_S = _ladder(config_S, args.levels)
+    model_T = sigmas_T = None
+    if "diffusion1d" in args.mode_T:
+        config_T = load_config(args.ds_name_T, "real-imag")
+        model_T, _ = reload_model(config_T, "Diffusion1D", args.ckpt_dir_T)
+        sigmas_T = get_sigmas(config_T, "recons")
+    n_steps = args.num_steps_each or config_S.sampling.n_steps_each
+    step_lr = args.step_lr or config_S.sampling.step_lr
+    check_ladder_stability(sigmas_S, n_steps, step_lr)
+    mask = None
+    if args.R:
+        mask = generate_mask(args.frames, size, seed=args.seed,
+                             **MASK_PRESETS[args.R]).reshape(
+                                 args.frames, 1, size, 1)
+    spec = CineEngineSpec(height=size, width=size, frames=args.frames,
+                          channels=config_S.data.channels,
+                          num_sens=args.num_sens, chains=args.chains,
+                          n_steps_each=n_steps, step_lr=step_lr,
+                          lr_scaled=args.lr_scaled, mode_T=args.mode_T,
+                          lamda_T=args.lamda_T, win_size=args.win_size,
+                          if_random_shift=args.random_shift,
+                          prox_iters=args.prox_iters, dtype=args.dtype,
+                          mode=args.mode)
+    return CineReconstructionEngine(
+        model_S, sigmas_S, spec=spec, model_T=model_T, sigmas_T=sigmas_T,
+        mask=mask, sens_re=_synth_sens(args, size), device=args.device)
+
+
+def build_engine(args):
     if args.data_shards not in (0, 1):
         raise NotImplementedError(f"--data_shards {args.data_shards}: chain "
                                   "sharding is not ported yet (ROADMAP: "
@@ -44,27 +103,20 @@ def build_engine(args) -> ReconstructionEngine:
         raise NotImplementedError("--dtype int8 is not ported yet (ROADMAP: "
                                   "Slice H)")
     resolve_device(args.device)        # no card: raise before building
+    if args.workload == "cine":
+        return build_cine_engine(args)
     config = apply_overrides(load_config(args.ds_name, "real-imag"),
                              args.override)
     size = config.data.image_size
     model, _ = reload_model(config, "Diffusion", args.ckpt_dir)
-    sigmas = get_sigmas(config, "recons")
-    if args.levels:
-        sigmas = sigma_ladder(config.recons.sigma_begin,
-                              config.recons.sigma_end, args.levels,
-                              config.recons.sigma_dist)
+    sigmas = _ladder(config, args.levels)
     n_steps = args.num_steps_each or config.sampling.n_steps_each
     step_lr = args.step_lr or config.sampling.step_lr
     check_ladder_stability(sigmas, n_steps, step_lr)
     mask = None
     if args.R:
         mask = generate_mask(1, size, seed=args.seed, **MASK_PRESETS[args.R])
-    sens_re = None
-    if args.num_sens and args.synth_sens:
-        maps = np.stack([_exp_sens_map(size, size, args.seed + i)
-                         for i in range(args.num_sens)])
-        maps = maps / np.sqrt((maps ** 2).sum(axis=0, keepdims=True))
-        sens_re = maps[..., None]
+    sens_re = _synth_sens(args, size)
     seg_model = None
     if args.seg_ckpt_dir:
         seg_model, _ = reload_model(config, "Seg", args.seg_ckpt_dir)
@@ -88,12 +140,25 @@ def build_engine(args) -> ReconstructionEngine:
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--workload", default="2d", choices=["2d", "cine"],
-                   help="2d: single-volume ALD+prox; cine (2D+time) is not "
-                        "ported")
+                   help="2d: single-volume ALD+prox; cine: 2D+time "
+                        "factorized (spatial + temporal prior)")
     p.add_argument("--ds_name", default="ACDC")
     p.add_argument("--ckpt_dir", default=None,
                    help="checkpoint dir of the trained score model "
                         "(training/checkpoint.Checkpointer)")
+    # cine-only flags
+    p.add_argument("--ds_name_T", default="CINE127_1D",
+                   help="[cine] the temporal prior's dataset config")
+    p.add_argument("--ckpt_dir_T", default=None,
+                   help="[cine] checkpoint dir of the temporal 1-D prior")
+    p.add_argument("--mode_T", default="diffusion1d",
+                   choices=["tv", "diffusion1d", "none", "diffusion1d-only",
+                            "tv-only"])
+    p.add_argument("--lamda_T", type=float, default=1.0)
+    p.add_argument("--frames", type=int, default=24)
+    p.add_argument("--win_size", type=int, default=8)
+    p.add_argument("--random_shift", action="store_true",
+                   help="[cine] random spatial shift de-aliasing")
     # seg-guided serving (reference headline recon)
     p.add_argument("--seg_ckpt_dir", default=None,
                    help="checkpoint dir of a trained seg UNet; enables "

@@ -1,5 +1,5 @@
-"""Local HTTP front end for a ReconstructionEngine (standard library and
-numpy only).
+"""Local HTTP front end for a ReconstructionEngine or a
+CineReconstructionEngine (duck-typed; standard library and numpy only).
 
 Port of inverseproblemwithdiffusionmodel_tpu/serving/server.py, with the
 same protocol (binary npz in, binary npz out, no pickle anywhere):
@@ -7,8 +7,10 @@ same protocol (binary npz in, binary npz out, no pickle anywhere):
   GET  /healthz       -> 200 JSON {"status": "ok", ...engine stats}
   GET  /spec          -> 200 JSON engine spec
   POST /reconstruct   -> body: npz with arrays
-                           y_re, y_im              (required; k-space pair)
-                           mask, sens_re, sens_im  (optional overrides)
+                           y_re, y_im              (required; k-space pair,
+                                                    (coils, [T,] H, W))
+                           mask, sens_re, sens_im  (optional overrides; a
+                                                    cine mask per frame)
                            seg_label               (optional (H, W) int map,
                                                     seg-guided engines only)
                          query: ?seed=0&lr_scaled=5.0&seg_lamda=1.0
@@ -28,12 +30,15 @@ import io
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Optional, Union
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from .cine import CineReconstructionEngine
 from .engine import ReconstructionEngine
+
+Engine = Union[ReconstructionEngine, CineReconstructionEngine]
 
 
 def _npz_bytes(**arrays) -> bytes:
@@ -42,7 +47,7 @@ def _npz_bytes(**arrays) -> bytes:
     return buf.getvalue()
 
 
-def make_handler(engine: ReconstructionEngine):
+def make_handler(engine: Engine):
     class Handler(BaseHTTPRequestHandler):
         # quiet by default; the engine tracks request stats
         def log_message(self, fmt, *args):
@@ -102,7 +107,7 @@ def make_handler(engine: ReconstructionEngine):
     return Handler
 
 
-def serve(engine: ReconstructionEngine, host: str = "127.0.0.1",
+def serve(engine: Engine, host: str = "127.0.0.1",
           port: int = 8471, *, background: bool = False
           ) -> Optional[ThreadingHTTPServer]:
     """Serve the engine. background=True returns the started server (tests /

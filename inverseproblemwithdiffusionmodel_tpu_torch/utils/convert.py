@@ -5,7 +5,8 @@ from a Flax parameter tree, or drawn from a seed.
 the JAX package's parameters onto the port's state dict, name by name (the
 port keeps the Flax module names):
 
-- conv kernels (kh, kw, I, O) -> weight (O, I, kh, kw), no flip;
+- conv kernels (kh, kw, I, O) -> weight (O, I, kh, kw), no flip; the
+  1-D nets' kernels (k, I, O) -> weight (O, I, k);
 - transposed-conv kernels (kh, kw, I, O) -> weight (I, O, kh, kw), no
   flip: the JAX layer flips the kernel itself, as torch's
   conv_transpose2d does;
@@ -45,6 +46,8 @@ def _convert_leaf(path: str, value: np.ndarray, transposed=frozenset()):
         if module in transposed:
             return weight, value.transpose(2, 3, 0, 1)
         return weight, value.transpose(3, 2, 0, 1)
+    if leaf == "kernel" and value.ndim == 3:
+        return weight, value.transpose(2, 1, 0)
     if leaf == "kernel" and value.ndim == 2:
         return weight, value.T
     if leaf == "scale":
@@ -98,7 +101,8 @@ def flax_to_torch_ncsnv2(params: Mapping[str, Any], config,
                          ) -> Dict[str, torch.Tensor]:
     """State dict for an NCSNv2-family model from the JAX package's params
     tree of numpy arrays (the tree under "params"). The model is the
-    registry's `name` (e.g. "ncsnv2_deepest"), else `config.model.name`
+    registry's `name` (e.g. "ncsnv2_deepest", or "ncsn1d" for the 1-D
+    temporal prior), else `config.model.name`
     where the config has one, else the size dispatch of `get_network`
     (NCSNv2Deepest at 256 px, the ACDC prior). Raises if a name or shape
     does not match."""
@@ -129,9 +133,10 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
     std. The model's own init has init_scale 0 on the last conv of each
     block, which makes outputs near zero; these weights give outputs of
     order one.
-    NCSNv2 family: the JAX package's init distributions, convolution
-    weights and biases U(+-std_scale / sqrt(fan_in)) (torch's default),
-    InstanceNorm++ and VarianceNorm alpha and gamma N(1, 0.02), beta 0.
+    NCSNv2 family (both ranks): the JAX package's init distributions,
+    convolution weights and biases U(+-std_scale / sqrt(fan_in)) (torch's
+    default), InstanceNorm++ and VarianceNorm alpha and gamma N(1, 0.02),
+    beta 0.
     Seg UNet: convolution and transposed-convolution weights and biases
     U(+-std_scale / sqrt(fan_in)), fan_in = I kh kw for a convolution and
     O kh kw for a transposed one (torch's default, the JAX init's bounds);

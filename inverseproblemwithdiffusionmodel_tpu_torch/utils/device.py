@@ -1,12 +1,15 @@
-"""The device an entry point runs on, and the seeded noise source the
-samplers draw from."""
+"""The device an entry point runs on, and the seeded noise and shift
+sources the samplers draw from."""
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 import torch
 
 Noise = Callable[[Sequence[int]], torch.Tensor]
+# `shift(win) -> (sh, sw)`: the random spatial roll of one temporal step of
+# the cine sampler, host ints in [0, win)
+Shift = Callable[[int], Tuple[int, int]]
 
 
 def resolve_device(device) -> torch.device:
@@ -28,3 +31,16 @@ def gaussian_noise(seed: int, device) -> Noise:
         return torch.randn(tuple(shape), generator=gen, device=device)
 
     return noise
+
+
+def random_shift(seed: int) -> Shift:
+    """`shift(win) -> (sh, sw)`: two ints in [0, win) per call, drawn on
+    the host from a torch.Generator seeded with `seed` (host ints need no
+    device read)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def shift(win: int):
+        sh, sw = torch.randint(0, win, (2,), generator=gen).tolist()
+        return sh, sw
+
+    return shift

@@ -69,7 +69,13 @@ def test_importing_the_port_loads_no_jax_module():
         "ald, ald_pair, sigmas\n"
         "from inverseproblemwithdiffusionmodel_tpu_torch.models import unet\n"
         "from inverseproblemwithdiffusionmodel_tpu_torch.serving import "
-        "engine, server\n"
+        "cine, engine, server\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.utils import "
+        "reshape\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.operators import "
+        "finite_diff\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.models import "
+        "ncsn1d\n"
         "from inverseproblemwithdiffusionmodel_tpu_torch.scripts import "
         "serve_recon\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -109,7 +109,7 @@ def test_load_config_overrides_and_refusals():
     assert load_config("ACDC", "real-imag", **over).to_dict() == \
         jax_load_config("ACDC", "real-imag", **over).to_dict()
     with pytest.raises(NotImplementedError, match="not ported"):
-        load_config("CINE64")
+        load_config("MNIST")
     with pytest.raises(ValueError, match="data mode"):
         load_config("ACDC", "polar")
 

@@ -431,7 +431,10 @@ def test_load_model_builds_the_ported_tasks():
     assert type(net).__name__ == "NCSNv2Deepest"
     for a, b in zip(net.parameters(), again.parameters()):
         assert torch.equal(a, b)
-    for task in ("Diffusion1D", "Diffusion3D", "Clf"):
+    temporal, _ = load_model(load_config("CINE127_1D", "real-imag",
+                                         **{"model.ngf": 4}), "Diffusion1D")
+    assert type(temporal).__name__ == "NCSNv2" and temporal.ndim == 1
+    for task in ("Diffusion3D", "Clf"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             load_model(cfg, task)
     with pytest.raises(ValueError, match="unknown task"):
@@ -644,7 +647,7 @@ def test_cli_builds_engine(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--workload", "cine"], "Slice C"),
+    (["--workload", "cine", "--dtype", "int8"], "Slice H"),
     (["--data_shards", "2"], "parallel"),
     (["--dtype", "int8"], "Slice H")], ids=["cine", "data_shards", "int8"])
 def test_cli_refuses_what_is_not_ported(flags, match):
