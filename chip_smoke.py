@@ -96,8 +96,22 @@ phases, each printing one line with its own seconds:
    against f32; a level step with a temporal step split by CUDA events into the
    spatial net, the temporal step and net, the proximal and the rest,
    and profiled; card against CPU: the full-width NCSN1D and one inner
-   step on one chain, random shift off and on. Phases 9 to 12
-   launch none of K1, K2 or K4 (checked).
+   step on one chain, random shift off and on.
+13. train_ncsn: discrete score training through scripts.train_ncsn.main
+   on the loaders' synthetic stand-ins (train_ncsn_phase): ACDC
+   real-imag, NCSNv2Deepest at full width (256 px, ngf 128, seed 0), at
+   the recipe's batch 3 and the README's batch 8 in f32, batch 8 in bf16
+   with and without --remat, --grad_accum 2 at batch 3; CINE127_1D
+   real-imag, NCSN1D (ngf 128, 8 x 8 tubes of 24 frames, batch 90,
+   filter_th 0.05) in f32 and bf16. s/step and images/s after the first
+   step, each step timed between CUDA synchronizations; the first step's
+   peak memory and the steady peak; seconds saving checkpoints; the EMA
+   against its formula; the share of tube rows the filter keeps. Then
+   serve_recon.build_engine --ckpt_dir on the batch-8 f32 run (the
+   restored step, its EMA weights, one finite request), and one step of
+   each net card against CPU in the float32 mode (loss, gradients,
+   parameters, EMA) and bf16 against f32. Phases 9 to 13 launch none of
+   K1, K2 or K4 (checked).
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -106,8 +120,9 @@ batch >= 2; PERF.md), so the card computes in float32 like the reference.
 The sampling and training runs themselves use torch's defaults, as a
 user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
-serve, cine) and read just after it. Any failure raises and exits non-zero.
-Phases 9 to 12 print their numbers as one JSON line before `total`. The last
+serve, cine, train_ncsn) and read just after it. Any failure raises and
+exits non-zero. Phases 9 to 13 print their numbers as one JSON line
+before `total`. The last
 lines are nvidia-smi's name and power limit, a JSON line of per-kernel
 numbers, and
 `{"ok": true, "device": {...}}`. In the JSON line `ms`, `plain_ms` and
@@ -167,6 +182,32 @@ CINE_LEVELS = 8            # of the config's 1000
 CINE_WIN = 8               # 8 x 8 pixel tubes: the temporal net's 64 channels
 CINE_LAMDA_T = 0.5         # the in-process request's temporal weight
 CINE_CHECK_LEVEL = 1       # the first level with a temporal step
+# Discrete score training through scripts.train_ncsn on the loaders'
+# synthetic stand-ins (24 + 6 ACDC slices at 256 px; 12 + 4 cine videos
+# as 8 x 8 tubes of 24 frames): run name -> (its flags, steps)
+TRAIN_NCSN_RUNS = {
+    "acdc_b3_f32": (["--batch_size", "3"], 5),        # the recipe's batch
+    "acdc_b8_f32": (["--batch_size", "8"], 6),        # the README's batch
+    "acdc_b8_bf16": (["--batch_size", "8", "--bf16"], 6),
+    "acdc_b8_bf16_remat": (["--batch_size", "8", "--bf16", "--remat"], 6),
+    "acdc_b3_accum2": (["--batch_size", "3", "--grad_accum", "2"], 4),
+    "cine_f32": ([], 5),                              # the config's batch 90
+    "cine_bf16": (["--bf16"], 5),
+}
+TRAIN_LOSS_REL = 1e-5      # card vs CPU train step's loss, float32 mode
+BF16_LOSS_REL = 2e-2       # the bf16 step's loss vs the float32 step's
+# The bf16 train step's gradient vs the float32 step's, at least: it ran in
+# bf16 (read 1.26e-2 to 1.31e-2 ACDC, 3.90e-2 to 4.85e-2 NCSN1D on the
+# H100 over two runs; a float32 step reads 0)
+BF16_GRAD_FLOOR = 5e-3
+# Card vs CPU Adam update, rel L2. The first update is about lr * sign(g)
+# wherever |g| >> eps (1e-3), so it counts the gradient entries near 0
+# whose sign float32 rounding decides. Read on the H100 over two runs:
+# 1.11e-2 ACDC, 1.62e-5 to 2.09e-5 NCSN1D; the control (CONTROL_GRAD_REL
+# of noise) 0.532 and 3.25e-2 to 3.35e-2
+UPDATE_REL = {"acdc": 5e-2, "cine": 1e-3}
+CONTROL_GRAD_REL = 1e-3    # the control's gradient noise, 10 x MODEL_REL_L2
+RECON_CHAINS = 4           # the learn -> reconstruct request
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, float32 outside tensor cores
 PALLAS = "inverseproblemwithdiffusionmodel_tpu/ops/pallas_kernels.py"
@@ -1390,6 +1431,397 @@ def report_cine(cine: dict, t: float) -> None:
         f"s); one input signature per engine; no K1/K2/K4 launch")
 
 
+@contextlib.contextmanager
+def timed_fit(train_ncsn, rec: dict, watch: str):
+    """Wrap the `fit` that scripts.train_ncsn calls, and
+    Checkpointer.save: every step and eval step is timed between CUDA
+    synchronizations; after the first step its peak memory is kept and the
+    peak reset, so the run's peak is the steady one; each checkpoint save
+    is timed apart. `watch` (a parameter's name) is copied before the run
+    and after each step, for the EMA and accumulation checks; rec["hook"],
+    where set, sees each (state, batch)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        checkpoint)
+    inner_fit, inner_save = train_ncsn.fit, checkpoint.Checkpointer.save
+    for key in ("step_s", "eval_s", "save_s", "losses", "history"):
+        rec[key] = []
+
+    def save(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t_save = time.perf_counter()
+        inner_save(self, *args, **kwargs)
+        rec["save_s"].append(time.perf_counter() - t_save)
+
+    def fit(state, step, train_iter_fn, cfg, eval_step=None,
+            val_iter_fn=None, **kwargs):
+        rec["w0"] = state.params[watch].detach().double().cpu()
+
+        def timed_step(state, batch, generator):
+            torch.cuda.synchronize()
+            t_step = time.perf_counter()
+            state, loss = step(state, batch, generator)
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t_step)
+            rec["losses"].append(float(loss))
+            rec["history"].append(
+                state.params[watch].detach().double().cpu())
+            if len(rec["step_s"]) == 1:
+                rec["first_peak"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            if "hook" in rec:
+                rec["hook"](state, batch)
+            return state, loss
+
+        def timed_eval(state, batch, generator):
+            torch.cuda.synchronize()
+            t_eval = time.perf_counter()
+            loss = float(eval_step(state, batch, generator))
+            rec["eval_s"].append(time.perf_counter() - t_eval)
+            return loss
+
+        return inner_fit(state, timed_step, train_iter_fn, cfg,
+                         eval_step=timed_eval, val_iter_fn=val_iter_fn,
+                         **kwargs)
+
+    train_ncsn.fit, checkpoint.Checkpointer.save = fit, save
+    try:
+        yield rec
+    finally:
+        train_ncsn.fit, checkpoint.Checkpointer.save = inner_fit, inner_save
+
+
+def train_ncsn_phase(fk, fl, device="cuda", override=()) -> dict:
+    """Discrete score training through scripts.train_ncsn.main on the
+    loaders' synthetic stand-ins, torch's defaults (TF32), each run in a
+    temporary --log_dir and --data_root (no data files: the stand-in):
+    ACDC real-imag (NCSNv2Deepest, 256 px, ngf 128, if_centering) at the
+    recipe's batch 3 and the README's batch 8 in f32, batch 8 in bf16,
+    with and without --remat, and --grad_accum 2 at batch 3; CINE127_1D
+    real-imag (NCSN1D, ngf 128, 8 x 8 tubes of 24 frames, the config's
+    batch 90 and filter_th 0.05) in f32 and bf16. Per run: s/step and
+    images/s over the steps after the first, each timed between CUDA
+    synchronizations; the first step's peak memory and the steady peak
+    after it; the seconds spent saving checkpoints and in the eval steps;
+    finite losses; the step count; the EMA of one parameter against its
+    formula over the run; for --grad_accum, the parameters moving at every
+    second micro-step only. Then serve_recon.build_engine --ckpt_dir on
+    the batch-8 f32 run's checkpoints: the restored step, the EMA weights
+    loaded, one finite request (256 px, R = 8, 4 coils, 8 levels). Then
+    `train_step_checks`: one ACDC step at batch 1 (2 rows) and one
+    CINE127_1D step at batch 8 tubes, card against CPU and bf16 against
+    f32. None of K1, K2 or K4 launches. `override` adds --override flags
+    to every train_ncsn run and config (a rehearsal at a tiny size)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        serve_recon, train_ncsn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts._common import (
+        apply_overrides)
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        Checkpointer)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.misc import (
+        filter_batch)
+    over = [f for kv in override for f in ("--override", kv)]
+    datasets = {"acdc": ["--ds_name", "ACDC", "--task_name", "Diffusion"],
+                "cine": ["--ds_name", "CINE127_1D", "--task_name",
+                         "Diffusion1D", "--flatten_type", "temporal"]}
+    cfgs = {"acdc": apply_overrides(load_config("ACDC", "real-imag"),
+                                    override),
+            "cine": apply_overrides(load_config("CINE127_1D", "real-imag"),
+                                    override)}
+    watch = "end_conv.bias"
+    numbers = dict(runs={})
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_ncsn_")
+    ckpt_dir = None
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    try:
+        data_root = os.path.join(root, "no_data")
+        os.makedirs(data_root)
+        for name, (flags, steps) in TRAIN_NCSN_RUNS.items():
+            kind = name.split("_")[0]
+            cfg = cfgs[kind]
+            batch_size = int(flags[flags.index("--batch_size") + 1]) \
+                if "--batch_size" in flags else cfg.training.batch_size
+            log_dir = os.path.join(root, name)
+            kept = []
+            rec = {}
+            if kind == "cine":
+                rec["hook"] = lambda state, batch: kept.append(float(
+                    filter_batch(torch.as_tensor(2.0 * batch - 1.0),
+                                 cfg.data.th).mean()))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t_run = time.perf_counter()
+            with timed_fit(train_ncsn, rec, watch), \
+                    warnings_quiet():
+                state = train_ncsn.main(
+                    datasets[kind] + flags + [
+                        "--mode", "real-imag", "--device", device,
+                        "--log_dir", log_dir, "--data_root", data_root,
+                        "--override", f"training.n_iters={steps}"] + over)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            peak = torch.cuda.max_memory_allocated()
+            s_step = float(np.mean(rec["step_s"][1:]))
+            decay = cfg.model.ema_rate
+            ema = rec["w0"]
+            for p in rec["history"]:
+                ema = decay * ema + (1 - decay) * p
+            ema_err = float((state.ema.params[watch].double().cpu() - ema)
+                            .abs().max() / ema.abs().max())
+            r = dict(batch=batch_size, rows=2 * batch_size, steps=state.step,
+                     step_s=rec["step_s"], s_per_step=s_step,
+                     images_per_s=batch_size / s_step,
+                     first_step_s=rec["step_s"][0],
+                     first_step_peak=rec["first_peak"], steady_peak=peak,
+                     save_s=rec["save_s"], eval_s=sum(rec["eval_s"]),
+                     eval_batches=len(rec["eval_s"]), wall_s=wall,
+                     losses=rec["losses"], ema_rel_err=ema_err,
+                     params=sum(p.numel() for p in
+                                state.model.parameters()))
+            if kept:
+                r["filter_kept_share"] = float(np.mean(kept))
+            if not (state.step == steps and len(rec["losses"]) == steps
+                    and np.isfinite(rec["losses"]).all()):
+                raise AssertionError(f"train_ncsn {name}: step "
+                                     f"{state.step}, losses {rec['losses']}")
+            if not ema_err <= 1e-6:
+                raise AssertionError(f"train_ncsn {name}: EMA of {watch} "
+                                     f"off its formula by {ema_err}")
+            if "--grad_accum" in flags:
+                path = [rec["w0"]] + rec["history"]
+                moved = [not torch.equal(a, b) for a, b in
+                         zip(path, path[1:])]
+                r.update(gradient_step=state.optimizer.gradient_step,
+                         mini_step=state.optimizer.mini_step, moved=moved)
+                if moved != [False, True] * (steps // 2) or \
+                        state.optimizer.gradient_step != steps // 2:
+                    raise AssertionError(f"train_ncsn {name}: moved "
+                                         f"{moved}, optimizer steps "
+                                         f"{state.optimizer.gradient_step}")
+            numbers["runs"][name] = r
+            print(f"    {name}: {r['params']} params, batch {batch_size} "
+                  f"({2 * batch_size} rows), {state.step} steps: "
+                  f"{s_step:.4f} s/step (first {rec['step_s'][0]:.2f} s "
+                  f"excluded), {batch_size / s_step:.2f} images/s; peak "
+                  f"first step {rec['first_peak']} bytes, steady {peak}; "
+                  f"saves {[round(v, 2) for v in rec['save_s']]} s; eval "
+                  f"{r['eval_s']:.2f} s over {r['eval_batches']} batches; "
+                  f"wall {wall:.2f} s; losses "
+                  f"{[round(v, 2) for v in rec['losses']]}" + (
+                      f"; filter keeps {r['filter_kept_share']:.4f} of the "
+                      f"rows" if kept else "") + (
+                      f"; optimizer steps {r['gradient_step']}, moved "
+                      f"{r['moved']}" if "moved" in r else ""), flush=True)
+            del state
+            if name == "acdc_b8_f32":
+                ckpt_dir = os.path.join(log_dir, "ACDC_Diffusion_real-imag",
+                                        "ckpts")
+            else:
+                shutil.rmtree(log_dir, ignore_errors=True)
+        runs = numbers["runs"]
+        numbers["remat_vs_plain"] = dict(
+            s_per_step=runs["acdc_b8_bf16_remat"]["s_per_step"]
+            / runs["acdc_b8_bf16"]["s_per_step"],
+            steady_peak=runs["acdc_b8_bf16_remat"]["steady_peak"]
+            / runs["acdc_b8_bf16"]["steady_peak"])
+
+        # learn -> reconstruct: serve what train_ncsn trained
+        torch.cuda.empty_cache()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            eng = serve_recon.build_engine(serve_recon.parse_args(
+                ["--ds_name", "ACDC", "--ckpt_dir", ckpt_dir, "--R",
+                 str(ACDC_R), "--num_sens", str(ACDC_COILS), "--synth_sens",
+                 "--chains", str(RECON_CHAINS), "--levels", str(ACDC_LEVELS),
+                 "--seed", "0", "--device", device, "--no_warmup"] + over))
+        print("    " + text.getvalue().strip(), flush=True)
+        saved_step = TRAIN_NCSN_RUNS["acdc_b8_f32"][1]
+        if f"restored step {saved_step} from" not in text.getvalue():
+            raise AssertionError(f"build_engine printed no restored step "
+                                 f"{saved_step}")
+        ema, _ = Checkpointer(ckpt_dir, track_best=False).restore_params()
+        loaded = eng.model.state_dict()
+        if not all(torch.equal(loaded[k].cpu(), v) for k, v in ema.items()):
+            raise AssertionError("the engine's weights are not the "
+                                 "checkpoint's EMA")
+        _, _, _, yr, yi = acdc_problem(cfgs["acdc"], device)
+        res = eng.reconstruct(yr[:, 0].cpu().numpy(),
+                              yi[:, 0].cpu().numpy(), seed=0)
+        size = cfgs["acdc"].data.image_size
+        if res.x_re.shape != (RECON_CHAINS, size, size, 1) or not (
+                np.isfinite(res.x_re).all() and np.isfinite(res.x_im).all()):
+            raise AssertionError(f"reconstruction from the trained prior: "
+                                 f"{res.x_re.shape}, finite "
+                                 f"{np.isfinite(res.x_re).all()}")
+        numbers["reconstruct"] = dict(
+            restored_step=saved_step, chains=RECON_CHAINS,
+            levels=ACDC_LEVELS, latency_s=res.latency_s,
+            chain_steps_per_s=res.chain_steps_per_s)
+        del eng
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    no_kernel_launches(fk, fl, "the train_ncsn phase")
+    torch.cuda.empty_cache()
+
+    numbers.update(train_step_checks(cfgs, device))
+    return numbers
+
+
+def train_step_checks(cfgs: dict, device="cuda") -> dict:
+    """One discrete train step of each net of `cfgs` ("acdc", "cine") from
+    the same weights (seed 0), batch, phi, labels and noise: on the card
+    and on the CPU in float32 mode, and on the card in bf16. Gates: card
+    against CPU, the loss, the gradient and the Adam update (the
+    parameters and the EMA after the step are reported: the start weights
+    dominate both); a control, the CPU gradient with Gaussian noise of rel
+    L2 CONTROL_GRAD_REL stepped by a fresh optimizer, must read an update
+    above the update's gate; bf16 against f32 on the card, the loss within
+    BF16_LOSS_REL and the gradient at least BF16_GRAD_FLOOR away (the step
+    really ran in bf16)."""
+    import math
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        load_model)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        get_sigmas)
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        TrainState, get_optimizer, make_score_train_step)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    gen = torch.Generator().manual_seed(9)
+    checks, cpu_s = {}, 0.0
+    for kind, cfg in cfgs.items():
+        task = "Diffusion" if kind == "acdc" else "Diffusion1D"
+        model, _ = load_model(cfg, task, seed=0)
+        w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        if kind == "acdc":
+            s = cfg.data.image_size
+            batch = torch.rand(1, s, s, cfg.data.channels, generator=gen)
+        else:
+            batch = torch.rand(8, cfg.data.image_size, cfg.data.channels,
+                               generator=gen)
+            batch[4:] = 0.5      # background tubes: the filter drops them
+        sigmas = get_sigmas(cfg)
+        draws = dict(
+            phi=(torch.rand(len(batch), generator=gen) * 2 - 1) * math.pi,
+            labels=torch.randint(0, len(sigmas), (2 * len(batch),),
+                                 generator=gen),
+            noise=torch.randn((2 * len(batch),) + batch.shape[1:],
+                              generator=gen))
+        vec = lambda tensors: torch.cat([t.detach().reshape(-1).cpu()
+                                         for t in tensors])
+        out = {}
+        for run, dev, dtype in (("card", device, None), ("cpu", "cpu", None),
+                                ("card_bf16", device, torch.bfloat16)):
+            model.load_state_dict(w0)
+            model.to(dev)
+            state = TrainState.create(model, get_optimizer(cfg),
+                                      ema_decay=cfg.model.ema_rate)
+            step = make_score_train_step(
+                model, sigmas, data_mode="real-imag",
+                anneal_power=cfg.training.anneal_power,
+                filter_th=cfg.data.th if kind == "cine" else None,
+                compute_dtype=dtype, if_centering=True)
+            t_dev = time.perf_counter()
+            with float32_exact():
+                state, loss = step(state, batch.to(dev), **{
+                    k: v.to(dev) for k, v in draws.items()})
+            if dev == "cpu":
+                cpu_s += time.perf_counter() - t_dev
+            out[run] = dict(
+                loss=float(loss),
+                grads=vec(p.grad for p in model.parameters()),
+                params=vec(model.parameters()),
+                ema=vec(state.ema.params.values()))
+            del state, step
+        # the control: the CPU gradient plus noise, one fresh Adam step
+        g = out["cpu"]["grads"]
+        noisy = g + torch.randn(g.shape, generator=gen, dtype=g.dtype) * (
+            CONTROL_GRAD_REL * g.norm() / math.sqrt(g.numel()))
+        model.load_state_dict(w0)
+        model.to("cpu")
+        state = TrainState.create(model, get_optimizer(cfg),
+                                  ema_decay=cfg.model.ema_rate)
+        offset = 0
+        for p in model.parameters():
+            p.grad = noisy[offset:offset + p.numel()].view_as(p).clone()
+            offset += p.numel()
+        state.apply_gradients()
+        control = vec(model.parameters())
+        del state
+        card, cpu = out["card"], out["cpu"]
+        p0 = torch.cat([v.reshape(-1) for v in w0.values()])
+        c = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+             "grads": rel_l2(card["grads"], cpu["grads"]),
+             "update": rel_l2(card["params"] - p0, cpu["params"] - p0),
+             "params": rel_l2(card["params"], cpu["params"]),
+             "ema": rel_l2(card["ema"], cpu["ema"]),
+             "control_grads": rel_l2(noisy, g),
+             "control_update": rel_l2(control - p0, cpu["params"] - p0),
+             "bf16_loss": abs(out["card_bf16"]["loss"] - card["loss"])
+             / abs(card["loss"]),
+             "bf16_grads": rel_l2(out["card_bf16"]["grads"], card["grads"])}
+        checks[kind] = c
+        failed = {k: c[k] for k, gate in (
+            ("loss", TRAIN_LOSS_REL), ("grads", MODEL_REL_L2),
+            ("update", UPDATE_REL[kind]), ("bf16_loss", BF16_LOSS_REL))
+            if not c[k] <= gate}
+        if not c["control_update"] > UPDATE_REL[kind]:
+            failed["control_update"] = c["control_update"]
+        if not c["bf16_grads"] >= BF16_GRAD_FLOOR:
+            failed["bf16_grads"] = c["bf16_grads"]
+        if failed:
+            raise AssertionError(f"train step {kind}, card vs CPU or bf16 "
+                                 f"vs f32: {failed} (all: {c})")
+        del model, out
+        torch.cuda.empty_cache()
+    return {"card_vs_cpu": checks, "cpu_check_s": cpu_s}
+
+
+@contextlib.contextmanager
+def warnings_quiet():
+    """The loaders warn that they use their synthetic stand-ins, as they
+    must here; the run's numbers say so."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*SYNTHETIC stand-in")
+        yield
+
+
+def report_train_ncsn(tn: dict, t: float) -> None:
+    runs = tn["runs"]
+    rec = tn["reconstruct"]
+    say("train_ncsn", t, f"scripts.train_ncsn on the synthetic stand-ins, "
+        f"torch defaults (TF32): ACDC NCSNv2Deepest "
+        f"({runs['acdc_b8_f32']['params']} params) s/step | images/s: batch "
+        f"3 f32 {runs['acdc_b3_f32']['s_per_step']:.4f} | "
+        f"{runs['acdc_b3_f32']['images_per_s']:.2f}, batch 8 f32 "
+        f"{runs['acdc_b8_f32']['s_per_step']:.4f} | "
+        f"{runs['acdc_b8_f32']['images_per_s']:.2f}, bf16 "
+        f"{runs['acdc_b8_bf16']['s_per_step']:.4f} | "
+        f"{runs['acdc_b8_bf16']['images_per_s']:.2f}, bf16 remat "
+        f"{runs['acdc_b8_bf16_remat']['s_per_step']:.4f} | "
+        f"{runs['acdc_b8_bf16_remat']['images_per_s']:.2f} (remat/plain: "
+        f"time {tn['remat_vs_plain']['s_per_step']:.3f}, steady peak "
+        f"{tn['remat_vs_plain']['steady_peak']:.3f}); grad_accum 2 "
+        f"{runs['acdc_b3_accum2']['steps']} micro-steps, "
+        f"{runs['acdc_b3_accum2']['gradient_step']} optimizer steps; "
+        f"CINE127_1D NCSN1D ({runs['cine_f32']['params']} params) batch "
+        f"{runs['cine_f32']['batch']} f32 "
+        f"{runs['cine_f32']['s_per_step']:.4f} s/step, bf16 "
+        f"{runs['cine_bf16']['s_per_step']:.4f}, filter keeps "
+        f"{runs['cine_f32']['filter_kept_share']:.4f}; serve_recon "
+        f"--ckpt_dir: restored step {rec['restored_step']}, one request "
+        f"({rec['chains']} chains, {rec['levels']} levels) "
+        f"{rec['latency_s']:.3f} s, finite; card vs CPU (float32 mode) "
+        f"{json.dumps(tn['card_vs_cpu'])} (loss <= {TRAIN_LOSS_REL}, "
+        f"grads <= {MODEL_REL_L2}, update <= {json.dumps(UPDATE_REL)} < "
+        f"the control's update (gradient noise {CONTROL_GRAD_REL}); bf16 "
+        f"vs f32: loss <= {BF16_LOSS_REL}, grads >= {BF16_GRAD_FLOOR}; the "
+        f"CPU side {tn['cpu_check_s']:.1f} s); no K1/K2/K4 launch")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1860,8 +2292,14 @@ def main() -> None:
     cine = cine_phase(fk, fl)
     launches["cine"] = {}
     report_cine(cine, t)
+
+    # 13. train_ncsn ----------------------------------------------------------
+    t = time.perf_counter()
+    tn = train_ncsn_phase(fk, fl)
+    launches["train_ncsn"] = {}
+    report_train_ncsn(tn, t)
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "serve": srv,
-                      "cine": cine}), flush=True)
+                      "cine": cine, "train_ncsn": tn}), flush=True)
 
     kernels = []
     for name in ("up2x", "down2x", "up2x.bwd", "down2x.bwd", "flr_fwd",

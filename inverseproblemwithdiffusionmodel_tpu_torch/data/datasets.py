@@ -1,0 +1,299 @@
+"""Dataset loaders of the discrete training path: ACDC .npz slices and the
+CINE .mat volumes (frames or pixel tubes).
+
+A copy of the numpy code of inverseproblemwithdiffusionmodel_tpu/data/
+datasets.py (`ArrayDataset`, `REGISTERED_DATA_ROOT_DIR`, `synthetic_cine`
+and `load_cine` :243-366, `load_tissue_data`, `synthetic_acdc_slice` and
+`load_acdc` :392-456, `load_data` :523-575; reference: helpers/
+load_data.py:55-283); the port imports nothing of the JAX package. Roots
+come from the IPDM_DATA_ROOT environment variable or arguments. Where the
+files are absent a loader warns and falls back to a seeded synthetic
+stand-in of the same shapes; `data_provenance()` says which datasets this
+process loaded through `load_data` and from which source. MNIST, CIFAR-10,
+SanityCheck1D and the image folders are not ported (ROADMAP: Slice E).
+"""
+from __future__ import annotations
+
+import glob
+import os
+import warnings
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+from . import transforms as T
+from ..utils.reshape import reshape_temporal_dim_np
+
+DATA_ROOT = os.environ.get("IPDM_DATA_ROOT", os.path.expanduser("~/data"))
+
+REGISTERED_DATA_ROOT_DIR = {
+    "CINE64": os.path.join(DATA_ROOT, "cine_64"),
+    "CINE64_1D": os.path.join(DATA_ROOT, "cine_64"),
+    "CINE127": os.path.join(DATA_ROOT, "cine_127"),
+    "CINE127_1D": os.path.join(DATA_ROOT, "cine_127"),
+    "ACDC": os.path.join(DATA_ROOT, "ACDC_slices"),
+}
+
+
+@dataclass
+class ArrayDataset:
+    """In-memory dataset: data (N, ...) + optional labels (N, ...)."""
+    data: np.ndarray
+    labels: Optional[np.ndarray] = None
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    def __getitem__(self, i):
+        if self.labels is None:
+            return self.data[i]
+        return self.data[i], self.labels[i]
+
+
+_PROVENANCE: Dict[str, Dict[str, Any]] = {}
+_SYNTH_FLAG = {"v": False}
+
+
+def data_provenance() -> Dict[str, Dict[str, Any]]:
+    """{"<ds_name>/<mode>": {"source": "real" | "synthetic", "num_items":
+    N}} for every `load_data` call of this process."""
+    return {k: dict(v) for k, v in _PROVENANCE.items()}
+
+
+def _warn_synthetic(name: str, root: str):
+    _SYNTH_FLAG["v"] = True
+    warnings.warn(
+        f"{name}: dataset not found under {root!r}; using a SYNTHETIC "
+        f"stand-in (set IPDM_DATA_ROOT or pass root_dir for real data)")
+
+
+# ---------------------------------------------------------------------------
+# CINE (reference: load_data.py:125-164)
+# ---------------------------------------------------------------------------
+
+def synthetic_cine(n: int, T_frames: int, H: int, W: int, seed: int = 0
+                   ) -> np.ndarray:
+    """Beating-heart phantoms (N, T, H, W) in [0, 1], the synthetic
+    stand-in for the cardiac cine .mat files: a two-harmonic beat, periodic
+    centre drift, a rotating angular texture, a fast flicker of the
+    myocardial ring (4-8 cycles per loop) and a non-periodic contrast
+    bolus through the blood pool."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    out = np.zeros((n, T_frames, H, W), np.float32)
+    for i in range(n):
+        cy0, cx0 = rng.uniform(0.35, 0.65, 2) * [H, W]
+        r0 = rng.uniform(0.15, 0.25) * min(H, W)
+        amp = rng.uniform(0.05, 0.12) * min(H, W)
+        bg = 0.15 + 0.1 * rng.rand(H, W)
+        ph_beat = rng.uniform(0, 2 * np.pi)
+        h2 = rng.uniform(0.2, 0.5)                 # 2nd beat harmonic
+        drift = rng.uniform(0.01, 0.03) * min(H, W)
+        ph_drift = rng.uniform(0, 2 * np.pi)
+        k_ang = rng.randint(3, 7)                  # angular lobes
+        m_rot = rng.randint(1, 4) * rng.choice([-1, 1])  # rot cycles/loop
+        tex_amp = rng.uniform(0.10, 0.20)
+        f_flick = rng.randint(4, 9)                # through-plane flicker
+        flick_amp = rng.uniform(0.15, 0.30)
+        ph_flick = rng.uniform(0, 2 * np.pi)
+        bolus_t0 = rng.uniform(0.05, 0.35)         # arrival, loop fraction
+        bolus_tau = rng.uniform(0.08, 0.18)
+        bolus_amp = rng.uniform(0.25, 0.5)
+        for t in range(T_frames):
+            p = 2 * np.pi * t / T_frames
+            r = r0 + amp * (np.sin(p + ph_beat)
+                            + h2 * np.sin(2 * (p + ph_beat))) / (1 + h2)
+            cy = cy0 + drift * np.sin(p + ph_drift)
+            cx = cx0 + drift * np.cos(p + ph_drift)
+            d = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
+            theta = np.arctan2(yy - cy, xx - cx)
+            ring = np.clip(1.2 - np.abs(d - r) / (0.35 * r), 0, 1)
+            blob = 0.8 * np.exp(-(d / (0.55 * r)) ** 2)
+            tex = tex_amp * np.cos(k_ang * theta - m_rot * p) \
+                * np.exp(-(d / (0.8 * r)) ** 2)
+            flick = 1.0 + flick_amp * np.sin(f_flick * p + ph_flick)
+            tb = max(t / T_frames - bolus_t0, 0.0) / bolus_tau
+            bolus = 1.0 + bolus_amp * (tb * np.exp(1.0 - tb))
+            out[i, t] = np.clip(bg + ring * 0.6 * flick
+                                + blob * 0.25 * bolus + tex, 0, 1)
+    return out
+
+
+def load_cine(root_dir: Optional[str] = None, mode: str = "train",
+              img_key: str = "imgs", flatten: bool = True,
+              flatten_type: str = "spatial",
+              resize_shape: Optional[int] = None,
+              resize_shape_T: Optional[int] = None,
+              win_size: int = 2, default_t: int = 25, default_hw: int = 127,
+              **_) -> ArrayDataset:
+    """CINE .mat loader with per-sample min-max normalization and spatial
+    or temporal flattening (reference: load_data.py:125-164).
+
+    spatial: (N, T, H, W) -> (N*T, H, W, 1) frames.
+    temporal: resize, then k x k pixel tubes -> (N', T, win^2).
+    """
+    if mode not in ("train", "val", "test"):
+        raise ValueError(f"unknown split {mode!r}")
+    if flatten_type not in ("spatial", "temporal"):
+        raise ValueError(f"unknown flatten_type {flatten_type!r}")
+    fmode = "test" if mode == "val" else mode
+    root = root_dir or REGISTERED_DATA_ROOT_DIR["CINE127"]
+    matches = glob.glob(os.path.join(root, f"*{fmode}*.mat")) \
+        if os.path.isdir(root) else []
+    if matches:
+        import scipy.io as sio
+        ds = sio.loadmat(matches[0])[img_key]          # (H, W, T, N)
+        ds = ds.transpose(3, 2, 0, 1).astype(np.float32)  # (N, T, H, W)
+    else:
+        _warn_synthetic("CINE", root)
+        n = 12 if fmode == "train" else 4
+        ds = synthetic_cine(n, default_t, default_hw, default_hw,
+                            seed=0 if fmode == "train" else 1)
+
+    lo = ds.min(axis=(1, 2, 3), keepdims=True)
+    hi = ds.max(axis=(1, 2, 3), keepdims=True)
+    ds = (ds - lo) / np.maximum(hi - lo, 1e-12)
+
+    if not flatten:
+        return ArrayDataset(ds)
+    N, Tf, H, W = ds.shape
+    if flatten_type == "spatial":
+        frames = ds.reshape(-1, H, W)
+        if resize_shape is not None and (H, W) != (resize_shape, resize_shape):
+            frames = np.stack([
+                T.resize(f[None], (resize_shape, resize_shape))[0]
+                for f in frames])
+        return ArrayDataset(frames[..., None])
+    # temporal: resize (T, H, W) jointly, then tubes
+    rT = resize_shape_T or Tf
+    rH = resize_shape or H
+    rW = resize_shape or W
+    if (rT, rH, rW) != (Tf, H, W):
+        ds = np.stack([
+            np.stack([T.resize(fr[None], (rH, rW))[0] for fr in vol])
+            for vol in ds])
+        if rT != Tf:
+            ds = np.stack([
+                T.resize(vol.transpose(1, 0, 2), (rT, rW)).transpose(1, 0, 2)
+                for vol in ds])
+    tubes = reshape_temporal_dim_np(ds, win_size, win_size)  # (N', T, k^2)
+    return ArrayDataset(tubes.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# ACDC (reference: load_data.py:206-283)
+# ---------------------------------------------------------------------------
+
+def load_tissue_data(path: str):
+    """(image, multiClassMasks, PD, T1, T2), each (1, H, W)
+    (reference: load_data.py:170-183)."""
+    d = np.load(path)
+    return (d["image"], d["multiClassMasks"], d["PD"], d["T1"], d["T2"])
+
+
+def synthetic_acdc_slice(rng: np.random.RandomState, H: int = 200,
+                         W: int = 220) -> Tuple[np.ndarray, np.ndarray]:
+    """Cardiac-slice phantom: blood pool + myocardium ring; labels use the
+    ACDC convention (3 = left myocardium)."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    cy, cx = rng.uniform(0.4, 0.6, 2) * [H, W]
+    r = rng.uniform(0.1, 0.16) * min(H, W)
+    d = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
+    myo = (d > r) & (d < 1.5 * r)
+    pool = d <= r
+    img = (0.2 + 0.15 * rng.rand(H, W) + 0.5 * pool + 0.35 * myo
+           ).astype(np.float32)
+    label = np.zeros((H, W), np.int64)
+    label[myo] = 3
+    return img[None], label[None]
+
+
+def load_acdc(root_dir: Optional[str] = None,
+              train_test_split: Sequence[float] = (0.8, 0.1),
+              seg_labels: Sequence[int] = (3,), mode: str = "train",
+              seed: int = 0, if_aug: bool = True, image_size: int = 256,
+              **_) -> ArrayDataset:
+    """ACDC slice pipeline: binarize seg labels, ScaleIntensity,
+    CropForeground, train-time aug (rotate/contrast/noise), Resize
+    (reference: load_data.py:246-283). Returns images (N, S, S, 1) and
+    masks (N, S, S)."""
+    if mode not in ("train", "val", "test"):
+        raise ValueError(f"unknown split {mode!r}")
+    root = root_dir or REGISTERED_DATA_ROOT_DIR["ACDC"]
+    files = sorted(glob.glob(os.path.join(root, "*.npz"))) \
+        if os.path.isdir(root) else []
+    rng = np.random.RandomState(seed)
+    if files:
+        rng.shuffle(files)
+        i0 = int(len(files) * train_test_split[0])
+        i1 = int(len(files) * sum(train_test_split))
+        files = {"train": files[:i0], "val": files[i0:i1],
+                 "test": files[i1:]}[mode]
+        raw = [load_tissue_data(f)[:2] for f in files]
+    else:
+        _warn_synthetic("ACDC", root)
+        n = {"train": 24, "val": 6, "test": 6}[mode]
+        srng = np.random.RandomState(seed + {"train": 0, "val": 1,
+                                             "test": 2}[mode])
+        raw = [synthetic_acdc_slice(srng) for _ in range(n)]
+
+    aug_rng = np.random.RandomState(seed + 123)
+    imgs, labels = [], []
+    for image, mc in raw:
+        label = np.isin(mc, list(seg_labels)).astype(np.int64)
+        image = T.scale_intensity(image.astype(np.float32))
+        image, label = T.crop_foreground(image, label, source=image)
+        if mode == "train" and if_aug:
+            image, label = T.rand_rotate(image, label, aug_rng)
+            image = T.rand_adjust_contrast(image, aug_rng)
+            image = T.rand_gaussian_noise(image, aug_rng)
+        image = T.resize(image, (image_size, image_size), "bilinear")
+        label = T.resize(label, (image_size, image_size), "nearest")
+        imgs.append(image[0])
+        labels.append(label[0])
+    xs = np.stack(imgs)[..., None].astype(np.float32)
+    ys = np.stack(labels).astype(np.int64)
+    return ArrayDataset(xs, ys)
+
+
+# ---------------------------------------------------------------------------
+# dispatch (reference: load_data.py:55-92)
+# ---------------------------------------------------------------------------
+
+def load_data(ds_name: str, mode: str = "train", **kwargs) -> ArrayDataset:
+    """The dataset `ds_name`'s split `mode`, recorded in
+    `data_provenance()`."""
+    _SYNTH_FLAG["v"] = False
+    ds = _load_data(ds_name, mode=mode, **kwargs)
+    _PROVENANCE[f"{ds_name}/{mode}"] = {
+        "source": "synthetic" if _SYNTH_FLAG["v"] else "real",
+        "num_items": len(ds)}
+    return ds
+
+
+def _load_data(ds_name: str, mode: str = "train", **kwargs) -> ArrayDataset:
+    if ds_name in ("CINE64", "CINE127"):
+        root = kwargs.pop("root_dir", REGISTERED_DATA_ROOT_DIR[ds_name])
+        size = 64 if ds_name == "CINE64" else 127
+        kwargs.setdefault("flatten_type", "spatial")
+        if ds_name == "CINE127":
+            # the reference resizes 127 -> 128 in both flatten modes
+            # (load_data.py:74-78); cine127.yml declares image_size 128
+            kwargs.setdefault("resize_shape", 128)
+        return load_cine(root_dir=root, mode=mode,
+                         default_hw=size, **kwargs)
+    if ds_name in ("CINE64_1D", "CINE127_1D"):
+        root = kwargs.pop("root_dir", REGISTERED_DATA_ROOT_DIR[ds_name])
+        size = 64 if "64" in ds_name else 127
+        kwargs.setdefault("win_size", 8)
+        kwargs.setdefault("resize_shape", 128 if size == 127 else 64)
+        kwargs.setdefault("resize_shape_T", 24)
+        kwargs.setdefault("flatten_type", "temporal")
+        return load_cine(root_dir=root, mode=mode,
+                         default_hw=size, **kwargs)
+    if ds_name == "ACDC":
+        return load_acdc(mode=mode, **kwargs)
+    raise NotImplementedError(
+        f"dataset {ds_name!r} is not ported yet (ROADMAP: Slice E); ported: "
+        f"ACDC, CINE64, CINE127, CINE64_1D, CINE127_1D")

@@ -1,12 +1,14 @@
-"""Continuous-time denoising score matching.
+"""Denoising score-matching losses.
 
-Port of `continuous_dsm_loss` from inverseproblemwithdiffusionmodel_tpu/
-losses/dsm.py:60 (reference semantics: helpers/losses.py:7-24). The discrete
-annealed loss (`anneal_dsm_score_estimation`) belongs to ROADMAP Slice E.
+Port of `anneal_dsm_score_estimation` (:24, reference semantics:
+ncsn/losses/dsm.py:3-19) and `continuous_dsm_loss` (:60, reference:
+helpers/losses.py:7-24) from inverseproblemwithdiffusionmodel_tpu/losses/
+dsm.py.
 
-The two draws, t ~ U(eps, T) of shape (B,) and z ~ N(0, 1) shaped like the
-samples, come from `generator` on the samples' device, t first, unless they
-are injected: tests feed the numbers JAX draws.
+Each loss makes two draws from `generator` on the samples' device unless
+they are injected (tests feed the numbers JAX draws): the discrete loss
+labels ~ U{0..L-1} of shape (B,), then noise ~ N(0, 1) shaped like the
+samples; the continuous loss t ~ U(eps, T) of shape (B,), then z ~ N(0, 1).
 """
 from __future__ import annotations
 
@@ -18,6 +20,44 @@ import torch
 def _expand(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """(B,) -> (B, 1, ..., 1) matching `like`'s rank."""
     return v.reshape(v.shape[0], *([1] * (like.ndim - 1)))
+
+
+def anneal_dsm_score_estimation(
+    score_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    samples: torch.Tensor,
+    sigmas: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    labels: Optional[torch.Tensor] = None,
+    anneal_power: float = 2.0,
+    sample_weight: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Discrete annealed DSM loss, a scalar tensor.
+
+    score_fn(x, labels) -> score; samples (B, *feature); sigmas (L,) on
+    the samples' device. Perturb with sigma[labels], target -noise /
+    sigma^2, per-sample loss 0.5 * sum((score - target)^2) *
+    sigma^anneal_power, averaged over the batch, or weighted by
+    `sample_weight` (B,) and divided by its sum (at least 1e-12): the
+    foreground filter of the 1-D tubes.
+    """
+    B = samples.shape[0]
+    if labels is None:
+        labels = torch.randint(0, sigmas.shape[0], (B,), generator=generator,
+                               device=samples.device)
+    if noise is None:
+        noise = torch.randn(samples.shape, generator=generator,
+                            dtype=samples.dtype, device=samples.device)
+    used_sigmas = _expand(sigmas[labels], samples)
+    noise = noise * used_sigmas
+    target = -noise / used_sigmas ** 2
+    scores = score_fn(samples + noise, labels)
+    sq = torch.sum((scores - target).reshape(B, -1) ** 2, dim=-1)
+    loss = 0.5 * sq * sigmas[labels] ** anneal_power
+    if sample_weight is not None:
+        return torch.sum(loss * sample_weight) / torch.clamp(
+            torch.sum(sample_weight), min=1e-12)
+    return loss.mean()
 
 
 def continuous_dsm_loss(

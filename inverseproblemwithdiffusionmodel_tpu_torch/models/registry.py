@@ -119,7 +119,7 @@ def make_seg_fn(model: torch.nn.Module
     between. Runs in the model's dtype and on its device."""
 
     def seg_fn(x: torch.Tensor) -> torch.Tensor:
-        return model(_to_nchw(x)).movedim(1, -1)
+        return model(to_nchw(x)).movedim(1, -1)
 
     return seg_fn
 
@@ -129,7 +129,7 @@ def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
                   ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Adapter `(x, labels) -> model(x, sigmas[labels])`, the interface of
     the ALD samplers, for the NCSNv2 family. x is channel-last (B, H, W, C)
-    as in the JAX package; the net runs on contiguous NCHW (`_to_nchw`, no
+    as in the JAX package; the net runs on contiguous NCHW (`to_nchw`, no
     copy for C = 1) and the score comes back channel-last. The 1-D nets
     take channel-last tubes (B', T, C) the same way: for the C = win^2
     channels of a tube the move to (B', C, T) is a copy. `sigmas` moves
@@ -151,7 +151,7 @@ def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
         sigmas = sigmas.to(compute_dtype)
 
     def score_fn(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        h = _to_nchw(x)
+        h = to_nchw(x)
         if compute_dtype is not None:
             h = h.to(compute_dtype)
         out = net(h, sigmas[labels]).movedim(1, -1)
@@ -160,7 +160,7 @@ def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
     return score_fn
 
 
-def _to_nchw(x: torch.Tensor) -> torch.Tensor:
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> contiguous (B, C, H, W), or (B, T, C) -> (B, C, T).
     For C = 1 this is a view of the same memory. The bare permute would
     not do: for C = 1 its strides are channels-last strides, and torch

@@ -1,9 +1,13 @@
-"""Continuous-time score training: state, step, checkpoints and loop."""
+"""Score training (discrete and continuous): state, steps, checkpoints and
+loop."""
 from .checkpoint import Checkpointer
-from .loop import FitConfig, MetricsLogger, batch_iterator, fit
-from .state import TrainState, get_optimizer
-from .train import make_continuous_score_train_step
+from .loop import (FitConfig, MetricsLogger, batch_iterator, fit,
+                   make_train_iterator)
+from .state import MultiSteps, TrainState, get_optimizer
+from .train import (make_continuous_score_train_step, make_score_eval_step,
+                    make_score_train_step)
 
-__all__ = ["Checkpointer", "FitConfig", "MetricsLogger", "TrainState",
-           "batch_iterator", "fit", "get_optimizer",
-           "make_continuous_score_train_step"]
+__all__ = ["Checkpointer", "FitConfig", "MetricsLogger", "MultiSteps",
+           "TrainState", "batch_iterator", "fit", "get_optimizer",
+           "make_continuous_score_train_step", "make_score_eval_step",
+           "make_score_train_step", "make_train_iterator"]

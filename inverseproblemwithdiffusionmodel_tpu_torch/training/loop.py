@@ -1,11 +1,13 @@
 """Training loop: epochs over a host data iterator, EMA-weighted
 validation, checkpoints at epoch end and at stop, resume.
 
-Port of `MetricsLogger` (:21), `FitConfig` (:60), `fit` (:75) and
-`batch_iterator` (:185) from inverseproblemwithdiffusionmodel_tpu/training/
-loop.py (reference: helpers/pl_helpers.py:355-399). Logging is a JSONL
-metrics stream, one line per event. The native C++ batcher of
-`make_train_iterator` is not ported: batches come from `batch_iterator`.
+Port of `MetricsLogger` (:21), `FitConfig` (:60), `fit` (:75),
+`make_train_iterator` (:163) and `batch_iterator` (:185) from
+inverseproblemwithdiffusionmodel_tpu/training/loop.py (reference:
+helpers/pl_helpers.py:355-399). Logging is a JSONL metrics stream, one line
+per event. The native C++ batcher of `make_train_iterator` is not ported:
+batches come from `batch_iterator`, the path the JAX package takes where
+its batcher does not build.
 """
 from __future__ import annotations
 
@@ -161,3 +163,9 @@ def batch_iterator(data: np.ndarray, batch_size: int, *, labels=None,
                 yield data[sel]
 
     return make
+
+
+# The training feed factory under the JAX package's name: the numpy
+# iterator (the JAX package's native C++ prefetch batcher is not ported,
+# ROADMAP: Slice E).
+make_train_iterator = batch_iterator

@@ -1,9 +1,12 @@
 """Train state: the model, its optimizer, the EMA shadow and the step count.
 
 Port of `TrainState` (:24) and `get_optimizer` (:71) from
-inverseproblemwithdiffusionmodel_tpu/training/state.py. The JAX state is an
-immutable pytree that each step replaces; here the state holds the model
-and updates it in place, and `apply_gradients` returns the same object.
+inverseproblemwithdiffusionmodel_tpu/training/state.py, and of the
+gradient accumulation the JAX `train_ncsn --grad_accum` wraps around the
+optimizer (`optax.MultiSteps`, scripts/train_ncsn.py:127-129). The JAX
+state is an immutable pytree that each step replaces; here the state holds
+the model and updates it in place, and `apply_gradients` returns the same
+object.
 """
 from __future__ import annotations
 
@@ -96,6 +99,65 @@ def get_optimizer(config) -> Callable[[List[torch.Tensor]], Optimizer]:
     return lambda params: Optimizer(params, make, grad_clip)
 
 
+class MultiSteps:
+    """optax.MultiSteps(tx, every_k_schedule=k) with optax's default mean:
+    each `step` folds the parameters' gradients into a running mean (acc +=
+    (g - acc) / (n + 1), optax's formula, n the micro-step), and every k-th
+    hands the mean to the inner optimizer (clipping included) and steps it;
+    the other micro-steps leave the parameters as they are. A parameter
+    without a gradient counts as a zero gradient. `gradient_step` counts
+    the inner optimizer's steps, `mini_step` the micro-steps since."""
+
+    def __init__(self, inner: Optimizer, every_k_schedule: int):
+        if every_k_schedule < 1:
+            raise ValueError(f"every_k_schedule {every_k_schedule} < 1")
+        self.inner = inner
+        self.every_k = every_k_schedule
+        self.params = inner.params
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.mini_step = 0
+        self.gradient_step = 0
+
+    @classmethod
+    def wrap(cls, tx: Callable[[List[torch.Tensor]], Optimizer],
+             every_k_schedule: int):
+        """The factory of `tx` (get_optimizer's) with accumulation."""
+        return lambda params: cls(tx(params), every_k_schedule)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        n = self.mini_step
+        for p, acc in zip(self.params, self.acc):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            acc.add_((g - acc) / (n + 1))
+        if n < self.every_k - 1:
+            self.mini_step += 1
+            return
+        for p, acc in zip(self.params, self.acc):
+            p.grad = acc.clone()
+        self.inner.step()
+        for acc in self.acc:
+            acc.zero_()
+        self.mini_step = 0
+        self.gradient_step += 1
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "acc": self.acc,
+                "mini_step": self.mini_step,
+                "gradient_step": self.gradient_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state["inner"])
+        for acc, saved in zip(self.acc, state["acc"]):
+            acc.copy_(saved)
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
+
+
 class TrainState:
     """step, the model, its optimizer and the EMA shadow of its parameters.
 
@@ -105,7 +167,7 @@ class TrainState:
     helpers/load_model.py:181-184).
     """
 
-    def __init__(self, step: int, model: nn.Module, optimizer: Optimizer,
+    def __init__(self, step: int, model: nn.Module, optimizer,
                  ema: Optional[EmaState]):
         self.step = step
         self.model = model
@@ -134,7 +196,10 @@ class TrainState:
     def apply_gradients(self) -> "TrainState":
         """One optimizer step on the gradients in each parameter's .grad
         (afterwards they hold the clipped gradients it consumed), then the
-        EMA update and the step count."""
+        EMA update and the step count. Under MultiSteps this is one
+        micro-step: the EMA updates and the step counts at every one, as in
+        the JAX state (so the EMA's decay per optimizer update is
+        ema_rate ** k)."""
         self.optimizer.step()
         if self.ema is not None:
             self.ema.update(self.params)

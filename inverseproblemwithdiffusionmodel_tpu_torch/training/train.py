@@ -1,9 +1,11 @@
-"""The continuous-time DSM train step.
+"""The DSM train steps (discrete and continuous) and the discrete eval
+step.
 
-Port of `make_continuous_score_train_step` from
-inverseproblemwithdiffusionmodel_tpu/training/train.py:136 for float32 on
-one device. PyTorch runs eagerly, so the step has no `jax.jit`
-counterpart; a CUDA graph of it is later work.
+Port of `make_score_train_step` (:60), `make_continuous_score_train_step`
+(:136), `make_score_eval_step` (:256) and `_mixed_precision_apply` (:43)
+from inverseproblemwithdiffusionmodel_tpu/training/train.py, on one
+device. PyTorch runs eagerly, so a step has no `jax.jit` counterpart; a
+CUDA graph of it is later work.
 """
 from __future__ import annotations
 
@@ -11,13 +13,160 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from .state import TrainState
-from ..losses.dsm import continuous_dsm_loss
+from ..losses.dsm import anneal_dsm_score_estimation, continuous_dsm_loss
+from ..models.registry import to_nchw
 from ..sde.sampling import get_score_fn
-from ..utils.misc import collate_batch
+from ..utils.misc import collate_batch, filter_batch, stack_parts
 
 TrainStep = Callable[..., Tuple[TrainState, torch.Tensor]]
+
+
+def _mixed_precision_apply(model: nn.Module, compute_dtype=None
+                           ) -> Callable[[torch.Tensor, torch.Tensor],
+                                         torch.Tensor]:
+    """`net(x, cond)` for an NCHW net of the NCSNv2 family on channel-last
+    x, output channel-last float32. With `compute_dtype` (bf16) it is the
+    JAX package's mixed-precision cast, not autocast: the parameters, x
+    and cond are cast to compute_dtype, the net runs on the casts through
+    torch.func.functional_call, and the output is cast back, so the
+    gradients reach the float32 master parameters through the casts.
+    (Autocast would keep norms and reductions in float32: another function
+    than the JAX package's.)"""
+
+    def apply(x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        h = to_nchw(x)
+        if compute_dtype is None:
+            out = model(h, cond)
+        else:
+            params = {k: p.to(compute_dtype)
+                      for k, p in model.named_parameters()}
+            out = functional_call(model, params, (h.to(compute_dtype),
+                                                  cond.to(compute_dtype)))
+        return out.movedim(1, -1).float()
+
+    return apply
+
+
+def _discrete_loss(score_fn, batch, sigmas, data_mode, anneal_power,
+                   filter_th, if_centering, generator, phi, labels,
+                   noise) -> torch.Tensor:
+    """The loss of JAX's discrete step (train.py:97-127): centering to
+    [-1, 1], the foreground weight, collation, one forward over the
+    interleaved [Re, Im] rows (`stack_parts`, the weight interleaved
+    alike), the annealed DSM loss. Draws, in order: phi (or the phase
+    patch of 'real-imag-random'), labels, noise."""
+    if if_centering:
+        batch = 2.0 * batch - 1.0
+    weight = None if filter_th is None else filter_batch(batch, filter_th)
+    parts = collate_batch(batch, data_mode, generator, phi=phi)
+    if isinstance(parts, list):
+        x = stack_parts(*parts)
+        if weight is not None:
+            weight = stack_parts(weight, weight)
+    else:
+        x = parts
+    return anneal_dsm_score_estimation(
+        score_fn, x, sigmas, generator, labels=labels,
+        anneal_power=anneal_power, sample_weight=weight, noise=noise)
+
+
+def _device_of(model: nn.Module, state: TrainState) -> torch.device:
+    if state.model is not model:
+        raise ValueError("the state holds another model than this step "
+                         "trains")
+    return next(model.parameters()).device
+
+
+def make_score_train_step(
+    model: nn.Module,
+    sigmas,
+    data_mode: str = "real-valued",
+    anneal_power: float = 2.0,
+    mesh=None,
+    filter_th: Optional[float] = None,
+    remat: bool = False,
+    tp: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+    if_centering: bool = False,
+) -> TrainStep:
+    """Discrete annealed DSM train step of an NCSNv2-family net (reference:
+    helpers/pl_helpers.py:99-143).
+
+    Returns `step(state, batch, generator=None, *, phi=None, labels=None,
+    noise=None) -> (state, loss)`. `batch` (B, H, W, C) or (B, T, C), an
+    array or tensor, moves to the model's device; the draws
+    (`collate_batch`'s phase, then the loss's labels and noise) come from
+    `generator` on that device unless given.
+    filter_th: the TV foreground weight of 1-D tubes (`filter_batch`).
+    remat: recompute the net's forward in the backward
+    (torch.utils.checkpoint around the whole net call, as jax.checkpoint
+    wraps it).
+    compute_dtype=torch.bfloat16: the net in bf16 on casts of the float32
+    master parameters (`_mixed_precision_apply`); the loss, gradients,
+    Adam state and EMA stay float32.
+    """
+    if mesh is not None or tp:
+        raise NotImplementedError("a device mesh (data- or tensor-parallel "
+                                  "training) is not ported yet (ROADMAP: "
+                                  "Slice E)")
+    device = next(model.parameters()).device
+    sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
+    net = _mixed_precision_apply(model, compute_dtype)
+
+    def raw_score(x, labels):
+        return net(x, sigmas[labels])
+
+    def score_fn(x, labels):
+        if remat:
+            return checkpoint(raw_score, x, labels, use_reentrant=False)
+        return raw_score(x, labels)
+
+    def step(state: TrainState, batch, generator: Optional[
+            torch.Generator] = None, *, phi=None, labels=None, noise=None):
+        batch = torch.as_tensor(batch, device=_device_of(model, state))
+        model.train()
+        state.optimizer.zero_grad()
+        loss = _discrete_loss(score_fn, batch, sigmas, data_mode,
+                              anneal_power, filter_th, if_centering,
+                              generator, phi, labels, noise)
+        loss.backward()
+        return state.apply_gradients(), loss.detach()
+
+    return step
+
+
+def make_score_eval_step(model: nn.Module, sigmas,
+                         data_mode: str = "real-valued",
+                         anneal_power: float = 2.0, use_ema: bool = True,
+                         if_centering: bool = False) -> Callable:
+    """The validation DSM loss on the EMA parameters (the reference swaps
+    them in around validation, helpers/pl_callbacks.py:87-108), float32,
+    no foreground weight. Returns `step(state, batch, generator=None, *,
+    phi=None, labels=None, noise=None) -> loss`, with the draws of the
+    train step."""
+    device = next(model.parameters()).device
+    sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch, generator: Optional[
+            torch.Generator] = None, *, phi=None, labels=None, noise=None):
+        batch = torch.as_tensor(batch, device=_device_of(model, state))
+        params = state.eval_params if use_ema else state.params
+
+        def score_fn(x, labels):
+            out = functional_call(model, params, (to_nchw(x),
+                                                  sigmas[labels]))
+            return out.movedim(1, -1)
+
+        return _discrete_loss(score_fn, batch, sigmas, data_mode,
+                              anneal_power, None, if_centering, generator,
+                              phi, labels, noise)
+
+    return step
 
 
 def make_continuous_score_train_step(
@@ -35,27 +184,30 @@ def make_continuous_score_train_step(
 
     Returns `step(state, batch, generator=None, t=None, z=None) -> (state,
     loss)`. `state` is a TrainState of this `model`; `batch` is an array or
-    tensor (B, H, W, C), moved to the model's device. The loss draws t and
-    z from `generator` (a torch.Generator on that device) unless they are
-    given. The network runs in train() mode, as the reference trains;
-    dropout draws from torch's global generator.
+    tensor (B, H, W, C), moved to the model's device. The draws t and z
+    come from `generator` (a torch.Generator on that device) unless given.
+    The network runs in train() mode, as the reference trains; dropout
+    draws from torch's global generator. The complex data modes of this
+    step are not ported.
     """
     if mesh is not None:
         raise NotImplementedError("a device mesh (data-parallel training) is "
                                   "not ported yet (ROADMAP: Slice E)")
     if compute_dtype is not None:
-        raise NotImplementedError("mixed-precision training (compute_dtype) "
-                                  "is not ported yet (ROADMAP: Slice E)")
+        raise NotImplementedError("bf16 NCSN++ training needs bf16 FIR "
+                                  "kernels, not ported yet (ROADMAP: Queue "
+                                  "2, item 1)")
+    if data_mode in ("complex", "real-imag", "real-imag-random"):
+        raise NotImplementedError(f"continuous training in the {data_mode!r} "
+                                  "data mode is not ported yet (ROADMAP: "
+                                  "Slice E)")
     score_fn = get_score_fn(sde, model, continuous=continuous)
 
     def step(state: TrainState, batch, generator: Optional[
             torch.Generator] = None, t: Optional[torch.Tensor] = None,
              z: Optional[torch.Tensor] = None):
-        if state.model is not model:
-            raise ValueError("the state holds another model than this step "
-                             "trains")
-        device = next(model.parameters()).device
-        x = collate_batch(torch.as_tensor(batch, device=device), data_mode)
+        x = collate_batch(torch.as_tensor(
+            batch, device=_device_of(model, state)), data_mode)
         model.train()
         state.optimizer.zero_grad()
         loss = continuous_dsm_loss(score_fn, sde, x, eps=eps,

@@ -1,15 +1,22 @@
-"""Batch collation for the training steps, and the Re/Im interleave of
-the inverse samplers.
+"""Batch collation for the training steps, the synthetic phase, the 1-D
+foreground filter, and the Re/Im interleave of the inverse samplers.
 
-Port of `collate_batch` (real-valued data), `stack_parts` and
+Port of `collate_batch`, `add_phase`, `filter_batch`, `stack_parts` and
 `unstack_parts` from inverseproblemwithdiffusionmodel_tpu/utils/misc.py
-(reference: helpers/load_data.py:324-369).
+(reference: helpers/load_data.py:324-440). The random draws (a global
+phase per sample, a low-resolution phase patch) come from a torch.Generator
+on the batch's device unless they are given: tests feed the numbers JAX
+draws.
 """
 from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence
 
 import torch
 
 from ..config import DATA_MODES as MODES
+from ..ops.resize import resize_align_corners
 
 
 def stack_parts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -25,15 +32,91 @@ def unstack_parts(x: torch.Tensor):
     return pair[:, 0], pair[:, 1]
 
 
-def collate_batch(batch: torch.Tensor, mode: str = "real-valued"):
-    """Prepare a real-valued batch (B, H, W, C) or (B, T, C) for a data mode:
-    'real-valued' and 'mag' return it unchanged. The modes that add an
-    imaginary part ('complex', 'real-imag', 'real-imag-random') are not
-    ported yet and raise."""
+def _rotate(x: torch.Tensor, phase: torch.Tensor) -> List[torch.Tensor]:
+    """[Re, Im] of x * exp(i phase) for real x: x cos(phase), x sin(phase),
+    which is what the complex product of the JAX package computes."""
+    return [x * torch.cos(phase), x * torch.sin(phase)]
+
+
+def add_phase(imgs: torch.Tensor, generator: Optional[torch.Generator] = None,
+              init_shape: Sequence[int] = (5, 5), mode: str = "spatial",
+              patch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """imgs * exp(i phase), complex64, with a smooth random phase map: a
+    standard normal low-resolution patch resized with aligned corners
+    (reference: helpers/load_data.py:372-397; linear where the reference
+    is bicubic, as in the JAX package).
+
+    mode 'spatial': imgs (B, H, W, C), patch (B, *init_shape, C), one map
+    per sample. mode '2D+time': imgs (T, H, W, C), init_shape (it, ih, iw),
+    patch (it, ih, iw, C), one volume resized over (T, H, W). The patch is
+    drawn from `generator` unless given.
+    """
+    if mode not in ("spatial", "2D+time"):
+        raise ValueError(f"unknown phase mode {mode!r}")
+    if mode == "spatial":
+        B, H, W, C = imgs.shape
+        shape, sizes, axes = (B, *init_shape[:2], C), (H, W), (1, 2)
+    else:
+        if len(init_shape) != 3:
+            raise ValueError("mode '2D+time' takes init_shape (it, ih, iw)")
+        T, H, W, C = imgs.shape
+        shape, sizes, axes = (*init_shape, C), (T, H, W), (0, 1, 2)
+    if patch is None:
+        patch = torch.randn(shape, generator=generator, device=imgs.device)
+    phase = resize_align_corners(patch, sizes, axes=axes)
+    return torch.complex(*_rotate(imgs.float(), phase))
+
+
+def collate_batch(batch: torch.Tensor, mode: str = "real-valued",
+                  generator: Optional[torch.Generator] = None,
+                  phi: Optional[torch.Tensor] = None,
+                  patch: Optional[torch.Tensor] = None):
+    """Prepare a real-valued batch (B, H, W, 1) or (B, T, C) for a data
+    mode:
+    - 'real-valued', 'mag': unchanged;
+    - 'complex': a zero imaginary channel appended, (B, H, W, 2);
+    - 'real-imag': times exp(i phi), one global phase per sample, phi ~
+      U(-pi, pi) of shape (B,) -> the list [Re, Im];
+    - 'real-imag-random': times a smooth phase map (`add_phase`, images
+      only; `patch` its (B, 5, 5, C) draw) -> [Re, Im].
+    """
     if mode not in MODES:
         raise ValueError(f"unknown data mode {mode!r}; one of {MODES}")
     if mode in ("real-valued", "mag"):
         return batch
-    raise NotImplementedError(
-        f"data mode {mode!r} (complex data) is not ported yet (ROADMAP: "
-        "Slice A)")
+    if mode == "complex":
+        if batch.ndim != 4:
+            raise ValueError("mode 'complex' expects image batches")
+        return torch.cat([batch, torch.zeros_like(batch)], dim=-1)
+    if mode == "real-imag":
+        if phi is None:
+            phi = (torch.rand(batch.shape[0], generator=generator,
+                              device=batch.device) * 2 - 1) * math.pi
+        phi = phi.reshape(-1, *([1] * (batch.ndim - 1)))
+        return _rotate(batch, phi)
+    if batch.ndim != 4:
+        raise ValueError("mode 'real-imag-random' expects image batches")
+    z = add_phase(batch, generator, patch=patch)
+    return [z.real, z.imag]
+
+
+def filter_batch(batch: torch.Tensor, th: float,
+                 generator: Optional[torch.Generator] = None,
+                 keep_prob: float = 0.0) -> torch.Tensor:
+    """TV-norm foreground weight of 1-D tube batches (B, T, C), float32
+    (B,): 1 where the mean absolute temporal difference (circular) exceeds
+    `th`, else 0; rows 0 and 1 always 1 (reference: helpers/load_data.py:
+    417-440, which drops the rows; a weight of 0 gives the same expected
+    gradient). With keep_prob > 0 a row is also kept with that
+    probability, drawn from `generator`. Other ranks: all ones."""
+    if batch.ndim != 3:
+        return torch.ones(batch.shape[0], device=batch.device)
+    B, T, C = batch.shape
+    norm = torch.sum(torch.abs(torch.roll(batch, -1, dims=1) - batch),
+                     dim=(1, 2)) / (C * T)
+    mask = norm > th
+    if keep_prob > 0:
+        mask = mask | (torch.rand(B, generator=generator,
+                                  device=batch.device) <= keep_prob)
+    mask[0:2] = True
+    return mask.float()

@@ -1,15 +1,17 @@
 """Pixel-tube reshapes of the 2D+time (cine) sampler.
 
-Port of `reshape_temporal_dim` and `apply_in_tube_space` from
-inverseproblemwithdiffusionmodel_tpu/utils/reshape.py (reference:
-helpers/utils.py:330-359, ALD_optimizers.py:452-502). A tube is the time
-course of a kx x ky pixel window: forward, (N, T, H, W) -> (N H1 W1, T,
-kx ky), channel-last as in the JAX package; backward is its inverse.
+Port of `reshape_temporal_dim`, `apply_in_tube_space` and
+`reshape_temporal_dim_np` from inverseproblemwithdiffusionmodel_tpu/utils/
+reshape.py (reference: helpers/utils.py:330-359, ALD_optimizers.py:
+452-502). A tube is the time course of a kx x ky pixel window: forward,
+(N, T, H, W) -> (N H1 W1, T, kx ky), channel-last as in the JAX package;
+backward is its inverse.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .device import Shift
@@ -65,3 +67,14 @@ def apply_in_tube_space(fn: Callable, arrays: Sequence[torch.Tensor],
         return fr.reshape(B, C, T, H, W).movedim(1, -1)
 
     return tuple(bwd(t) for t in fn(*(fwd(a) for a in arrays)))
+
+
+def reshape_temporal_dim_np(x: np.ndarray, kx: int, ky: int) -> np.ndarray:
+    """The forward tube reshape on the host, numpy: (N, T, H, W) -> (N H1
+    W1, T, kx ky), H and W first cropped down to multiples of the window
+    (dataset preparation)."""
+    N, T, H, W = x.shape
+    x = x[:, :, : H - H % kx, : W - W % ky]
+    H1, W1 = x.shape[2] // kx, x.shape[3] // ky
+    t = x.reshape(N, T, H1, kx, W1, ky).transpose(0, 2, 4, 1, 3, 5)
+    return t.reshape(N * H1 * W1, T, kx * ky)

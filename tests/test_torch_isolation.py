@@ -77,7 +77,9 @@ def test_importing_the_port_loads_no_jax_module():
         "from inverseproblemwithdiffusionmodel_tpu_torch.models import "
         "ncsn1d\n"
         "from inverseproblemwithdiffusionmodel_tpu_torch.scripts import "
-        "serve_recon\n"
+        "serve_recon, train_ncsn\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.data import "
+        "datasets, transforms\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -96,12 +98,15 @@ def test_no_source_of_the_port_imports_jax(path):
 
 
 @pytest.mark.parametrize("script", ["pc_sampling", "profile_forward",
-                                    "serve_recon", "seg_grad_precision"])
+                                    "serve_recon", "seg_grad_precision",
+                                    "train_ncsn"])
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path, script):
     module = importlib.import_module(
         f"inverseproblemwithdiffusionmodel_tpu_torch.scripts.{script}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = ["--save_dir", str(tmp_path)] if script == "pc_sampling" else []
+    argv = {"pc_sampling": ["--save_dir", str(tmp_path)],
+            "train_ncsn": ["--ds_name", "ACDC", "--log_dir", str(tmp_path)]
+            }.get(script, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main(argv)
     assert not list(tmp_path.iterdir())

@@ -140,7 +140,7 @@ def test_continuous_dsm_loss_default_draws_follow_the_generator():
 # collate_batch, EmaState, get_optimizer
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mode", ["real-valued", "mag"])
+@pytest.mark.parametrize("mode", ["real-valued", "mag", "complex"])
 def test_collate_batch_matches_jax(mode):
     x = np.random.RandomState(1).rand(2, 4, 4, 1).astype(np.float32)
     np.testing.assert_array_equal(
@@ -149,9 +149,11 @@ def test_collate_batch_matches_jax(mode):
 
 
 def test_collate_batch_complex_modes_raise():
-    for mode in ("complex", "real-imag", "real-imag-random"):
-        with pytest.raises(NotImplementedError, match="Slice A"):
-            collate_batch(torch.zeros(1, 2, 2, 1), mode)
+    # the complex modes are ported (parity: tests/test_torch_train_ncsn.py);
+    # they raise, as the JAX package asserts, on batches of another rank
+    for mode in ("complex", "real-imag-random"):
+        with pytest.raises(ValueError, match="image batches"):
+            collate_batch(torch.zeros(1, 2, 2), mode)
     with pytest.raises(ValueError, match="unknown"):
         collate_batch(torch.zeros(1, 2, 2, 1), "phase")
 
