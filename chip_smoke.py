@@ -25,6 +25,13 @@ phases, each printing one line with its own seconds:
    the backward of a down pass) at the 30 shapes one training step gives
    it, batch 8: the gradients of the autograd Functions against the plain
    transposes, then timed like the forward.
+   kernels_bf16: the bf16 forms of K1 and K2 at the same 36 forward
+   shapes (batch 2 and 8) and of the K3 backward at the same 30 shapes:
+   each against its bf16 plain version at 1 bf16 ulp of the largest
+   |value| (and the count of elements that differ at all), and against
+   the float32 kernel's output rounded once at 2 ulps; timed as the
+   float32 forms, beside the bf16 byte bound and the same depthwise conv
+   in bf16.
    flr: K4 (fused bias + leaky ReLU, forward and backward) at three shapes,
    forward, dx and db against the plain versions, timed; no single PyTorch
    call computes it, so it has no library yardstick.
@@ -34,7 +41,8 @@ phases, each printing one line with its own seconds:
    counts over that forward (18 each).
 5. sample: scripts.pc_sampling.main with that config at num_scales 100
    (reduced from 2000), 2 samples: finite samples, 200 network evaluations
-   (the nfe it prints), 18 launches of each kernel per evaluation; and a
+   (the nfe it prints) and the first forward, 18 launches of each kernel
+   per evaluation; and a
    tiny PC run on the card against the same run on the CPU, fed the same
    noise.
 6. train: training.fit with make_continuous_score_train_step on the
@@ -50,7 +58,8 @@ phases, each printing one line with its own seconds:
    difference and relative L2 of the gradients over all parameters.
 8. sample_ckpt: scripts.pc_sampling.main --ckpt_dir on the trained run's
    checkpoint, num_scales 10: the restored step, finite samples, 20
-   network evaluations and 18 launches of each kernel per evaluation.
+   network evaluations and the first forward, 18 launches of each kernel
+   per evaluation.
 9. ncsnv2: the ACDC config's NCSNv2Deepest at full width (256 px, ngf
    128, 94.1 M parameters, weights drawn from seed 0) through
    make_score_fn on channel-last x, as the reconstruction calls it: card
@@ -112,6 +121,27 @@ phases, each printing one line with its own seconds:
    each net card against CPU in the float32 mode (loss, gradients,
    parameters, EMA) and bf16 against f32. Phases 9 to 13 launch none of
    K1, K2 or K4 (checked).
+14. train_bf16: training.fit with the continuous step at compute_dtype
+   bf16 (the JAX package's mixed-precision cast) on the FFHQ-256 NCSN++ at
+   batch 8 (as phase 6 runs it in f32), and on the CIFAR-10 VP NCSN++
+   (vp/cifar10_ncsnpp_continuous at full width: nf 128, ch_mult (1, 2, 2,
+   2), 4 res blocks, FIR, positional embedding; 62,693,251 parameters) at
+   the leaf's batch 128 in f32 and bf16, seeded weights and data, 6 steps
+   each: finite losses, parameters moved, the EMA against its formula,
+   s/step and images/s after the first step, peak memory, and per step
+   exactly the bf16 K1/K2 launches of the forward and the K3 backward (no
+   float32 FIR launch in a bf16 step). Then one CIFAR-10 VP step at batch
+   8 card vs CPU in the float32 mode (loss, gradients) and bf16 vs f32 on
+   the card (the loss, and a floor on the gradient's distance).
+15. sample_vp: scripts.pc_sampling.main at full width, 16 samples,
+   num_scales cut from 1000 (232 for NCSNv2) to 100, on
+   vp/cifar10_ncsnpp_continuous and subvp/cifar10_ncsnpp_continuous
+   (Euler-Maruyama; K1/K2), vp/cifar10_ddpmpp_continuous (naive
+   resampling), vp/ddpm/cifar10 (DDPM, ancestral) and ve/ncsnv2/cifar10
+   (the `ald` corrector through the channel-last adapter): finite
+   samples, the printed nfe, K1/K2 launches per network evaluation,
+   evaluations/s; --ckpt_dir on phase 14's bf16 CIFAR-10 VP checkpoint
+   with 10 scales; a tiny VP PC run card vs CPU, same noise.
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -120,22 +150,25 @@ batch >= 2; PERF.md), so the card computes in float32 like the reference.
 The sampling and training runs themselves use torch's defaults, as a
 user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
-serve, cine, train_ncsn) and read just after it. Any failure raises and
-exits non-zero. Phases 9 to 13 print their numbers as one JSON line
+serve, cine, train_ncsn, each train_bf16 run, each sample_vp run) and read
+just after it. Any failure raises and
+exits non-zero. Phases 9 to 15 print their numbers as one JSON line
 before `total`. The last
 lines are nvidia-smi's name and power limit, a JSON line of per-kernel
 numbers, and
 `{"ok": true, "device": {...}}`. In the JSON line `ms`, `plain_ms` and
 `library_ms` are device-only; `ms_with_host` is the kernel with the host's
-gaps; K1's and K2's entries add their batch-8 forward sums and the host's
-µs per launch.
+gaps; K1's and K2's entries (float32 and bf16) add their batch-8 forward
+sums, and the float32 ones the host's µs per launch.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -208,9 +241,24 @@ BF16_GRAD_FLOOR = 5e-3
 UPDATE_REL = {"acdc": 5e-2, "cine": 1e-3}
 CONTROL_GRAD_REL = 1e-3    # the control's gradient noise, 10 x MODEL_REL_L2
 RECON_CHAINS = 4           # the learn -> reconstruct request
+# The VP / subVP stack and bf16 continuous training
+VP_CONFIG = "vp/cifar10_ncsnpp_continuous"
+# The bf16 VP step's gradient vs the float32 step's, at most (read 3.08e-2
+# on the H100, 2.98e-2 on a CPU); the control, the bf16 step with the FIR
+# backward halved, reads 0.135 on a CPU
+VP_BF16_GRAD_CEIL = 6e-2
+VP_TRAIN_BATCH = 128       # the leaf's batch
+VP_PARITY_BATCH = 8        # card vs CPU and bf16 vs f32 steps
+VP_SAMPLES = 16
+VP_NUM_SCALES = 100        # of the leaves' 1000 (232 for ve/ncsnv2/cifar10)
+VP_CKPT_NUM_SCALES = 10
+VP_SAMPLE_LEAVES = ["vp/cifar10_ncsnpp_continuous",
+                    "vp/cifar10_ddpmpp_continuous", "vp/ddpm/cifar10",
+                    "subvp/cifar10_ncsnpp_continuous", "ve/ncsnv2/cifar10"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, float32 outside tensor cores
 PALLAS = "inverseproblemwithdiffusionmodel_tpu/ops/pallas_kernels.py"
+FIR_TAGS = ["up2x", "down2x", "up2x.bwd", "down2x.bwd"]
 REPLACES = {
     "up2x": f"{PALLAS}:179",
     "down2x": f"{PALLAS}:199",
@@ -220,9 +268,10 @@ REPLACES = {
     "flr_bwd": f"{PALLAS}:84",
 }
 CSRC = "inverseproblemwithdiffusionmodel_tpu_torch/ops/csrc"
-SOURCES = {"up2x": f"{CSRC}/fir2x.cu", "down2x": f"{CSRC}/fir2x.cu",
-           "up2x.bwd": f"{CSRC}/fir2x.cu", "down2x.bwd": f"{CSRC}/fir2x.cu",
-           "flr_fwd": f"{CSRC}/flr.cu", "flr_bwd": f"{CSRC}/flr.cu"}
+SOURCES = {"flr_fwd": f"{CSRC}/flr.cu", "flr_bwd": f"{CSRC}/flr.cu"}
+for _tag in FIR_TAGS:   # the float32 and bf16 forms of one Pallas kernel
+    SOURCES[_tag] = SOURCES[f"{_tag}.bf16"] = f"{CSRC}/fir2x.cu"
+    REPLACES[f"{_tag}.bf16"] = REPLACES[_tag]
 
 
 def say(phase: str, t0: float, text: str) -> None:
@@ -236,18 +285,34 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def fir_shapes(cfg):
-    """(kernel, C, R) of every FIR call in one NCSN++ forward, in order."""
+def fir_sites(cfg) -> dict:
+    """(kernel, C, R) of every K1/K2 call in one NCSN++ forward, by site:
+    the BigGAN down and up blocks (h and x) at every level but the last,
+    the input_skip pyramid's downs and the output_skip pyramid's ups (the
+    residual pyramids fuse a conv: no kernel). Nets without FIR (DDPM,
+    DDPM++, NCSNv2) make none."""
     m = cfg.model
+    sites = dict(biggan_down=[], pyramid_down=[], biggan_up=[], pyramid_up=[])
+    if m.name != "ncsnpp" or not m.fir:
+        return sites
     nf, mult, ch = m.nf, tuple(m.ch_mult), cfg.data.num_channels
     res = [cfg.data.image_size // 2 ** i for i in range(len(mult))]
-    levels = range(len(mult) - 1)
-    down = [("down2x", nf * mult[i], res[i]) for i in levels for _ in "hx"]
-    down += [("down2x", ch, res[i]) for i in levels]
-    up = [("up2x", nf * mult[i], res[i]) for i in range(1, len(mult))
-          for _ in "hx"]
-    up += [("up2x", ch, res[i]) for i in range(1, len(mult))]
-    return down + up
+    lower, upper = range(len(mult) - 1), range(1, len(mult))
+    if m.resblock_type == "biggan":
+        sites["biggan_down"] = [("down2x", nf * mult[i], res[i])
+                                for i in lower for _ in "hx"]
+        sites["biggan_up"] = [("up2x", nf * mult[i], res[i])
+                              for i in upper for _ in "hx"]
+    if m.progressive_input == "input_skip":
+        sites["pyramid_down"] = [("down2x", ch, res[i]) for i in lower]
+    if m.progressive == "output_skip":
+        sites["pyramid_up"] = [("up2x", ch, res[i]) for i in upper]
+    return sites
+
+
+def fir_shapes(cfg):
+    """(kernel, C, R) of every FIR call in one NCSN++ forward."""
+    return [call for calls in fir_sites(cfg).values() for call in calls]
 
 
 def bwd_shapes(cfg):
@@ -255,14 +320,17 @@ def bwd_shapes(cfg):
     FIR call of one training step that needs a gradient: K2 for each up
     pass, K1 for each BigGAN down pass. The input pyramid's down passes act
     on the perturbed data, which needs no gradient."""
-    m = cfg.model
-    nf, mult = m.nf, tuple(m.ch_mult)
-    res = [cfg.data.image_size // 2 ** i for i in range(len(mult))]
-    down = [("up2x.bwd", nf * mult[i], res[i]) for i in range(len(mult) - 1)
-            for _ in "hx"]
-    up = [("down2x.bwd", C, R) for name, C, R in fir_shapes(cfg)
-          if name == "up2x"]
-    return down + up
+    sites = fir_sites(cfg)
+    return ([("up2x.bwd", C, R) for _, C, R in sites["biggan_down"]]
+            + [("down2x.bwd", C, R) for _, C, R in
+               sites["biggan_up"] + sites["pyramid_up"]])
+
+
+def fir_counts(cfg) -> tuple:
+    """K1 and K2 launches of one forward (fir_shapes), and of the K3
+    backward of one training step (bwd_shapes), by kernel."""
+    count = lambda shapes: dict(collections.Counter(n for n, _, _ in shapes))
+    return count(fir_shapes(cfg)), count(bwd_shapes(cfg))
 
 
 def cuda_ms(fn, reps: int = 20, host: bool = False):
@@ -309,13 +377,15 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 def library_fn(up: bool, x: torch.Tensor, taps: np.ndarray):
     """One depthwise PyTorch conv computing the up (K1) or down (K2) pass
     with these 4 taps per axis: conv_transpose2d with the outer product of
-    the taps (up), conv2d with that of the reversed taps (down). The weight
-    is made here, so the call it returns can be captured in a CUDA graph."""
+    the taps (up), conv2d with that of the reversed taps (down), in x's
+    dtype. The weight is made here, so the call it returns can be captured
+    in a CUDA graph."""
     C = x.shape[-1]
     t = np.asarray(taps, np.float32)
     if not up:
         t = t[::-1]
-    w = torch.tensor(np.outer(t, t), device=x.device).expand(C, 1, 4, 4)
+    w = torch.tensor(np.outer(t, t), device=x.device,
+                     dtype=x.dtype).expand(C, 1, 4, 4)
     w = w.contiguous()
     conv = F.conv_transpose2d if up else F.conv2d
     return lambda: conv(x.permute(0, 3, 1, 2), w, stride=2, padding=1,
@@ -330,50 +400,80 @@ def bound(bytes_moved: float, flop: float) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def bf16_ulp(ref: torch.Tensor) -> float:
+    """One bf16 ulp of the largest |value| of ref."""
+    top = ref.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
 def kernel_numbers(tag, C, R, k, fk, gen, batch):
     """Check one FIR kernel launch site against its plain version, then
     time kernel, plain version and library call. `tag` "up2x" /
     "down2x" is the forward pass of a call at (batch, R, R, C);
     "down2x.bwd" / "up2x.bwd" is K2 / K1 as the backward of an up / down
-    call at that shape, checked through the autograd Functions."""
-    x = torch.randn(batch, R, R, C, generator=gen).cuda()
+    call at that shape, checked through the autograd Functions. A tag
+    ending in ".bf16" is the same call in bf16: held to the bf16 plain
+    version (the kernel's own arithmetic: float32 inside, one rounding) at
+    1 ulp of its largest |value|, counting the elements that differ at all,
+    and to the float32 kernel's output on the same (bf16-valued) input
+    rounded once, at 2 ulps; the library call runs in bf16 and the bound
+    counts 2 bytes an element."""
+    bf16 = tag.endswith(".bf16")
+    base = tag[:-len(".bf16")] if bf16 else tag
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    x = torch.randn(batch, R, R, C, generator=gen).cuda().to(dtype)
     up_taps, dn_taps = fk._sep_kernel_1d(k, 2.0), fk._sep_kernel_1d(k, 1.0)
-    if tag == "up2x":
-        inp, taps = x, up_taps
-        check = lambda: fk.upsample2x(x, k)
-    elif tag == "down2x":
-        inp, taps = x, dn_taps
-        check = lambda: fk.downsample2x(x, k)
+    if base in ("up2x", "down2x"):
+        inp, taps = x, (up_taps if base == "up2x" else dn_taps)
+        fwd = fk.upsample2x if base == "up2x" else fk.downsample2x
+        check = lambda v: fwd(v, k)
     else:
-        fwd = fk.upsample2x if tag == "down2x.bwd" else fk.downsample2x
-        R_out = 2 * R if tag == "down2x.bwd" else R // 2
-        inp = torch.randn(batch, R_out, R_out, C, generator=gen).cuda()
-        taps = (up_taps if tag == "down2x.bwd" else dn_taps)[::-1].copy()
-        x.requires_grad_()
-        check = lambda: torch.autograd.grad(fwd(x, k), x, inp)[0]
-    up = tag.startswith("up")
+        fwd = fk.upsample2x if base == "down2x.bwd" else fk.downsample2x
+        R_out = 2 * R if base == "down2x.bwd" else R // 2
+        inp = torch.randn(batch, R_out, R_out, C,
+                          generator=gen).cuda().to(dtype)
+        taps = (up_taps if base == "down2x.bwd" else dn_taps)[::-1].copy()
+
+        def check(v):
+            xv = x.detach().to(v.dtype).requires_grad_()
+            return torch.autograd.grad(fwd(xv, k), xv, v)[0]
+    up = base.startswith("up")
     launch = fk._up if up else fk._down
     plain_fn = fk.upsample2x_plain if up else fk.downsample2x_plain
-    kern = lambda: launch(inp, taps, tag)
+    kern = lambda: launch(inp, taps, base)
     plain = lambda: plain_fn(inp, taps)
     lib = library_fn(up, inp, taps)
-    out, ref, lib_out = check(), plain(), lib()
+    arg = x if base in ("up2x", "down2x") else inp
+    out, ref, lib_out = check(arg), plain(), lib()
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    lib_err = (lib_out - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    if not err <= KERNEL_RTOL * scale:
-        raise AssertionError(f"{tag} C={C} R={R}: max_abs_err {err} > "
-                             f"{KERNEL_RTOL} * {scale}")
-    if not lib_err <= KERNEL_RTOL * scale:
+    err = (out.float() - ref.float()).abs().max().item()
+    lib_err = (lib_out.float() - ref.float()).abs().max().item()
+    extra = {}
+    if bf16:
+        tol = bf16_ulp(ref)
+        lib_tol = 2 * tol
+        err32 = (out.float() - check(arg.float()).to(dtype).float()
+                 ).abs().max().item()
+        extra = dict(n_diff=int((out != ref).sum().item()), err_f32=err32,
+                     n_out=ref.numel())
+        if not err32 <= 2 * tol:
+            raise AssertionError(f"{tag} C={C} R={R}: {err32} from the "
+                                 f"float32 kernel rounded once, > 2 ulps")
+    else:
+        tol = lib_tol = KERNEL_RTOL * ref.abs().max().item()
+    if out.dtype != dtype or not err <= tol:
+        raise AssertionError(f"{tag} C={C} R={R}: {out.dtype}, max_abs_err "
+                             f"{err} > {tol}")
+    if not lib_err <= lib_tol:
         raise AssertionError(f"{tag} C={C} R={R}: the library yardstick "
                              f"computes another function ({lib_err})")
     n_out = ref.numel()
     flop_per_out = 12 if up else 40   # 2x2 (up) or 4x4 (down) taps, H then W
     return dict(C=C, R=R, B=batch, err=err, ms=graph_ms(kern),
                 ms_with_host=cuda_ms(kern), plain_ms=graph_ms(plain),
-                library_ms=graph_ms(lib),
-                **bound(4 * (inp.numel() + n_out), n_out * flop_per_out))
+                library_ms=graph_ms(lib), **extra,
+                **bound(dtype.itemsize * (inp.numel() + n_out),
+                        n_out * flop_per_out))
 
 
 def host_us(fn, reps: int = 500) -> float:
@@ -1789,6 +1889,349 @@ def warnings_quiet():
         yield
 
 
+def fit_run(fk, fl, cfg, model, compute_dtype, batch: int, steps: int,
+            log_dir: str, data: np.ndarray) -> dict:
+    """training.fit with the continuous step (the leaf's reduce_mean) for
+    `steps` steps at `batch`, timed between CUDA synchronizations: losses,
+    s/step and images/s after the first step, the steady peak, the EMA of
+    conv_in.bias against its formula, whether conv_in.weight moved, the
+    checkpoints, and the K1/K2 launches per step."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
+        make_sde)
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        Checkpointer, FitConfig, TrainState, batch_iterator, fit,
+        get_optimizer, make_continuous_score_train_step)
+    watch = "conv_in.bias"
+    w0 = {k: model.state_dict()[k].detach().double().cpu().clone()
+          for k in (watch, "conv_in.weight")}
+    state = TrainState.create(model, get_optimizer(cfg),
+                              ema_decay=cfg.model.ema_rate)
+    step = make_continuous_score_train_step(
+        model, make_sde(cfg), reduce_mean=cfg.training.reduce_mean,
+        compute_dtype=compute_dtype)
+    rec = dict(losses=[], step_s=[], history=[])
+
+    def recorded_step(state, b, generator):
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        state, loss = step(state, b, generator)
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t_step)
+        rec["losses"].append(float(loss))
+        rec["history"].append(state.params[watch].detach().double().cpu())
+        if len(rec["step_s"]) == 1:
+            rec["first_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        return state, loss
+
+    model.train()
+    torch.cuda.reset_peak_memory_stats()
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    state = fit(state, recorded_step, batch_iterator(data, batch, seed=0),
+                FitConfig(n_epochs=1, max_steps=steps, log_every=1, seed=0,
+                          log_dir=log_dir))
+    torch.cuda.synchronize()
+    launches = dict(fk.LAUNCHES)
+    decay = cfg.model.ema_rate
+    ema = w0[watch]
+    for p in rec["history"]:
+        ema = decay * ema + (1 - decay) * p
+    ema_err = (state.ema.params[watch].double().cpu() - ema).abs().max()
+    moved = (state.params["conv_in.weight"].detach().double().cpu()
+             - w0["conv_in.weight"]).abs().max().item()
+    fwd, bwd = fir_counts(cfg)
+    tag = "" if compute_dtype is None else ".bf16"
+    expect = {f"{k}{tag}": n * steps for k, n in {**fwd, **bwd}.items()}
+    ckpts = Checkpointer(os.path.join(log_dir, "ckpts"),
+                         track_best=False).all_steps()
+    if not (len(rec["losses"]) == steps and np.isfinite(rec["losses"]).all()):
+        raise AssertionError(f"losses {rec['losses']}")
+    if state.step != steps or ckpts != [steps] or not moved > 0:
+        raise AssertionError(f"step {state.step}, checkpoints {ckpts}, "
+                             f"moved {moved}")
+    if not ema_err <= 1e-6 * ema.abs().max():
+        raise AssertionError(f"EMA of {watch} off its formula by {ema_err}")
+    if launches != expect or sum(fl.LAUNCHES.values()):
+        raise AssertionError(f"training launched {launches}, expected "
+                             f"{expect} (no float32 FIR launch in a bf16 "
+                             "step)")
+    step_s = float(np.mean(rec["step_s"][1:]))
+    return dict(losses=rec["losses"], step_s=step_s,
+                first_step_s=rec["step_s"][0], images_per_s=batch / step_s,
+                first_peak=rec["first_peak"],
+                peak=torch.cuda.max_memory_allocated(), ema_err=float(ema_err),
+                launches=launches,
+                launches_per_step={k: v / steps for k, v in launches.items()},
+                params=sum(p.numel() for p in model.parameters()))
+
+
+def step_pair(cfg, weights, x, t, z, device, compute_dtype=None):
+    """One continuous step on a fresh copy of `weights`: its loss and its
+    clipped gradients, flattened, on the CPU."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
+        make_sde)
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import (
+        create_model)
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        TrainState, get_optimizer, make_continuous_score_train_step)
+    net = create_model(cfg)
+    net.load_state_dict(weights)
+    net.to(device)
+    st = TrainState.create(net, get_optimizer(cfg), ema_decay=None)
+    stp = make_continuous_score_train_step(
+        net, make_sde(cfg), reduce_mean=cfg.training.reduce_mean,
+        compute_dtype=compute_dtype)
+    _, loss = stp(st, x.to(device), t=t.to(device), z=z.to(device))
+    grads = torch.cat([p.grad.reshape(-1).cpu() for p in net.parameters()
+                       if p.grad is not None])
+    return loss.item(), grads
+
+
+@contextlib.contextmanager
+def fir_backward_scaled(fk, scale: float):
+    """The FIR ops' backward (the K3 launches) with its result scaled: a
+    broken backward, for a control."""
+    saved = fk._Up2x.backward, fk._Down2x.backward
+
+    def scaled(backward):
+        def run(ctx, g):
+            dx, *rest = backward(ctx, g)
+            return (dx * scale, *rest)
+        return staticmethod(run)
+    fk._Up2x.backward, fk._Down2x.backward = map(scaled, saved)
+    try:
+        yield
+    finally:
+        fk._Up2x.backward, fk._Down2x.backward = map(staticmethod, saved)
+
+
+def train_bf16_phase(fk, fl, device="cuda") -> dict:
+    """bf16 continuous training (the JAX package's mixed-precision cast)
+    through training.fit on the bf16 FIR kernels: the FFHQ-256 NCSN++ at
+    batch 8 in bf16 (the f32 `train` phase's run), and the CIFAR-10 VP
+    NCSN++ (vp/cifar10_ncsnpp_continuous at full width) at the leaf's batch
+    128 in f32 and bf16; seeded weights and data, TRAIN_STEPS steps each.
+    Then one CIFAR-10 VP step at batch 8 card vs CPU in the float32 mode,
+    and bf16 vs f32 on the card (dropout 0 for both comparisons), with a
+    control: the bf16 step with the FIR backward halved must read beyond
+    the gradient's ceiling."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
+        get_continuous_config, make_sde)
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import (
+        create_model)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    out = {}
+    runs = [("ffhq_bf16", CONFIG, TRAIN_BATCH, torch.bfloat16),
+            ("vp_f32", VP_CONFIG, VP_TRAIN_BATCH, None),
+            ("vp_bf16", VP_CONFIG, VP_TRAIN_BATCH, torch.bfloat16)]
+    for name, leaf, batch, dtype in runs:
+        cfg = get_continuous_config(leaf)
+        size, ch = cfg.data.image_size, cfg.data.num_channels
+        data = np.random.RandomState(0).rand(
+            batch * TRAIN_STEPS, size, size, ch).astype(np.float32)
+        if cfg.data.centered:
+            data = 2 * data - 1
+        model = seeded_weights(create_model(cfg), seed=0).to(device)
+        log_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        try:
+            out[name] = fit_run(fk, fl, cfg, model, dtype, batch,
+                                TRAIN_STEPS, log_dir, data)
+            if name == "vp_bf16":
+                out["vp_bf16_ckpt_dir"] = log_dir     # sample_vp reads it
+                log_dir = None
+        finally:
+            if log_dir:
+                shutil.rmtree(log_dir, ignore_errors=True)
+        r = out[name]
+        print(f"    {name}: {leaf}, {r['params']} params, batch {batch}, "
+              f"{dtype or 'float32'}: losses "
+              f"{[round(v, 3) for v in r['losses']]}; {r['step_s']:.4f} s "
+              f"per step (first {r['first_step_s']:.2f} s excluded), "
+              f"{r['images_per_s']:.2f} images/s, peak {r['peak']} bytes "
+              f"(first step {r['first_peak']}); EMA off by "
+              f"{r['ema_err']:.3g}; launches per step "
+              f"{r['launches_per_step']}", flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+    cfg = get_continuous_config(VP_CONFIG).replace(**{"model.dropout": 0.0})
+    weights = seeded_weights(create_model(cfg), seed=0).state_dict()
+    sde = make_sde(cfg)
+    pgen = torch.Generator().manual_seed(3)
+    B, size = VP_PARITY_BATCH, cfg.data.image_size
+    x = torch.rand(B, size, size, 3, generator=pgen) * 2 - 1
+    t = torch.rand(B, generator=pgen) * (sde.T - 1e-5) + 1e-5
+    z = torch.randn(B, size, size, 3, generator=pgen)
+    with float32_exact():
+        loss_gpu, g_gpu = step_pair(cfg, weights, x, t, z, device)
+        loss_cpu, g_cpu = step_pair(cfg, weights, x, t, z, "cpu")
+    loss16, g16 = step_pair(cfg, weights, x, t, z, device, torch.bfloat16)
+    loss32, g32 = step_pair(cfg, weights, x, t, z, device)
+    with fir_backward_scaled(fk, 0.5):
+        _, g_control = step_pair(cfg, weights, x, t, z, device,
+                                 torch.bfloat16)
+    out["vp_card_vs_cpu"] = dict(
+        loss_card=loss_gpu, loss_cpu=loss_cpu,
+        loss_rel=abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+        grad_rel_l2=rel_l2(g_gpu, g_cpu))
+    out["vp_bf16_vs_f32"] = dict(loss_rel=abs(loss16 - loss32) / abs(loss32),
+                                 grad_rel_l2=rel_l2(g16, g32),
+                                 control_grad_rel_l2=rel_l2(g_control, g32))
+    c, b = out["vp_card_vs_cpu"], out["vp_bf16_vs_f32"]
+    if not (c["loss_rel"] <= MODEL_REL_L2 and c["grad_rel_l2"] <= MODEL_REL_L2):
+        raise AssertionError(f"VP train step card vs CPU: {c}")
+    if not (b["loss_rel"] <= BF16_LOSS_REL
+            and BF16_GRAD_FLOOR <= b["grad_rel_l2"] <= VP_BF16_GRAD_CEIL
+            and b["control_grad_rel_l2"] > VP_BF16_GRAD_CEIL):
+        raise AssertionError(f"VP bf16 step vs f32: {b} (the loss within "
+                             f"{BF16_LOSS_REL}, the gradient {BF16_GRAD_FLOOR}"
+                             f" to {VP_BF16_GRAD_CEIL} away, the control "
+                             f"farther)")
+    return out
+
+
+@contextlib.contextmanager
+def timed_sampler(pc_sampling, seconds: list):
+    """pc_sampling.main with its sampler timed alone: each call of the
+    sampling function get_sampling_fn returns appends its seconds, between
+    CUDA synchronizations, to `seconds`."""
+    get = pc_sampling.get_sampling_fn
+
+    def timed_get(*args, **kwargs):
+        sampling_fn = get(*args, **kwargs)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            out = sampling_fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t_run)
+            return out
+        return timed
+    pc_sampling.get_sampling_fn = timed_get
+    try:
+        yield
+    finally:
+        pc_sampling.get_sampling_fn = get
+
+
+def sample_vp_phase(fk, fl, ckpt_dir: str, device="cuda") -> dict:
+    """scripts.pc_sampling.main at full width, seeded weights, VP_SAMPLES
+    samples, num_scales cut to VP_NUM_SCALES, for each of VP_SAMPLE_LEAVES
+    (each leaf's own predictor and corrector): finite samples, the printed
+    nfe, the network evaluations (the first forward, then each step's
+    corrector steps and predictor) and K1/K2 launches per evaluation, and
+    the sampler's evaluations/s (its loop alone; the set-up, from the
+    config to the first forward, is reported apart). Then --ckpt_dir on
+    the bf16 CIFAR-10 VP run's checkpoint (VP_CKPT_NUM_SCALES), and a tiny
+    VP PC run card vs CPU, same noise, float32 mode."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
+        get_continuous_config, make_sde)
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import (
+        create_model)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        pc_sampling)
+    from inverseproblemwithdiffusionmodel_tpu_torch.sde import (
+        get_pc_sampler, get_score_fn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    out = {}
+    save_dir = tempfile.mkdtemp(prefix="chip_smoke_vp_")
+    try:
+        runs = [(leaf, VP_NUM_SCALES, None) for leaf in VP_SAMPLE_LEAVES]
+        runs.append((VP_CONFIG, VP_CKPT_NUM_SCALES, ckpt_dir))
+        for leaf, N, ckpt in runs:
+            cfg = get_continuous_config(leaf)
+            s = cfg.sampling
+            evals = 1 + N * ((s.n_steps_each if s.corrector != "none" else 0)
+                             + (s.predictor != "none"))
+            argv = ["--config", leaf, "--num_samples", str(VP_SAMPLES),
+                    "--seed", "0", "--override", f"model.num_scales={N}",
+                    "--save_dir", save_dir]
+            if ckpt:
+                argv += ["--ckpt_dir", os.path.join(ckpt, "ckpts")]
+            if device != "cuda":
+                argv += ["--device", str(device)]
+            torch.cuda.reset_peak_memory_stats()
+            fk.LAUNCHES.clear()
+            fl.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            sampler_s = []
+            with timed_sampler(pc_sampling, sampler_s):
+                samples, nfe, text = run_pc_sampling(pc_sampling, argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            if len(sampler_s) != 1:
+                raise AssertionError(f"{leaf}: {len(sampler_s)} sampler "
+                                     "runs")
+            loop_evals = evals - 1      # the first forward is set-up
+            launches = dict(fk.LAUNCHES)
+            fwd, _ = fir_counts(cfg)
+            expect = {k: n * evals for k, n in fwd.items()}
+            size, ch = cfg.data.image_size, cfg.data.num_channels
+            if samples.shape != (VP_SAMPLES, size, size, ch) or \
+                    not np.isfinite(samples).all():
+                raise AssertionError(f"{leaf}: samples {samples.shape}, "
+                                     f"finite {np.isfinite(samples).all()}")
+            if nfe != N * (s.n_steps_each + 1):
+                raise AssertionError(f"{leaf}: nfe {nfe}")
+            if launches != expect or sum(fl.LAUNCHES.values()):
+                raise AssertionError(f"{leaf}: launched {launches}, expected "
+                                     f"{expect}")
+            if ckpt and "restored step" not in text:
+                raise AssertionError("pc_sampling restored no checkpoint")
+            key = f"{leaf} (ckpt)" if ckpt else leaf
+            out[key] = dict(num_scales=N, reduced_from=cfg.model.num_scales,
+                            predictor=s.predictor, corrector=s.corrector,
+                            nfe=nfe, evals=evals, wall_s=wall,
+                            sampler_s=sampler_s[0],
+                            setup_s=wall - sampler_s[0],
+                            evals_per_s=loop_evals / sampler_s[0],
+                            peak=torch.cuda.max_memory_allocated(),
+                            launches_per_eval={k: v / evals for k, v in
+                                               launches.items()})
+            print(f"    {key}: {s.predictor} + {s.corrector}, num_scales "
+                  f"{N} (reduced from {cfg.model.num_scales}), "
+                  f"{VP_SAMPLES} samples: nfe {nfe} (printed), {evals} "
+                  f"evaluations, sampler {sampler_s[0]:.2f} s "
+                  f"({loop_evals / sampler_s[0]:.2f} evals/s), set-up "
+                  f"{wall - sampler_s[0]:.2f} s, peak "
+                  f"{out[key]['peak']} bytes, K1/K2 per evaluation "
+                  f"{out[key]['launches_per_eval']}", flush=True)
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+    tiny = get_continuous_config(VP_CONFIG).replace(**{
+        "data.image_size": 16, "model.nf": 16, "model.ch_mult": (1, 2, 2),
+        "model.num_res_blocks": 1, "model.attn_resolutions": (8,),
+        "model.num_scales": 5})
+    sde = make_sde(tiny)
+    finals = []
+    for dev in (device, "cpu"):
+        net = seeded_weights(create_model(tiny), seed=1).to(dev).eval()
+        noise_gen = torch.Generator().manual_seed(2)
+        s = tiny.sampling
+        sampler = get_pc_sampler(sde, (BATCH, 16, 16, 3),
+                                 predictor=s.predictor, corrector=s.corrector,
+                                 snr=s.snr, device=dev)
+        with torch.no_grad(), float32_exact():
+            x, _ = sampler(get_score_fn(sde, net), noise=lambda sh: (
+                torch.randn(tuple(sh), generator=noise_gen).to(dev)))
+        finals.append(x.cpu())
+    out["tiny_card_vs_cpu_rel_l2"] = rel_l2(finals[0], finals[1])
+    if not out["tiny_card_vs_cpu_rel_l2"] <= MODEL_REL_L2:
+        raise AssertionError(f"tiny VP PC run, card vs CPU: rel L2 "
+                             f"{out['tiny_card_vs_cpu_rel_l2']}")
+    return out
+
+
 def report_train_ncsn(tn: dict, t: float) -> None:
     runs = tn["runs"]
     rec = tn["reconstruct"]
@@ -1911,6 +2354,79 @@ def main() -> None:
         f"{per_step_bwd}")
 
     t = time.perf_counter()
+    rows16 = {f"{n}.bf16": [] for n in rows}
+    rows16_8 = {f"{n}.bf16": [] for n in rows}
+    bwd16 = {f"{n}.bf16": [] for n in bwd_rows}
+    for name, C, R in fir_shapes(cfg):
+        rows16[f"{name}.bf16"].append(kernel_numbers(
+            f"{name}.bf16", C, R, k, fk, gen, BATCH))
+        rows16_8[f"{name}.bf16"].append(kernel_numbers(
+            f"{name}.bf16", C, R, k, fk, gen, TRAIN_BATCH))
+    for name, C, R in bwd_shapes(cfg):
+        bwd16[f"{name}.bf16"].append(kernel_numbers(
+            f"{name}.bf16", C, R, k, fk, gen, TRAIN_BATCH))
+    summary.update(summarize(rows16, f"one bf16 forward at batch {BATCH}"))
+    summary8.update(summarize(rows16_8, f"one bf16 forward at batch "
+                                        f"{TRAIN_BATCH}"))
+    summary.update(summarize(bwd16, "one bf16 training step's backward"))
+    diffs = {}
+    for table in (rows16, rows16_8, bwd16):
+        for name, rs in table.items():
+            summary[name]["err"] = max(summary[name]["err"],
+                                       max(r["err"] for r in rs))
+            d = diffs.setdefault(name, dict(differ=0, of=0, f32_err=0.0))
+            d["differ"] += sum(r["n_diff"] for r in rs)
+            d["of"] += sum(r["n_out"] for r in rs)
+            d["f32_err"] = max(d["f32_err"], max(r["err_f32"] for r in rs))
+    say("kernels_bf16", t, f"bf16 K1/K2 match their bf16 plain versions at "
+        f"all {sum(len(r) for r in rows16.values())} forward shapes at batch "
+        f"{BATCH} and {TRAIN_BATCH} and the K3 backward at all "
+        f"{sum(len(r) for r in bwd16.values())} step shapes (1 bf16 ulp of "
+        f"the largest |value|), and the float32 kernels rounded once (2 "
+        f"ulps); elements that differ from the plain versions "
+        f"{json.dumps(diffs)}")
+
+    # The CIFAR-10 VP NCSN++ (train_bf16, sample_vp) calls the same kernels
+    # at its own shapes: a step at batch VP_TRAIN_BATCH in f32 and bf16,
+    # forward and backward, and the sampler's forward at VP_SAMPLES.
+    t = time.perf_counter()
+    vp_cfg = get_continuous_config(VP_CONFIG)
+    k_vp = tuple(vp_cfg.model.fir_kernel)
+    vp_rows, vp_rows16 = {}, {}
+    for tag in ("", ".bf16"):
+        with float32_exact() if not tag else contextlib.nullcontext():
+            for name, C, R in fir_shapes(vp_cfg) + bwd_shapes(vp_cfg):
+                vp_rows.setdefault(name + tag, []).append(kernel_numbers(
+                    name + tag, C, R, k_vp, fk, gen, VP_TRAIN_BATCH))
+    with float32_exact():
+        for name, C, R in fir_shapes(vp_cfg):
+            vp_rows16.setdefault(name, []).append(kernel_numbers(
+                name, C, R, k_vp, fk, gen, VP_SAMPLES))
+    summary_vp = summarize(vp_rows, f"one {VP_CONFIG} step at batch "
+                                    f"{VP_TRAIN_BATCH}")
+    summary_vp16 = summarize(vp_rows16, f"one {VP_CONFIG} forward at batch "
+                                        f"{VP_SAMPLES}")
+    for table in (vp_rows, vp_rows16):
+        for name, rs in table.items():
+            summary[name]["err"] = max(summary[name]["err"],
+                                       max(r["err"] for r in rs))
+            if name.endswith(".bf16"):
+                d = diffs[name]
+                d["differ"] += sum(r["n_diff"] for r in rs)
+                d["of"] += sum(r["n_out"] for r in rs)
+                d["f32_err"] = max(d["f32_err"],
+                                   max(r["err_f32"] for r in rs))
+    say("kernels_vp", t, f"K1/K2 and the K3 backward match their plain "
+        f"versions at the {VP_CONFIG} shapes: "
+        f"{sum(len(r) for r in vp_rows.values())} step calls at batch "
+        f"{VP_TRAIN_BATCH} in f32 and bf16 and "
+        f"{sum(len(r) for r in vp_rows16.values())} forward calls at batch "
+        f"{VP_SAMPLES} in f32 (f32 rtol {KERNEL_RTOL}; bf16 1 ulp of the "
+        f"plain version, 2 of the f32 kernel rounded once); max_abs_err "
+        + json.dumps({n: max(r["err"] for r in rs)
+                      for n, rs in vp_rows.items()}))
+
+    t = time.perf_counter()
     flr_in = []
     for shape in FLR_SHAPES:
         x = torch.randn(*shape, generator=gen).cuda()
@@ -2022,8 +2538,10 @@ def main() -> None:
         shutil.rmtree(save_dir, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated()
     # Each evaluation launches each kernel per_forward times: the counts
-    # hold the printed nfe to 2 per step (reverse diffusion + Langevin).
-    expect = {name: n * NUM_SCALES * 2 for name, n in per_forward.items()}
+    # hold the printed nfe to 2 per step (reverse diffusion + Langevin),
+    # plus pc_sampling's first forward on one zero image.
+    expect = {name: n * (NUM_SCALES * 2 + 1)
+              for name, n in per_forward.items()}
     if nfe != NUM_SCALES * 2:
         raise AssertionError(f"nfe {nfe} != {NUM_SCALES * 2}")
     if launches["sample"] != expect:
@@ -2122,7 +2640,7 @@ def main() -> None:
         if launches["train"] != expect or sum(fl.LAUNCHES.values()):
             raise AssertionError(f"training launched {launches['train']}, "
                                  f"expected {expect}")
-        step_s = float(np.mean(seconds[1:]))
+        step_s = train_step_s = float(np.mean(seconds[1:]))
         say("train", t, f"fit, {CONFIG} full width, batch {TRAIN_BATCH} "
             f"(reduced from 64, the leaf's batch), Adam lr {cfg.optim.lr} "
             f"grad_clip {cfg.optim.grad_clip}, ema {decay}, reduce_mean "
@@ -2180,7 +2698,7 @@ def main() -> None:
             f"model.num_scales={CKPT_NUM_SCALES}", "--save_dir", save_dir])
         torch.cuda.synchronize()
         launches["sample_ckpt"] = dict(fk.LAUNCHES)
-        expect = {name: n * CKPT_NUM_SCALES * 2
+        expect = {name: n * (CKPT_NUM_SCALES * 2 + 1)
                   for name, n in per_forward.items()}
         if f"restored step {TRAIN_STEPS} from" not in text:
             raise AssertionError("pc_sampling printed no restored step "
@@ -2298,12 +2816,56 @@ def main() -> None:
     tn = train_ncsn_phase(fk, fl)
     launches["train_ncsn"] = {}
     report_train_ncsn(tn, t)
+
+    # 14. train_bf16 ----------------------------------------------------------
+    t = time.perf_counter()
+    tb = train_bf16_phase(fk, fl)
+    ckpt_dir = tb.pop("vp_bf16_ckpt_dir")
+    for name in ("ffhq_bf16", "vp_f32", "vp_bf16"):
+        launches[f"train_bf16 {name}"] = tb[name]["launches"]
+    ffhq16, vp32, vp16 = tb["ffhq_bf16"], tb["vp_f32"], tb["vp_bf16"]
+    say("train_bf16", t, f"fit, continuous step in bf16 on the bf16 FIR "
+        f"kernels: {CONFIG} batch {TRAIN_BATCH} {ffhq16['step_s']:.4f} s/step "
+        f"({ffhq16['images_per_s']:.2f} images/s, peak {ffhq16['peak']} "
+        f"bytes) against f32's {train_step_s:.4f} s ({train_peak} bytes); "
+        f"{VP_CONFIG} (full width, {vp32['params']} params) batch "
+        f"{VP_TRAIN_BATCH}: f32 {vp32['step_s']:.4f} s/step "
+        f"({vp32['images_per_s']:.2f} images/s, peak {vp32['peak']}), bf16 "
+        f"{vp16['step_s']:.4f} ({vp16['images_per_s']:.2f}, peak "
+        f"{vp16['peak']}); bf16 launches per step: FFHQ "
+        f"{ffhq16['launches_per_step']}, VP {vp16['launches_per_step']} "
+        f"(no float32 FIR launch); VP step card vs CPU, float32 mode, batch "
+        f"{VP_PARITY_BATCH}: {json.dumps(tb['vp_card_vs_cpu'])} (<= "
+        f"{MODEL_REL_L2}); bf16 vs f32 {json.dumps(tb['vp_bf16_vs_f32'])} "
+        f"(loss <= {BF16_LOSS_REL}, gradient {BF16_GRAD_FLOOR} to "
+        f"{VP_BF16_GRAD_CEIL}; the control, FIR backward halved, above)")
+
+    # 15. sample_vp -----------------------------------------------------------
+    t = time.perf_counter()
+    try:
+        sv = sample_vp_phase(fk, fl, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches["sample_vp"] = {}
+    for name, r in sv.items():
+        if isinstance(r, dict):
+            for tag, per in r["launches_per_eval"].items():
+                launches["sample_vp"][tag] = launches["sample_vp"].get(
+                    tag, 0) + int(round(per * r["evals"]))
+    say("sample_vp", t, f"pc_sampling.main at full width, {VP_SAMPLES} "
+        f"samples, num_scales {VP_NUM_SCALES} (reduced from 1000; 232 for "
+        f"ve/ncsnv2/cifar10): the sampler's evals/s " + json.dumps(
+            {n: round(r["evals_per_s"], 2) for n, r in sv.items()
+             if isinstance(r, dict)}) + f"; every sample finite; tiny VP PC "
+        f"run card vs CPU rel L2 {sv['tiny_card_vs_cpu_rel_l2']:.3g} (<= "
+        f"{MODEL_REL_L2})")
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "serve": srv,
-                      "cine": cine, "train_ncsn": tn}), flush=True)
+                      "cine": cine, "train_ncsn": tn, "train_bf16": tb,
+                      "sample_vp": sv}), flush=True)
 
     kernels = []
-    for name in ("up2x", "down2x", "up2x.bwd", "down2x.bwd", "flr_fwd",
-                 "flr_bwd"):
+    for name in FIR_TAGS + [f"{n}.bf16" for n in FIR_TAGS] + [
+            "flr_fwd", "flr_bwd"]:
         s = summary[name]
         by_path = {path: counts[name] for path, counts in launches.items()
                    if counts.get(name)}
@@ -2321,6 +2883,11 @@ def main() -> None:
             kernels[-1][f"batch{TRAIN_BATCH}"] = {
                 key: s8[key] for key in ("ms", "ms_with_host", "plain_ms",
                                          "library_ms", "bound_ms")}
+        for key, table in ((f"vp_batch{VP_TRAIN_BATCH}", summary_vp),
+                           (f"vp_batch{VP_SAMPLES}", summary_vp16)):
+            if name in table:
+                kernels[-1][key] = {k: table[name][k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "err")}
         if name in host_us:
             kernels[-1]["host_us_per_launch"] = host_us[name]
     say("total", t0, "all phases passed")

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time two builds of the FIR kernels (K1 `fir_up2x_f32`, K2
-`fir_down2x_f32`) against each other on one NVIDIA GPU:
+"""Time two builds of the FIR kernels (K1 `fir_up2x_<dtype>`, K2
+`fir_down2x_<dtype>`) against each other on one NVIDIA GPU:
 
-  python3 fir_ab.py --baseline path/to/other/fir2x.cu \
+  python3 fir_ab.py --baseline path/to/other/fir2x.cu [--dtype bf16] \
       [--baseline_py path/to/other/fir_kernels.py] [--out file.json]
+
+--dtype picks the kernels' form, float32 (`f32`, the default) or bf16
+(`bf16`; the baseline source must have the bf16 launchers too).
 
 Builds the given fir2x.cu, with the checkout's other ops/csrc sources, into
 a second library beside the checkout's own (ops/_build.py, one nvcc call
 each). Then, at every FIR call of one FFHQ-256 NCSN++ forward at batch 2 and
 at batch 8 and at every K3 backward call of one training step at batch 8
 (chip_smoke.py's shape lists), it holds both libraries' outputs against the
-plain PyTorch version (1e-5 of the largest value) and times each launch
+plain PyTorch version (1e-5 of the largest value in float32, one bf16 ulp
+of it in bf16) and times each launch
 device-only (chip_smoke.graph_ms: 20 launches captured in a CUDA graph, the
 replay timed by CUDA events), in turns baseline, checkout, checkout,
 baseline, so that both see the same card, clocks and neighbours. Prints
@@ -41,9 +45,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (its helpers; main() runs only as a script)
 
 
-def launcher(lib, name: str):
+def launcher(lib, name: str, dtype: str = "f32"):
     """A call of one library's C launcher on torch's current stream."""
-    fn = getattr(lib, f"fir_{name}_f32")
+    fn = getattr(lib, f"fir_{name}_{dtype}")
 
     def run(x: torch.Tensor, out: torch.Tensor, taps) -> torch.Tensor:
         N, H, W, C = x.shape
@@ -122,7 +126,11 @@ def main(argv=None) -> None:
                         "path against, on the host")
     p.add_argument("--out", default=None,
                    help="where to write every row as JSON")
+    p.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
+                   help="the kernels' form: float32 or bf16")
     args = p.parse_args(argv)
+    torch_dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    elem_bytes = torch_dtype.itemsize
     if not torch.cuda.is_available():
         raise SystemExit("fir_ab: torch sees no CUDA device")
     from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
@@ -134,8 +142,10 @@ def main(argv=None) -> None:
 
     others = [s for s in glob.glob(os.path.join(_build._CSRC, "*.cu"))
               if os.path.basename(s) != "fir2x.cu"]
-    base_build = _build.build(tuple(sorted([os.path.abspath(args.baseline)]
-                                           + others)))
+    # an older baseline may lack the other dtype's launchers
+    base_build = _build.build(
+        tuple(sorted([os.path.abspath(args.baseline)] + others)),
+        launchers=(f"fir_up2x_{args.dtype}", f"fir_down2x_{args.dtype}"))
     new_build = _build.build()
     for label, b in (("baseline", base_build), ("checkout", new_build)):
         print(f"[build] {label}: nvcc {b.seconds:.2f} s -> {b.path}")
@@ -150,27 +160,30 @@ def main(argv=None) -> None:
     rows = []
     with float32_exact():
         for group, name, C, R, batch, taps in cases(cfg):
-            x = torch.randn(batch, R, R, C, generator=gen).cuda()
+            x = torch.randn(batch, R, R, C, generator=gen).cuda().to(
+                torch_dtype)
             up = name == "up2x"
             R_out = 2 * R if up else R // 2
             ref = (fir_kernels.upsample2x_plain if up else
                    fir_kernels.downsample2x_plain)(x, taps)
-            scale = ref.abs().max().item()
+            tol = (chip_smoke.bf16_ulp(ref) if args.dtype == "bf16" else
+                   chip_smoke.KERNEL_RTOL * ref.abs().max().item())
             fns, errs = {}, {}
             for label, lib in libs.items():
-                out = torch.empty(batch, R_out, R_out, C, device="cuda")
-                run = launcher(lib, name)
+                out = torch.empty(batch, R_out, R_out, C, device="cuda",
+                                  dtype=torch_dtype)
+                run = launcher(lib, name, args.dtype)
                 run(x, out, taps)
                 torch.cuda.synchronize()
-                errs[label] = (out - ref).abs().max().item()
-                if not errs[label] <= chip_smoke.KERNEL_RTOL * scale:
+                errs[label] = (out.float() - ref.float()).abs().max().item()
+                if not errs[label] <= tol:
                     raise AssertionError(f"{label} {group} C={C} R={R}: "
                                          f"max_abs_err {errs[label]}")
                 fns[label] = (lambda run=run, out=out: run(x, out, taps))
             times = {label: [] for label in libs}
             for label in ("baseline", "checkout", "checkout", "baseline"):
                 times[label].append(chip_smoke.graph_ms(fns[label]))
-            b = chip_smoke.bound(4 * (x.numel() + ref.numel()),
+            b = chip_smoke.bound(elem_bytes * (x.numel() + ref.numel()),
                                  ref.numel() * (12 if up else 40))
             row = dict(group=group, C=C, R=R, B=batch, bound_ms=b["bound_ms"],
                        baseline_ms=sum(times["baseline"]) / 2,
@@ -203,8 +216,8 @@ def main(argv=None) -> None:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(device=smi, groups=groups, rows=rows, host=host),
-                      f, indent=1)
+            json.dump(dict(device=smi, dtype=args.dtype, groups=groups,
+                           rows=rows, host=host), f, indent=1)
     print(smi)
     print(json.dumps(dict(groups=groups)))
 

@@ -3,8 +3,7 @@
 Port of inverseproblemwithdiffusionmodel_tpu/configs_continuous.py: the same
 per-dataset defaults, model presets and leaf registry, so
 `get_continuous_config("ve/ffhq_256_ncsnpp_continuous")` gives the same tree
-in both packages. `make_sde` builds the VE SDE only; the VP and subVP SDEs
-are not ported yet.
+in both packages; `make_sde` builds the VE, VP and subVP SDEs.
 """
 from __future__ import annotations
 
@@ -328,14 +327,15 @@ def list_continuous_configs():
 def make_sde(config):
     """SDE instance from a continuous config (dispatch on
     config.training.sde)."""
-    from .sde import VESDE
+    from .sde import VESDE, VPSDE, subVPSDE
     name = config.training.sde.lower()
     m = config.model
     if name == "vesde":
         return VESDE(N=m.num_scales, sigma_min=m.sigma_min,
                      sigma_max=m.sigma_max)
-    if name in ("vpsde", "subvpsde"):
-        raise NotImplementedError(
-            f"{config.training.sde} is not ported yet (ROADMAP: Slice 2, "
-            "VP/subVP + DDPM)")
+    if name == "vpsde":
+        return VPSDE(N=m.num_scales, beta_min=m.beta_min, beta_max=m.beta_max)
+    if name == "subvpsde":
+        return subVPSDE(N=m.num_scales, beta_min=m.beta_min,
+                        beta_max=m.beta_max)
     raise ValueError(f"unknown SDE {config.training.sde!r}")

@@ -10,8 +10,8 @@ maps onto a state dict name by name (utils/convert.py).
 FIR resampling goes through ops/fir_kernels.py, which launches the CUDA
 kernels for CUDA tensors; the FIR resamplers that fuse a convolution
 (`with_conv=True`) are plain PyTorch (ops/upfirdn2d.py), as the JAX package
-leaves them to XLA. The non-FIR resamplers belong to the DDPM++ slice and
-raise NotImplementedError.
+leaves them to XLA. The naive resamplers (nearest-neighbour up, 2x2 mean
+or strided convolution down) of DDPM++ and DDPM are plain PyTorch too.
 """
 from __future__ import annotations
 
@@ -24,9 +24,6 @@ import torch.nn.functional as F
 
 from ..ops.fir_kernels import fir_downsample_2x, fir_upsample_2x
 from ..ops.upfirdn2d import conv_downsample_2d, upsample_conv_2d
-
-_NOT_PORTED = "is not ported yet (ROADMAP: Slice 2, VP/subVP + DDPM)"
-
 
 def default_init(tensor: torch.Tensor, fan_in: int, fan_out: int,
                  scale: float = 1.0) -> torch.Tensor:
@@ -62,9 +59,9 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  init_scale: float = 1.0, padding: int = 0,
-                 use_bias: bool = True):
-        super().__init__(in_ch, out_ch, kernel_size, padding=padding,
-                         bias=use_bias)
+                 use_bias: bool = True, stride: int = 1):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=padding, bias=use_bias)
         rf = kernel_size * kernel_size
         default_init(self.weight, in_ch * rf, out_ch * rf, init_scale)
         if self.bias is not None:
@@ -174,49 +171,80 @@ class AttnBlockpp(nn.Module):
         return out / math.sqrt(2.0) if self.skip_rescale else out
 
 
-class _FIRResample(nn.Module):
-    """2x FIR resampling, alone or fused with a 3x3 convolution
-    (`with_conv`; the parameters are the JAX package's `Conv2d_0_weight`,
-    (3, 3, in_ch, out_ch) HWIO, and `Conv2d_0_bias`). The resamplers
-    without FIR belong to a later slice and raise."""
+def naive_upsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsampling of channel-last x: at an integer factor
+    jax.image.resize's "nearest" repeats each pixel."""
+    return x.repeat_interleave(factor, 1).repeat_interleave(factor, 2)
+
+
+def naive_downsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """The mean over each factor x factor block of channel-last x."""
+    B, H, W, C = x.shape
+    return x.reshape(B, H // factor, factor, W // factor, factor, C).mean(
+        dim=(2, 4))
+
+
+class _Resample(nn.Module):
+    """2x resampling, FIR-filtered or naive, alone or with a convolution.
+    FIR with_conv fuses a 3x3 convolution (the parameters are the JAX
+    package's `Conv2d_0_weight`, (3, 3, in_ch, out_ch) HWIO, and
+    `Conv2d_0_bias`); naive with_conv runs a 3x3 convolution `Conv_0`."""
 
     def __init__(self, in_ch: Optional[int] = None,
                  out_ch: Optional[int] = None, with_conv: bool = False,
                  fir: bool = False, fir_kernel: Sequence[int] = (1, 3, 3, 1)):
         super().__init__()
-        if not fir:
-            raise NotImplementedError(
-                f"{type(self).__name__}(fir={fir}, with_conv={with_conv}) "
-                f"{_NOT_PORTED}")
         self.with_conv = with_conv
+        self.fir = fir
         self.fir_kernel = tuple(fir_kernel)
         if with_conv:
             if in_ch is None:
                 raise ValueError("with_conv needs in_ch")
             out_ch = out_ch or in_ch
-            self.Conv2d_0_weight = nn.Parameter(default_init(
-                torch.empty(3, 3, in_ch, out_ch), 9 * in_ch, 9 * out_ch))
-            self.Conv2d_0_bias = nn.Parameter(torch.zeros(out_ch))
+            if fir:
+                self.Conv2d_0_weight = nn.Parameter(default_init(
+                    torch.empty(3, 3, in_ch, out_ch), 9 * in_ch,
+                    9 * out_ch))
+                self.Conv2d_0_bias = nn.Parameter(torch.zeros(out_ch))
+            else:
+                self.Conv_0 = self._naive_conv(in_ch, out_ch)
 
 
-class Upsample(_FIRResample):
-    """2x FIR upsample (the NCSN++ output pyramids): with_conv fuses a
-    transposed 3x3 conv (ops/upfirdn2d.upsample_conv_2d, plain PyTorch as
-    in the JAX package), else the FIR kernel K1."""
+class Upsample(_Resample):
+    """2x upsample. FIR: with_conv fuses a transposed 3x3 conv
+    (ops/upfirdn2d.upsample_conv_2d, plain PyTorch as in the JAX package),
+    else the FIR kernel K1. Naive: nearest neighbour, then the 3x3
+    `Conv_0` with_conv."""
+
+    @staticmethod
+    def _naive_conv(in_ch: int, out_ch: int) -> Conv2d:
+        return ddpm_conv3x3(in_ch, out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fir:
+            h = naive_upsample_2d(x)
+            return self.Conv_0(h) if self.with_conv else h
         if not self.with_conv:
             return fir_upsample_2x(x, self.fir_kernel)
         return upsample_conv_2d(x, self.Conv2d_0_weight, k=self.fir_kernel,
                                 factor=2) + self.Conv2d_0_bias
 
 
-class Downsample(_FIRResample):
-    """2x FIR downsample (the NCSN++ input pyramids): with_conv fuses a
-    strided 3x3 conv (ops/upfirdn2d.conv_downsample_2d), else the FIR
-    kernel K2."""
+class Downsample(_Resample):
+    """2x downsample. FIR: with_conv fuses a strided 3x3 conv
+    (ops/upfirdn2d.conv_downsample_2d), else the FIR kernel K2. Naive:
+    with_conv pads right and bottom by 1 and runs the stride-2 VALID 3x3
+    `Conv_0` (the DDPM convention), else a 2x2 average pool."""
+
+    @staticmethod
+    def _naive_conv(in_ch: int, out_ch: int) -> Conv2d:
+        return Conv2d(in_ch, out_ch, 3, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fir:
+            if self.with_conv:
+                return self.Conv_0(F.pad(x, (0, 0, 0, 1, 0, 1)))
+            return naive_downsample_2d(x)
         if not self.with_conv:
             return fir_downsample_2x(x, self.fir_kernel)
         return conv_downsample_2d(x, self.Conv2d_0_weight, k=self.fir_kernel,
@@ -272,12 +300,10 @@ class ResnetBlockBigGANpp(nn.Module):
                  temb_dim: Optional[int] = None,
                  num_groups: Optional[int] = None):
         super().__init__()
-        if (up or down) and not fir:
-            raise NotImplementedError(f"BigGAN resampling without FIR "
-                                      f"{_NOT_PORTED}")
         out_ch = out_ch or in_ch
         self.act = act
         self.up, self.down = up, down
+        self.fir = fir
         self.fir_kernel = tuple(fir_kernel)
         self.skip_rescale = skip_rescale
         self.GroupNorm_0 = GroupNorm(in_ch, num_groups)
@@ -293,11 +319,13 @@ class ResnetBlockBigGANpp(nn.Module):
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.act(self.GroupNorm_0(x))
         if self.up:
-            h = fir_upsample_2x(h, self.fir_kernel)
-            x = fir_upsample_2x(x, self.fir_kernel)
+            up = ((lambda v: fir_upsample_2x(v, self.fir_kernel)) if self.fir
+                  else naive_upsample_2d)
+            h, x = up(h), up(x)
         elif self.down:
-            h = fir_downsample_2x(h, self.fir_kernel)
-            x = fir_downsample_2x(x, self.fir_kernel)
+            down = ((lambda v: fir_downsample_2x(v, self.fir_kernel))
+                    if self.fir else naive_downsample_2d)
+            h, x = down(h), down(x)
         h = self.Conv_0(h)
         if temb is not None:
             h = h + self.Dense_0(self.act(temb))[:, None, None, :]

@@ -118,7 +118,7 @@ class NCSNpp(nn.Module):
             if i_level != num_resolutions - 1:
                 if resblock_type == "ddpm":
                     self.add_module(f"down_{i_level}", layerspp.Downsample(
-                        with_conv=m.resamp_with_conv, fir=fir,
+                        in_ch=in_ch, with_conv=m.resamp_with_conv, fir=fir,
                         fir_kernel=fir_kernel))
                 else:
                     add_rb(in_ch, down=True)
@@ -167,7 +167,7 @@ class NCSNpp(nn.Module):
             if i_level != 0:
                 if resblock_type == "ddpm":
                     self.add_module(f"up_{i_level}", layerspp.Upsample(
-                        with_conv=m.resamp_with_conv, fir=fir,
+                        in_ch=in_ch, with_conv=m.resamp_with_conv, fir=fir,
                         fir_kernel=fir_kernel))
                 else:
                     add_rb(in_ch, up=True)
@@ -187,9 +187,15 @@ class NCSNpp(nn.Module):
             used_sigmas = time_cond
             temb = self.fourier_proj(torch.log(used_sigmas))
         else:
-            used_sigmas = self.sigmas[time_cond.long()]
-            temb = layerspp.get_timestep_embedding(time_cond,
-                                                   self.config.model.nf)
+            # an index past the ladder (t * 999 on a ladder cut below 1000
+            # scales) takes its last sigma, as JAX's clamped gather does
+            used_sigmas = self.sigmas[time_cond.long().clamp(
+                max=len(self.sigmas) - 1)]
+            # The sinusoids are computed in float32 and then take x's dtype,
+            # so a bf16 net runs in bf16 throughout (see
+            # training/train._mixed_precision_apply).
+            temb = layerspp.get_timestep_embedding(
+                time_cond, self.config.model.nf).to(x.dtype)
         if self.conditional:
             temb = self.temb_dense1(act(self.temb_dense0(temb)))
         else:

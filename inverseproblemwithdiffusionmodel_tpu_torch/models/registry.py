@@ -3,9 +3,11 @@
 Port of `create_model`, `get_network`, `build_seg_unet`,
 `TASK_NAME_TO_MODEL_CTOR`, `load_model` and `make_score_fn` from
 inverseproblemwithdiffusionmodel_tpu/models/registry.py. Ported: NCSN++,
-the NCSNv2 family (with the size-suffixed aliases), its 1-D members (the
-cine temporal prior, task "Diffusion1D") and the seg UNet; `make_seg_fn`
-is the seg UNet's counterpart of `make_score_fn`.
+DDPM, the NCSNv2 family (with the size-suffixed aliases), its 1-D members
+(the cine temporal prior, task "Diffusion1D") and the seg UNet;
+`make_seg_fn` is the seg UNet's counterpart of `make_score_fn`, and
+`continuous_model_fn` the network as the continuous stack's score function
+calls it.
 """
 from __future__ import annotations
 
@@ -15,13 +17,15 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..config import load_general_config
+from ..samplers.sigmas import sigma_ladder
+from .ddpm import DDPM
 from .ncsn1d import NCSN1D, NCSN1DDeeper, NCSN1DDeepest, UNET1D
 from .ncsnpp import NCSNpp
-from .ncsnv2 import NCSNv2, NCSNv2Deeper, NCSNv2Deepest
+from .ncsnv2 import NCSNv2, NCSNv2Deeper, NCSNv2Deepest, _NCSNv2Family
 from .unet import UNet
 
 _MODELS = {
-    "ncsnpp": NCSNpp,
+    "ncsnpp": NCSNpp, "ddpm": DDPM,
     "ncsnv2": NCSNv2, "ncsnv2_deeper": NCSNv2Deeper,
     "ncsnv2_deepest": NCSNv2Deepest,
     "ncsn1d": NCSN1D, "ncsn1d_deeper": NCSN1DDeeper,
@@ -158,6 +162,25 @@ def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
         return out.float()
 
     return score_fn
+
+
+def continuous_model_fn(model: torch.nn.Module, config
+                        ) -> Callable[[torch.Tensor, torch.Tensor],
+                                      torch.Tensor]:
+    """The network as the continuous stack's score function calls it,
+    `(x, cond) -> output` on channel-last x. NCSN++ and DDPM take that
+    as they are. An NCSNv2-family net (the ve/ncsnv2/* leaves, discrete
+    VE, cond the descending-ladder index) takes NCHW x and sigma values:
+    it runs through make_score_fn on the config's geometric ladder
+    sigma_max -> sigma_min of num_scales, so it sees sigmas[cond]. (The
+    JAX package hands such a net the integer index itself, which the net
+    divides its output by: index 0, at t = T, makes every sample NaN.)"""
+    if not isinstance(model, _NCSNv2Family):
+        return model
+    m = config.model
+    score = make_score_fn(model, sigma_ladder(m.sigma_max, m.sigma_min,
+                                              m.num_scales, "geometric"))
+    return lambda x, cond: score(x, cond.long())
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -34,9 +34,11 @@ _PTR, _I64, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 # argtypes of the C launchers, by function; every one returns a cudaError_t.
 _ARGTYPES = {
     # csrc/fir2x.cu: input, output, N, H, W, C, four taps for the H axis,
-    # four for the W axis, stream.
+    # four for the W axis, stream; float32 and bf16 tensors.
     "fir_up2x_f32": [_PTR, _PTR] + [_I64] * 4 + [_F32] * 8 + [_PTR],
     "fir_down2x_f32": [_PTR, _PTR] + [_I64] * 4 + [_F32] * 8 + [_PTR],
+    "fir_up2x_bf16": [_PTR, _PTR] + [_I64] * 4 + [_F32] * 8 + [_PTR],
+    "fir_down2x_bf16": [_PTR, _PTR] + [_I64] * 4 + [_F32] * 8 + [_PTR],
     # csrc/flr.cu: x, bias, y, rows, C, slope, scale, stream.
     "flr_fwd_f32": [_PTR] * 3 + [_I64] * 2 + [_F32] * 2 + [_PTR],
     # csrc/flr.cu: x, bias, g, dx, rows, C, scale, scale * slope, stream.
@@ -82,11 +84,14 @@ def _key(sources) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def build(sources: Optional[Tuple[str, ...]] = None) -> Build:
+def build(sources: Optional[Tuple[str, ...]] = None,
+          launchers: Optional[Tuple[str, ...]] = None) -> Build:
     """Build the library if no build of these sources exists, then load it.
     `sources` defaults to every csrc/*.cu; another set (the same C
     functions from other files, as fir_ab.py builds a second version to
-    time against) gets a library of its own."""
+    time against) gets a library of its own. `launchers` names the C
+    launchers the library must export, by default every one in _ARGTYPES;
+    a missing one raises here."""
     sources = _sources() if sources is None else list(sources)
     out_dir = os.path.join(_BUILD_ROOT, _key(sources))
     path = os.path.join(out_dir, _LIB_NAME)
@@ -110,8 +115,8 @@ def build(sources: Optional[Tuple[str, ...]] = None) -> Build:
     with open(log_path) as f:
         log = f.read()
     lib = ctypes.CDLL(path)
-    for name, argtypes in _ARGTYPES.items():
+    for name in _ARGTYPES if launchers is None else launchers:
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return Build(lib=lib, path=path, seconds=seconds, log=log)

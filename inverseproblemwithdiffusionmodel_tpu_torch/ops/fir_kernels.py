@@ -23,7 +23,14 @@ pallas_kernels.py:
   as a backward counts under "<kernel>.bwd": "up2x.bwd" is K1 launched as
   the backward of a down pass.
 
-Layout is channel-last (N, H, W, C), float32, as in the JAX package.
+Layout is channel-last (N, H, W, C), as in the JAX package. The kernels take
+float32 and bf16 and keep the input's dtype: a bf16 tensor launches the bf16
+form (`fir_up2x_bf16` / `fir_down2x_bf16`), which accumulates in float32 and
+rounds once, at the store; its launches count under "<kernel>.bf16" (e.g.
+"down2x.bwd.bf16"). Any other dtype on the card raises TypeError; nothing is
+converted outside the kernel. On the CPU the plain versions take any
+floating dtype, and compute a bf16 input the kernel's way (upcast, both
+axes in float32, one rounding).
 """
 from __future__ import annotations
 
@@ -38,10 +45,14 @@ import torch
 from . import _build
 from .upfirdn2d import downsample_2d, upsample_2d
 
-# Kernel launches since the last clear(), by kernel and direction ("up2x",
-# "up2x.bwd", "down2x", "down2x.bwd"); read by chip_smoke.py to show that a
-# run went through the kernels.
+# Kernel launches since the last clear(), by kernel, direction and dtype
+# ("up2x", "up2x.bwd", "down2x", "down2x.bwd" in float32, the same with
+# ".bf16" appended in bf16); read by chip_smoke.py to show that a run went
+# through the kernels.
 LAUNCHES: collections.Counter = collections.Counter()
+
+# The C launcher's suffix and the launch tag's, by tensor dtype.
+_DTYPES = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", ".bf16")}
 
 
 def _sep_kernel_1d(k: Optional[Sequence[float]], gain_per_axis: float
@@ -99,30 +110,39 @@ def _down2_axis(x: torch.Tensor, k: np.ndarray, dim: int) -> torch.Tensor:
 
 
 def upsample2x_plain(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """K1's plain version: the polyphase formula on H, then on W."""
+    """K1's plain version: the polyphase formula on H, then on W. A bf16
+    input is filtered as the bf16 kernel filters it: in float32, rounded
+    to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return upsample2x_plain(x.float(), taps).to(torch.bfloat16)
     return _up2_axis(_up2_axis(x, taps, 1), taps, 2)
 
 
 def downsample2x_plain(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """K2's plain version: the polyphase formula on H, then on W."""
+    """K2's plain version: the polyphase formula on H, then on W; bf16 as
+    in upsample2x_plain."""
+    if x.dtype == torch.bfloat16:
+        return downsample2x_plain(x.float(), taps).to(torch.bfloat16)
     return _down2_axis(_down2_axis(x, taps, 1), taps, 2)
 
 
 @functools.lru_cache(maxsize=None)
-def _c_launcher(name: str):
-    """The C launcher of one kernel, looked up once; the first lookup builds
-    the library (ops/_build.py)."""
-    return getattr(_build.build().lib, f"fir_{name}_f32")
+def _c_launcher(name: str, suffix: str):
+    """The C launcher of one kernel in one dtype ("f32" or "bf16"), looked
+    up once; the first lookup builds the library (ops/_build.py)."""
+    return getattr(_build.build().lib, f"fir_{name}_{suffix}")
 
 
 def _launch(name: str, x: torch.Tensor, out: torch.Tensor,
             taps: np.ndarray, tag: str) -> torch.Tensor:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {x.dtype}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: the kernel takes a contiguous (N, H, W, C) "
                          "tensor")
-    fn = _c_launcher(name)
+    suffix, tag_suffix = _DTYPES[x.dtype]
+    fn = _c_launcher(name, suffix)
     N, H, W, C = x.shape
     t = taps.tolist()
     index = x.get_device()
@@ -134,7 +154,7 @@ def _launch(name: str, x: torch.Tensor, out: torch.Tensor,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[tag] += 1
+    LAUNCHES[tag + tag_suffix] += 1
     return out
 
 

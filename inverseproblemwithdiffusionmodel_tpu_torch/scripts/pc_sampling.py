@@ -1,5 +1,6 @@
-"""Continuous-stack prior sampling: NCSN++ with the VE SDE and the PC
-sampler, on the GPU unless --device says otherwise, e.g.:
+"""Continuous-stack prior sampling: a leaf's net (NCSN++, DDPM++, DDPM or
+NCSNv2) with its VE, VP or subVP SDE and the PC sampler, on the GPU unless
+--device says otherwise, e.g.:
 
   python -m inverseproblemwithdiffusionmodel_tpu_torch.scripts.pc_sampling \\
       --config ve/ffhq_256_ncsnpp_continuous --num_samples 2 \\
@@ -18,10 +19,20 @@ import torch
 
 from ._common import apply_overrides, save_artifacts
 from ..configs_continuous import get_continuous_config, make_sde
-from ..models.registry import create_model
+from ..models.registry import continuous_model_fn, create_model
 from ..sde import get_sampling_fn, get_score_fn
 from ..training.checkpoint import Checkpointer
 from ..utils.convert import seeded_weights
+
+
+def first_cond(config) -> torch.Tensor:
+    """The conditioning of the net's first forward, as the JAX main
+    initializes its net with: 0. for a positional embedding (a ladder
+    index, or t * 999), else 1. (a sigma, or a DDPM label). The NCSN v1
+    nets, which take integer labels there, are not ported."""
+    if config.model.get("embedding_type") == "positional":
+        return torch.zeros(1)
+    return torch.ones(1)
 
 
 def main(argv=None):
@@ -62,11 +73,20 @@ def main(argv=None):
         print("WARNING: sampling with random weights drawn from --seed "
               f"{args.seed} (no --ckpt_dir)")
     model = model.to(device).eval()
+    model_fn = continuous_model_fn(model, config)
     sde = make_sde(config)
     s = config.data.image_size
     shape = (args.num_samples, s, s, config.data.num_channels)
+    with torch.no_grad():
+        # the first forward, on one zero image: the net takes the config's
+        # shapes and conditioning
+        x0 = torch.zeros((1,) + shape[1:], device=device)
+        out = model_fn(x0, first_cond(config).to(device))
+        if out.shape != x0.shape:
+            raise ValueError(f"{config.model.name}: output {tuple(out.shape)}"
+                             f" for input {tuple(x0.shape)}")
     sampling_fn = get_sampling_fn(config, sde, shape, device=device)
-    score_fn = get_score_fn(sde, model,
+    score_fn = get_score_fn(sde, model_fn,
                             continuous=config.training.continuous)
     with torch.no_grad():
         samples, nfe = sampling_fn(score_fn, seed=args.seed)

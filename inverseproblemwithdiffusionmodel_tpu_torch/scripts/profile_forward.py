@@ -1,17 +1,22 @@
-"""Time and profile one NCSN++ forward on the GPU:
+"""Time and profile one NCSN++ forward, or one train step, on the GPU:
 
   python -m inverseproblemwithdiffusionmodel_tpu_torch.scripts.profile_forward \\
       --config ve/ffhq_256_ncsnpp_continuous --batch 2 [--exact_fp32] \\
-      [--backward]
+      [--backward | --step [--bf16]]
 
 Prints, for weights drawn from --seed: the device time of one forward (CUDA
 events over --reps calls, after warm-up), the host time to enqueue it, peak
 device memory of those calls and of the first call (where cuDNN's
 benchmark mode tries its algorithms), the number of kernel launches in one
-forward, its FLOP count (torch.utils.flop_counter) and rate, and
-torch.profiler's kernels by device time. --backward does the same for a forward and backward of mean(out^2)
-(the work of a train step without the optimizer). --exact_fp32 turns TF32
-off for cuDNN and matmul and cuDNN's benchmark mode on
+forward, its FLOP count (torch.utils.flop_counter) and rate, the device
+time of its kernels in one profiled call and the share of the timed call
+the card was idle, and torch.profiler's kernels by device time.
+--backward does the same for a forward and backward of mean(out^2) (the
+work of a train step without the optimizer). --step does it for one
+continuous train step (training.make_continuous_score_train_step on a
+seeded batch in [0, 1]: the leaf's loss, the backward, Adam and the EMA),
+its net in bf16 with --bf16 (the step's compute_dtype). --exact_fp32 turns
+TF32 off for cuDNN and matmul and cuDNN's benchmark mode on
 (utils/precision.float32_exact). By default torch's own settings hold
 (cuDNN in TF32, heuristics). The last line is the numbers as one JSON
 object.
@@ -27,8 +32,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..configs_continuous import get_continuous_config
+from ..configs_continuous import get_continuous_config, make_sde
 from ..models.registry import create_model
+from ..training import (TrainState, get_optimizer,
+                        make_continuous_score_train_step)
 from ..utils.convert import seeded_weights
 from ..utils.precision import float32_exact
 
@@ -36,6 +43,15 @@ from ..utils.precision import float32_exact
 def _launches(events) -> int:
     return sum(e.count for e in events
                if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+
+
+def _kernel_ms(events) -> float:
+    """Device ms of the kernels among `events`; user annotations, such as
+    the optimizer's range, are not kernels."""
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in events if e.device_type.name == "CUDA"
+               and not e.is_user_annotation) / 1e3
 
 
 def _timed(fn, reps: int):
@@ -65,10 +81,16 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--exact_fp32", action="store_true")
     p.add_argument("--backward", action="store_true")
+    p.add_argument("--step", action="store_true",
+                   help="one continuous train step, Adam and EMA included")
+    p.add_argument("--bf16", action="store_true",
+                   help="with --step: the net in bf16")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--top", type=int, default=12)
     args = p.parse_args(argv)
+    if args.bf16 and not args.step:
+        p.error("--bf16 needs --step")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_forward times the GPU, but torch sees no "
                            "CUDA device")
@@ -93,8 +115,22 @@ def _profile(args, device):
         params = [q for q in model.parameters() if q.requires_grad]
         torch.autograd.grad(model(x, sigma).square().mean(), params)
 
-    run = forward_backward if args.backward else forward
-    grad_mode = contextlib.nullcontext() if args.backward else torch.no_grad()
+    if args.step:
+        model.train()
+        state = TrainState.create(model, get_optimizer(cfg),
+                                  ema_decay=cfg.model.ema_rate)
+        step = make_continuous_score_train_step(
+            model, make_sde(cfg), reduce_mean=cfg.training.reduce_mean,
+            compute_dtype=torch.bfloat16 if args.bf16 else None)
+        step_gen = torch.Generator(device=device).manual_seed(args.seed)
+
+        def train_step():
+            step(state, x, step_gen)
+        run = train_step
+    else:
+        run = forward_backward if args.backward else forward
+    grad_mode = (contextlib.nullcontext() if args.backward or args.step
+                 else torch.no_grad())
     with grad_mode:
         torch.cuda.reset_peak_memory_stats()
         run()
@@ -113,10 +149,13 @@ def _profile(args, device):
     numbers = {
         "device": torch.cuda.get_device_name(device), "config": args.config,
         "batch": args.batch, "exact_fp32": args.exact_fp32,
-        "backward": args.backward,
+        "backward": args.backward, "step": args.step, "bf16": args.bf16,
         "cudnn_tf32": torch.backends.cudnn.allow_tf32,
         "cudnn_benchmark": torch.backends.cudnn.benchmark,
-        "device_ms": device_ms, "host_ms": host_ms, "peak_bytes": peak,
+        "device_ms": device_ms, "host_ms": host_ms,
+        "kernel_ms": _kernel_ms(events),
+        "idle_share": 1.0 - _kernel_ms(events) / device_ms,
+        "peak_bytes": peak,
         "first_call_peak_bytes": warmup_peak,
         "launches": _launches(events),
         "fft_kernels": sum(e.count for e in events

@@ -1,6 +1,8 @@
-"""Continuous-time SDE stack: the VE SDE and the predictor-corrector
-sampler."""
-from .sde_lib import SDE, ReverseSDE, VESDE
-from .sampling import (get_corrector, get_pc_sampler, get_predictor,
-                       get_sampling_fn, get_score_fn, LangevinCorrector,
-                       NoneCorrector, NonePredictor, ReverseDiffusionPredictor)
+"""Continuous-time SDE stack: the VP, subVP and VE SDEs and the
+predictor-corrector sampler."""
+from .sde_lib import SDE, ReverseSDE, VESDE, VPSDE, get_ddpm_params, subVPSDE
+from .sampling import (AncestralSamplingPredictor, AnnealedLangevinDynamics,
+                       EulerMaruyamaPredictor, get_corrector, get_pc_sampler,
+                       get_predictor, get_sampling_fn, get_score_fn,
+                       LangevinCorrector, NoneCorrector, NonePredictor,
+                       ReverseDiffusionPredictor, vanilla_pc_sampler)

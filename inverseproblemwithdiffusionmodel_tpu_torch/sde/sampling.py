@@ -1,8 +1,10 @@
 """Predictor-corrector sampling for the continuous SDE stack.
 
 Port of the PC half of inverseproblemwithdiffusionmodel_tpu/sde/sampling.py:
-`get_score_fn` (VE), the reverse-diffusion and none predictors, the Langevin
-and none correctors, `get_pc_sampler` and `get_sampling_fn` (pc).
+`get_score_fn` (VP, subVP and VE), the Euler-Maruyama, reverse-diffusion,
+ancestral and none predictors, the Langevin, annealed-Langevin (`ald`) and
+none correctors, `get_pc_sampler`, `vanilla_pc_sampler` and
+`get_sampling_fn` (pc; the ODE sampler is not ported).
 
 Randomness comes from a noise source, a callable `(shape) -> tensor` of
 standard normal draws. The sampler draws from a seeded `torch.Generator` on
@@ -15,12 +17,13 @@ The time loop is a Python loop over the float32 time grid, which is
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from .sde_lib import SDE, VESDE, ReverseSDE, Noise, ScoreFn, _expand, \
-    linspace_f32
+from .sde_lib import SDE, VESDE, VPSDE, ReverseSDE, Noise, ScoreFn, \
+    _expand, linspace_f32, subVPSDE
 from ..utils.device import gaussian_noise
 
 _NOT_PORTED = "is not ported yet (ROADMAP, Queue 1)"
@@ -29,20 +32,32 @@ _NOT_PORTED = "is not ported yet (ROADMAP, Queue 1)"
 def get_score_fn(sde: SDE, model_fn: Callable[[torch.Tensor, torch.Tensor],
                                                 torch.Tensor],
                  continuous: bool = True) -> ScoreFn:
-    """Convert a raw network into a score function. VE: the network output
-    is the score, conditioned on sigma(t) (continuous) or on the
-    descending-ladder index (discrete)."""
-    if not isinstance(sde, VESDE):
-        raise NotImplementedError(
-            f"score function for {type(sde).__name__} {_NOT_PORTED}")
-
-    def score_fn(x, t):
-        if continuous:
-            _, cond = sde.marginal_prob(torch.zeros_like(x), t)
-        else:
-            cond = torch.round((sde.T - t) * (sde.N - 1)).to(torch.int32)
-        return model_fn(x, cond)
-    return score_fn
+    """Convert a raw network into a score function.
+    VP / subVP: the score is -output / std, the network conditioned on
+    t * 999 with the marginal std (continuous, and subVP always), or on
+    t * (N - 1) with std sqrt(1 - alphas_cumprod[int(label)]) (discrete
+    VP). VE: the network output is the score, conditioned on sigma(t)
+    (continuous) or on the descending-ladder index (discrete)."""
+    if isinstance(sde, (VPSDE, subVPSDE)):
+        def score_fn(x, t):
+            if continuous or isinstance(sde, subVPSDE):
+                labels = t * 999
+                _, std = sde.marginal_prob(torch.zeros_like(x), t)
+            else:
+                labels = t * (sde.N - 1)
+                std = torch.sqrt(1.0 - sde.alphas_cumprod(t.device)[
+                    labels.to(torch.int64)])
+            return -model_fn(x, labels) / _expand(std, x)
+        return score_fn
+    if isinstance(sde, VESDE):
+        def score_fn(x, t):
+            if continuous:
+                _, cond = sde.marginal_prob(torch.zeros_like(x), t)
+            else:
+                cond = torch.round((sde.T - t) * (sde.N - 1)).to(torch.int32)
+            return model_fn(x, cond)
+        return score_fn
+    raise NotImplementedError(f"SDE {type(sde).__name__} not supported")
 
 
 # ---------------------------------------------------------------------------
@@ -66,12 +81,51 @@ class Predictor:
 
 
 @dataclasses.dataclass(frozen=True)
+class EulerMaruyamaPredictor(Predictor):
+    def update_fn(self, noise, x, t):
+        dt = -self.sde.T / self.sde.N
+        z = noise(x.shape)
+        drift, diffusion = self.rsde.sde(x, t)
+        x_mean = x + drift * dt
+        return x_mean + _expand(diffusion, x) * math.sqrt(-dt) * z, x_mean
+
+
+@dataclasses.dataclass(frozen=True)
 class ReverseDiffusionPredictor(Predictor):
     def update_fn(self, noise, x, t):
         f, G = self.rsde.discretize(x, t)
         z = noise(x.shape)
         x_mean = x - f
         return x_mean + _expand(G, x) * z, x_mean
+
+
+@dataclasses.dataclass(frozen=True)
+class AncestralSamplingPredictor(Predictor):
+    """SMLD / DDPM ancestral sampling; defined for VE and VP (not subVP)
+    without probability flow."""
+
+    def update_fn(self, noise, x, t):
+        sde = self.sde
+        z = noise(x.shape)
+        timestep = (t * (sde.N - 1) / sde.T).to(torch.int64)
+        if isinstance(sde, VESDE):
+            sigmas = sde.discrete_sigmas(t.device)
+            sigma = sigmas[timestep]
+            adjacent = torch.where(timestep == 0, torch.zeros_like(sigma),
+                                   sigmas[(timestep - 1).clamp(min=0)])
+            score = self.score_fn(x, t)
+            x_mean = x + _expand(sigma ** 2 - adjacent ** 2, x) * score
+            std = torch.sqrt(adjacent ** 2 * (sigma ** 2 - adjacent ** 2)
+                             / (sigma ** 2).clamp(min=1e-20))
+            return x_mean + _expand(std, x) * z, x_mean
+        if isinstance(sde, VPSDE):
+            beta = sde.discrete_betas(t.device)[timestep]
+            score = self.score_fn(x, t)
+            x_mean = (x + _expand(beta, x) * score) / _expand(
+                torch.sqrt(1.0 - beta), x)
+            return x_mean + _expand(torch.sqrt(beta), x) * z, x_mean
+        raise NotImplementedError(
+            f"ancestral sampling for {type(sde).__name__}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +146,10 @@ class Corrector:
     n_steps: int = 1
 
     def _alpha(self, t: torch.Tensor) -> torch.Tensor:
-        # VE: 1. The VP/subVP discrete alphas arrive with those SDEs.
+        # VP and subVP read the discrete alphas at the ladder index; VE 1.
+        if isinstance(self.sde, (VPSDE, subVPSDE)):
+            timestep = (t * (self.sde.N - 1) / self.sde.T).to(torch.int64)
+            return self.sde.alphas(t.device)[timestep]
         return torch.ones_like(t)
 
     def update_fn(self, noise: Noise, x, t):
@@ -121,14 +178,35 @@ class LangevinCorrector(Corrector):
 
 
 @dataclasses.dataclass(frozen=True)
+class AnnealedLangevinDynamics(Corrector):
+    """NCSNv2-style annealed Langevin corrector: the step follows the
+    marginal std at t."""
+
+    def update_fn(self, noise, x, t):
+        alpha = self._alpha(t)
+        _, std = self.sde.marginal_prob(x, t)
+        step_size = (self.snr * std) ** 2 * 2.0 * alpha
+        x_mean = x
+        for _ in range(self.n_steps):
+            grad = self.score_fn(x, t)
+            z = noise(x.shape)
+            x_mean = x + _expand(step_size, x) * grad
+            x = x_mean + _expand(torch.sqrt(step_size * 2.0), x) * z
+        return x, x_mean
+
+
+@dataclasses.dataclass(frozen=True)
 class NoneCorrector(Corrector):
     def update_fn(self, noise, x, t):
         return x, x
 
 
-_PREDICTORS = {"reverse_diffusion": ReverseDiffusionPredictor,
+_PREDICTORS = {"euler_maruyama": EulerMaruyamaPredictor,
+               "reverse_diffusion": ReverseDiffusionPredictor,
+               "ancestral_sampling": AncestralSamplingPredictor,
                "none": NonePredictor}
-_CORRECTORS = {"langevin": LangevinCorrector, "none": NoneCorrector}
+_CORRECTORS = {"langevin": LangevinCorrector,
+               "ald": AnnealedLangevinDynamics, "none": NoneCorrector}
 
 
 def get_predictor(name: str):
@@ -185,6 +263,14 @@ def get_pc_sampler(
         return inverse_scaler(out), sde.N * (n_steps + 1)
 
     return sampler
+
+
+def vanilla_pc_sampler(score_fn: ScoreFn, sde: SDE, shape, seed: int = 0,
+                       noise: Optional[Noise] = None, **kwargs):
+    """One-call PC sampling: get_pc_sampler(sde, shape, **kwargs) run on
+    score_fn. Returns (x, nfe)."""
+    return get_pc_sampler(sde, shape, **kwargs)(score_fn, seed=seed,
+                                                noise=noise)
 
 
 def get_sampling_fn(config, sde: SDE, shape, eps: float = 1e-3,

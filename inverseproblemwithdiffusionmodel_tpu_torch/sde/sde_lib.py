@@ -1,9 +1,10 @@
-"""Continuous-time SDEs: the abstract forward SDE, its reverse, and the VE SDE.
+"""Continuous-time SDEs: the abstract forward SDE, its reverse, and the VP,
+subVP and VE SDEs.
 
 Port of inverseproblemwithdiffusionmodel_tpu/sde/sde_lib.py (SDE :28,
-ReverseSDE :63, VESDE :224). Time `t` is a float32 tensor of shape (B,);
-each per-sample scalar is broadcast over the image dimensions. The VP and
-subVP SDEs are not ported yet.
+ReverseSDE :63, get_ddpm_params :95, _DiscreteBetaSchedule :121, VPSDE
+:145, subVPSDE :190, VESDE :224). Time `t` is a float32 tensor of shape
+(B,); each per-sample scalar is broadcast over the image dimensions.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import functools
 import math
 from typing import Callable, Sequence, Tuple
 
+import numpy as np
 import torch
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -63,6 +65,10 @@ class SDE:
     def prior_sampling(self, noise: Noise, shape) -> torch.Tensor:
         raise NotImplementedError
 
+    def prior_logp(self, z: torch.Tensor) -> torch.Tensor:
+        """log p_T(z) of the prior, per sample."""
+        raise NotImplementedError
+
     def discretize(self, x, t) -> Tuple[torch.Tensor, torch.Tensor]:
         """Euler-Maruyama one-step discretization x_{i+1} = x_i + f + G z.
         Returns (f, G)."""
@@ -108,6 +114,142 @@ class ReverseSDE:
         return rev_f, rev_G
 
 
+def _std_normal_logp(z: torch.Tensor, var: float = 1.0) -> torch.Tensor:
+    """log N(z; 0, var I) per sample, as the JAX package writes it."""
+    D = int(np.prod(z.shape[1:]))
+    return (-D / 2.0 * math.log(2 * math.pi * var)
+            - torch.sum(z.reshape(z.shape[0], -1) ** 2, dim=-1) / (2.0 * var))
+
+
+def get_ddpm_params(beta_min: float = 0.1, beta_max: float = 20.0,
+                    num_scales: int = 1000) -> dict:
+    """The discrete DDPM schedule (betas, alphas, cumulative products, their
+    square roots), computed in float64 numpy and cast to float32 once, as
+    the JAX package does. The ladder has 1000 steps whatever num_scales,
+    and the returned beta_min / beta_max are the start / end rates times
+    the last index, as the JAX package (and score_sde) computes them."""
+    n = 1000
+    beta_start = beta_min / num_scales
+    beta_end = beta_max / num_scales
+    betas = np.linspace(beta_start, beta_end, n, dtype=np.float64)
+    alphas = 1.0 - betas
+    alphas_cumprod = np.cumprod(alphas)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32))
+    return {
+        "betas": f32(betas), "alphas": f32(alphas),
+        "alphas_cumprod": f32(alphas_cumprod),
+        "sqrt_alphas_cumprod": f32(np.sqrt(alphas_cumprod)),
+        "sqrt_1m_alphas_cumprod": f32(np.sqrt(1.0 - alphas_cumprod)),
+        "beta_min": beta_start * (n - 1), "beta_max": beta_end * (n - 1),
+        "num_diffusion_timesteps": n,
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _beta_ladder(beta_min: float, beta_max: float, N: int,
+                 device: torch.device) -> Tuple[torch.Tensor, ...]:
+    # betas = jnp.linspace(beta_min / N, beta_max / N, N) in float32 (the
+    # port's linspace_f32: torch.linspace rounds other steps than XLA);
+    # alphas = 1 - betas; their cumulative product in float32, as
+    # jnp.cumprod. Built once per device.
+    betas = linspace_f32(beta_min / N, beta_max / N, N)
+    alphas = 1.0 - betas
+    return (betas.to(device), alphas.to(device),
+            torch.cumprod(alphas, 0).to(device))
+
+
+class _DiscreteBetaSchedule:
+    """The DDPM beta ladder that VP and subVP share: the discretization,
+    the ancestral predictor, the correctors' alphas and the discrete score
+    conversion read it. (score_sde's subVPSDE has none, which crashes its
+    correctors; the JAX package gives subVP the ladder, and so does the
+    port.) Each method takes the device to build the ladder on."""
+
+    def discrete_betas(self, device=None) -> torch.Tensor:
+        return _beta_ladder(self.beta_min, self.beta_max, self.N,
+                            torch.device(device or "cpu"))[0]
+
+    def alphas(self, device=None) -> torch.Tensor:
+        return _beta_ladder(self.beta_min, self.beta_max, self.N,
+                            torch.device(device or "cpu"))[1]
+
+    def alphas_cumprod(self, device=None) -> torch.Tensor:
+        return _beta_ladder(self.beta_min, self.beta_max, self.N,
+                            torch.device(device or "cpu"))[2]
+
+
+def _log_mean_coeff(sde, t: torch.Tensor) -> torch.Tensor:
+    return (-0.25 * t ** 2 * (sde.beta_max - sde.beta_min)
+            - 0.5 * t * sde.beta_min)
+
+
+@dataclasses.dataclass(frozen=True)
+class VPSDE(SDE, _DiscreteBetaSchedule):
+    """Variance-preserving (DDPM) SDE with a linear beta schedule."""
+    beta_min: float = 0.1
+    beta_max: float = 20.0
+
+    def _beta(self, t: torch.Tensor) -> torch.Tensor:
+        return self.beta_min + t * (self.beta_max - self.beta_min)
+
+    def sde(self, x, t):
+        beta_t = self._beta(t)
+        drift = -0.5 * _expand(beta_t, x) * x
+        return drift, torch.sqrt(beta_t)
+
+    def marginal_prob(self, x, t):
+        lmc = _log_mean_coeff(self, t)
+        mean = _expand(torch.exp(lmc), x) * x
+        std = torch.sqrt(1.0 - torch.exp(2.0 * lmc))
+        return mean, std
+
+    def prior_sampling(self, noise: Noise, shape) -> torch.Tensor:
+        return noise(shape)
+
+    def prior_logp(self, z):
+        return _std_normal_logp(z)
+
+    def discretize(self, x, t):
+        """DDPM ancestral discretization on the integer ladder index."""
+        timestep = (t * (self.N - 1) / self.T).to(torch.int64)
+        beta = self.discrete_betas(t.device)[timestep]
+        alpha = 1.0 - beta
+        f = _expand(torch.sqrt(alpha), x) * x - x
+        return f, torch.sqrt(beta)
+
+
+@dataclasses.dataclass(frozen=True)
+class subVPSDE(SDE, _DiscreteBetaSchedule):
+    """Sub-VP SDE (score_sde's likelihood SDE)."""
+    beta_min: float = 0.1
+    beta_max: float = 20.0
+
+    def _beta(self, t: torch.Tensor) -> torch.Tensor:
+        return self.beta_min + t * (self.beta_max - self.beta_min)
+
+    def sde(self, x, t):
+        beta_t = self._beta(t)
+        drift = -0.5 * _expand(beta_t, x) * x
+        integral = (self.beta_min * t
+                    + 0.5 * t ** 2 * (self.beta_max - self.beta_min))
+        discount = 1.0 - torch.exp(-2.0 * integral)
+        return drift, torch.sqrt(beta_t * discount)
+
+    def marginal_prob(self, x, t):
+        lmc = _log_mean_coeff(self, t)
+        mean = _expand(torch.exp(lmc), x) * x
+        # no square root: score_sde's definition of the subVP std, which
+        # the JAX package keeps
+        std = 1.0 - torch.exp(2.0 * lmc)
+        return mean, std
+
+    def prior_sampling(self, noise: Noise, shape) -> torch.Tensor:
+        return noise(shape)
+
+    def prior_logp(self, z):
+        return _std_normal_logp(z)
+
+
 @functools.lru_cache(maxsize=None)
 def _ve_ladder(sigma_min: float, sigma_max: float, N: int,
                device: torch.device) -> torch.Tensor:
@@ -140,6 +282,9 @@ class VESDE(SDE):
 
     def prior_sampling(self, noise: Noise, shape) -> torch.Tensor:
         return noise(shape) * self.sigma_max
+
+    def prior_logp(self, z):
+        return _std_normal_logp(z, self.sigma_max ** 2)
 
     def discretize(self, x, t):
         """SMLD ancestral discretization on the integer ladder index."""

@@ -25,28 +25,37 @@ from ..utils.misc import collate_batch, filter_batch, stack_parts
 TrainStep = Callable[..., Tuple[TrainState, torch.Tensor]]
 
 
-def _mixed_precision_apply(model: nn.Module, compute_dtype=None
+def _mixed_precision_apply(model: nn.Module, compute_dtype=None,
+                           nchw: bool = True
                            ) -> Callable[[torch.Tensor, torch.Tensor],
                                          torch.Tensor]:
-    """`net(x, cond)` for an NCHW net of the NCSNv2 family on channel-last
-    x, output channel-last float32. With `compute_dtype` (bf16) it is the
-    JAX package's mixed-precision cast, not autocast: the parameters, x
-    and cond are cast to compute_dtype, the net runs on the casts through
+    """`net(x, cond)` on channel-last x, output channel-last float32: for
+    an NCHW net of the NCSNv2 family (`nchw`) x goes in as to_nchw(x) and
+    the output comes back channel-last; NCSN++ and DDPM (nchw=False) take
+    channel-last x as it is. With `compute_dtype` (bf16) it is the JAX
+    package's mixed-precision cast, not autocast: the parameters, x and a
+    floating cond (sigma, or t * 999 for VP) are cast to compute_dtype, an
+    integer cond stays as it is, the net runs on the casts through
     torch.func.functional_call, and the output is cast back, so the
     gradients reach the float32 master parameters through the casts.
     (Autocast would keep norms and reductions in float32: another function
-    than the JAX package's.)"""
+    than the JAX package's.) The net then runs in bf16 throughout; in the
+    JAX package Flax promotes a bf16 activation to float32 wherever it
+    meets a float32 operand (a numpy scalar such as NCSN++'s
+    np.sqrt(2.0) skip rescale, a float32 time embedding), so its bf16
+    NCSN++ runs in float32 after the first residual block (PERF.md)."""
 
     def apply(x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        h = to_nchw(x)
+        h = to_nchw(x) if nchw else x
         if compute_dtype is None:
             out = model(h, cond)
         else:
             params = {k: p.to(compute_dtype)
                       for k, p in model.named_parameters()}
-            out = functional_call(model, params, (h.to(compute_dtype),
-                                                  cond.to(compute_dtype)))
-        return out.movedim(1, -1).float()
+            if cond.is_floating_point():
+                cond = cond.to(compute_dtype)
+            out = functional_call(model, params, (h.to(compute_dtype), cond))
+        return (out.movedim(1, -1) if nchw else out).float()
 
     return apply
 
@@ -180,34 +189,38 @@ def make_continuous_score_train_step(
     compute_dtype=None,
 ) -> TrainStep:
     """Continuous-time DSM train step against the SDE's marginal
-    (reference: helpers/pl_helpers.py:31-96 and helpers/losses.py:7-24).
+    (reference: helpers/pl_helpers.py:31-96 and helpers/losses.py:7-24), of
+    a net that takes channel-last x (NCSN++, DDPM).
 
-    Returns `step(state, batch, generator=None, t=None, z=None) -> (state,
-    loss)`. `state` is a TrainState of this `model`; `batch` is an array or
-    tensor (B, H, W, C), moved to the model's device. The draws t and z
-    come from `generator` (a torch.Generator on that device) unless given.
+    Returns `step(state, batch, generator=None, t=None, z=None, *,
+    phi=None, patch=None) -> (state, loss)`. `state` is a TrainState of this `model`;
+    `batch` is an array or tensor (B, H, W, C), moved to the model's
+    device. The complex data modes collate the batch first (`collate_batch`)
+    and the net sees the interleaved [Re, Im] rows (`stack_parts`), as in
+    the JAX step. The draws, in order: the collation's (phi of
+    'real-imag', the phase patch of 'real-imag-random'), then t and z; each comes from
+    `generator` (a torch.Generator on that device) unless given.
+    compute_dtype=torch.bfloat16: the net in bf16 on casts of the float32
+    master parameters (`_mixed_precision_apply`); the loss, gradients, Adam
+    state and EMA stay float32.
     The network runs in train() mode, as the reference trains; dropout
-    draws from torch's global generator. The complex data modes of this
-    step are not ported.
+    draws from torch's global generator.
     """
     if mesh is not None:
         raise NotImplementedError("a device mesh (data-parallel training) is "
                                   "not ported yet (ROADMAP: Slice E)")
-    if compute_dtype is not None:
-        raise NotImplementedError("bf16 NCSN++ training needs bf16 FIR "
-                                  "kernels, not ported yet (ROADMAP: Queue "
-                                  "2, item 1)")
-    if data_mode in ("complex", "real-imag", "real-imag-random"):
-        raise NotImplementedError(f"continuous training in the {data_mode!r} "
-                                  "data mode is not ported yet (ROADMAP: "
-                                  "Slice E)")
-    score_fn = get_score_fn(sde, model, continuous=continuous)
+    score_fn = get_score_fn(sde, _mixed_precision_apply(
+        model, compute_dtype, nchw=False), continuous=continuous)
 
     def step(state: TrainState, batch, generator: Optional[
             torch.Generator] = None, t: Optional[torch.Tensor] = None,
-             z: Optional[torch.Tensor] = None):
-        x = collate_batch(torch.as_tensor(
-            batch, device=_device_of(model, state)), data_mode)
+             z: Optional[torch.Tensor] = None, *,
+             phi: Optional[torch.Tensor] = None,
+             patch: Optional[torch.Tensor] = None):
+        parts = collate_batch(torch.as_tensor(
+            batch, device=_device_of(model, state)), data_mode, generator,
+            phi=phi, patch=patch)
+        x = stack_parts(*parts) if isinstance(parts, list) else parts
         model.train()
         state.optimizer.zero_grad()
         loss = continuous_dsm_loss(score_fn, sde, x, eps=eps,

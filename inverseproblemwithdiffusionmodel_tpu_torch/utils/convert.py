@@ -1,9 +1,10 @@
 """Weights for the port's NCSN++, NCSNv2 family and seg UNet: converted
 from a Flax parameter tree, or drawn from a seed.
 
-`flax_to_torch_ncsnpp`, `flax_to_torch_ncsnv2` and `flax_to_torch_unet` map
-the JAX package's parameters onto the port's state dict, name by name (the
-port keeps the Flax module names):
+`flax_to_torch_ncsnpp` (NCSN++ and DDPM++), `flax_to_torch_ddpm`,
+`flax_to_torch_ncsnv2` and `flax_to_torch_unet` map the JAX package's
+parameters onto the port's state dict, name by name (the port keeps the
+Flax module names):
 
 - conv kernels (kh, kw, I, O) -> weight (O, I, kh, kw), no flip; the
   1-D nets' kernels (k, I, O) -> weight (O, I, k);
@@ -96,6 +97,17 @@ def flax_to_torch_ncsnpp(params: Mapping[str, Any], config
     return _checked(params, lambda: create_model(config), config.model.name)
 
 
+def flax_to_torch_ddpm(params: Mapping[str, Any], config
+                       ) -> Dict[str, torch.Tensor]:
+    """State dict for the port's DDPM (`create_model(config)`, model name
+    "ddpm") from a Flax DDPM params tree of numpy arrays. Raises if a name
+    or shape does not match."""
+    if config.model.name != "ddpm":
+        raise ValueError(f"flax_to_torch_ddpm: the config names "
+                         f"{config.model.name!r}, not 'ddpm'")
+    return _checked(params, lambda: create_model(config), "ddpm")
+
+
 def flax_to_torch_ncsnv2(params: Mapping[str, Any], config,
                          name: Optional[str] = None
                          ) -> Dict[str, torch.Tensor]:
@@ -186,7 +198,7 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
             elif isinstance(module, layerspp.GaussianFourierProjection):
                 draw(module.W, module.scale)
             elif isinstance(module, (layerspp.Upsample, layerspp.Downsample)
-                            ) and module.with_conv:
+                            ) and module.with_conv and module.fir:
                 fan_in = module.Conv2d_0_weight[..., 0].numel()
                 draw(module.Conv2d_0_weight, std_scale / math.sqrt(fan_in))
                 draw(module.Conv2d_0_bias, std_scale / math.sqrt(fan_in))

@@ -80,6 +80,10 @@ def test_importing_the_port_loads_no_jax_module():
         "serve_recon, train_ncsn\n"
         "from inverseproblemwithdiffusionmodel_tpu_torch.data import "
         "datasets, transforms\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.models import "
+        "ddpm\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.sde import "
+        "sampling, sde_lib\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -98,15 +102,18 @@ def test_no_source_of_the_port_imports_jax(path):
 
 
 @pytest.mark.parametrize("script", ["pc_sampling", "profile_forward",
+                                    "profile_forward --step --bf16",
                                     "serve_recon", "seg_grad_precision",
                                     "train_ncsn"])
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path, script):
+    script, *flags = script.split()
     module = importlib.import_module(
         f"inverseproblemwithdiffusionmodel_tpu_torch.scripts.{script}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = {"pc_sampling": ["--save_dir", str(tmp_path)],
-            "train_ncsn": ["--ds_name", "ACDC", "--log_dir", str(tmp_path)]
-            }.get(script, [])
+    argv = flags + {
+        "pc_sampling": ["--save_dir", str(tmp_path)],
+        "train_ncsn": ["--ds_name", "ACDC", "--log_dir", str(tmp_path)]
+    }.get(script, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main(argv)
     assert not list(tmp_path.iterdir())

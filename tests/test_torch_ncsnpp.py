@@ -215,14 +215,16 @@ def test_timestep_embedding_matches_jax():
 
 
 def test_resamplers_with_conv_are_not_ported():
-    # Only the FIR resamplers are ported, alone or fused with a conv; the
-    # conv-fused ones need the input channels.
+    # Every resampler is ported now, FIR or naive, alone or with a conv
+    # (the naive ones held to JAX in tests/test_torch_ddpm.py); those with
+    # a conv still need the input channels.
     for cls in (layerspp.Upsample, layerspp.Downsample):
-        for with_conv in (False, True):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                cls(in_ch=4, with_conv=with_conv, fir=False)
-    with pytest.raises(ValueError, match="in_ch"):
-        layerspp.Upsample(with_conv=True, fir=True)
+        for fir in (False, True):
+            with pytest.raises(ValueError, match="in_ch"):
+                cls(with_conv=True, fir=fir)
+            for with_conv in (False, True):
+                layer = cls(in_ch=4, with_conv=with_conv, fir=fir)
+                assert layer(torch.zeros(1, 4, 4, 4)).shape[-1] == 4
 
 
 def test_seeded_weights_are_deterministic_and_not_vanishing():

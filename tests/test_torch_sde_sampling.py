@@ -186,12 +186,17 @@ def test_default_noise_is_seeded():
 
 
 def test_unported_sdes_and_methods_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sde(get_continuous_config("vp/cifar10_ddpmpp_continuous"))
+    # what is still not ported raises: the ODE sampler and unknown
+    # predictor / corrector names; the VP and subVP SDEs and the
+    # Euler-Maruyama predictor build (held to JAX in test_torch_vp_sde.py)
     cfg = get_continuous_config("ve/ffhq_256_ncsnpp_continuous")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_sampling_fn(cfg.replace(**{"sampling.method": "ode"}),
                         make_sde(cfg), SHAPE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_pc_sampler(make_sde(cfg), SHAPE, predictor="euler_maruyama",
-                       device="cpu")
+    for kw in ({"predictor": "leapfrog"}, {"corrector": "hmc"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_pc_sampler(make_sde(cfg), SHAPE, device="cpu", **kw)
+    vp = get_continuous_config("vp/cifar10_ddpmpp_continuous")
+    assert type(make_sde(vp)).__name__ == "VPSDE"
+    assert callable(get_pc_sampler(make_sde(cfg), SHAPE,
+                                   predictor="euler_maruyama", device="cpu"))

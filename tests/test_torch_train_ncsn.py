@@ -562,16 +562,38 @@ def test_ncsn1d_filtered_step_matches_jax():
 @pytest.mark.parametrize("mode", ["complex", "real-imag",
                                   "real-imag-random"])
 def test_continuous_step_refuses_complex_modes(mode):
-    # the continuous step's complex data modes are not ported: it refuses
-    # them where it is built, before any draw
+    # the continuous step's complex data modes are ported now (held to JAX's
+    # step in tests/test_torch_continuous_modes.py): it refuses none of
+    # them, collates before its t and z draws, and gives the net the
+    # interleaved [Re, Im] rows (or the two channels of 'complex')
     from test_torch_ncsnpp import LEAF, TINY
     from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
         get_continuous_config, make_sde)
     from inverseproblemwithdiffusionmodel_tpu_torch.models import create_model
-    cfg = get_continuous_config(LEAF).replace(**TINY)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_continuous_score_train_step(create_model(cfg), make_sde(cfg),
-                                         data_mode=mode)
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        TrainState as PortState, get_optimizer)
+    C = 2 if mode == "complex" else 1
+    cfg = get_continuous_config(LEAF).replace(**dict(
+        TINY, **{"data.num_channels": C, "model.ch_mult": (1, 2),
+                 "model.dropout": 0.0}))
+    weights = create_model(cfg).state_dict()
+    seen = []
+    batch = np.random.RandomState(0).rand(2, 16, 16, 1).astype(np.float32)
+
+    def run(seed):
+        model = create_model(cfg)
+        model.load_state_dict(weights)
+        model.register_forward_pre_hook(lambda m, args: seen.append(
+            tuple(args[0].shape)))
+        step = make_continuous_score_train_step(model, make_sde(cfg),
+                                                data_mode=mode)
+        state = PortState.create(model, get_optimizer(cfg))
+        return float(step(state, batch,
+                          torch.Generator().manual_seed(seed))[1])
+
+    assert run(0) == run(0) != run(1)
+    rows = 2 if mode == "complex" else 4
+    assert seen[0] == (rows, 16, 16, C) and np.isfinite(run(2))
 
 
 # ---------------------------------------------------------------------------
