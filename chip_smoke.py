@@ -32,9 +32,11 @@ phases, each printing one line with its own seconds:
    the float32 kernel's output rounded once at 2 ulps; timed as the
    float32 forms, beside the bf16 byte bound and the same depthwise conv
    in bf16.
-   flr: K4 (fused bias + leaky ReLU, forward and backward) at three shapes,
-   forward, dx and db against the plain versions, timed; no single PyTorch
-   call computes it, so it has no library yardstick.
+   flr: K4 (fused bias + leaky ReLU, forward and backward) at three shapes
+   in float32 and in bf16, forward, dx and db against the plain versions
+   (bf16: 1 bf16 ulp of the largest |value|, counting the elements that
+   differ at all), timed; no single PyTorch call computes it, so it has no
+   library yardstick.
 4. model: the full-width FFHQ-256 NCSN++ (65.6 M parameters, weights drawn
    from seed 0) forward on the card against the same model on the CPU, at
    batch 1 and, in the float32 mode, at batch 2, and the kernels' launch
@@ -78,6 +80,22 @@ phases, each printing one line with its own seconds:
    float32 mode: the score at the first and last levels, the proximal's
    correction at the step's c and at c = 1, and a whole inner step at the
    first and last levels.
+10b. sense: the README's headline ACDC SENSE CLI,
+   scripts.acdc_SENSE_real_img.main, at full width (NCSNv2Deepest 256 px,
+   ngf 128, seed 0; 16 chains, R = 8, 4 coils, the complex64 SENSE
+   operator on cuFFT, CG 8, lr_scaled 5.0, --override
+   recons.num_classes=8: the 348 -> 0.01 ladder cut from 2311 levels to
+   8), torch's defaults: chain-steps/s of the sampler alone (between CUDA
+   synchronizations, the set-up apart), wall s, peak memory, the NRMSE and
+   SSIM it prints (finite; the weights are random), its artifacts; the
+   single-coil script with SingleCoil and the SENSE script guided
+   (--seg_start_time 0.5, the seg UNet from seed 0), 4 chains each. Then,
+   in the float32 mode: cuFFT's i2k / k2i against the pair DFT at 256 px;
+   samplers.ald.ald_inverse_seg_proximal_real_imag against
+   make_stepped_pair_reconstructor on the recon geometry (same weights,
+   CG 4, the same injected noise), level by level, gated after the first
+   level; the complex sampler card vs CPU at 32 px (ngf 8, 2 levels);
+   SENSE's adjointness on the card.
 11. serve: the serving entry point at the recon geometry, for f32 and
    bf16: scripts.serve_recon.build_engine (weights from seed 0), the
    engine's warm-up, 3 requests over HTTP on 127.0.0.1 (npz in and out:
@@ -150,7 +168,8 @@ batch >= 2; PERF.md), so the card computes in float32 like the reference.
 The sampling and training runs themselves use torch's defaults, as a
 user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
-serve, cine, train_ncsn, each train_bf16 run, each sample_vp run) and read
+sense, serve, cine, train_ncsn, each train_bf16 run, each sample_vp run)
+and read
 just after it. Any failure raises and
 exits non-zero. Phases 9 to 15 print their numbers as one JSON line
 before `total`. The last
@@ -208,6 +227,14 @@ ACDC_LEVELS = 8            # of the config's 2311
 ACDC_CG_ITERS = 4
 ACDC_LR_SCALED = 5.0
 ACDC_REPS = 3              # timed runs after one warm-up; the fastest counts
+# The headline ACDC SENSE CLI (scripts/acdc_SENSE_real_img) at full width
+SENSE_SAMPLES = 16         # the headline run's chains (the net at batch 32)
+SENSE_LEVELS = 8           # --override recons.num_classes: of the ladder's
+                           # 2311 (348 -> 0.01)
+SENSE_SIDE_SAMPLES = 4     # the single-coil and the guided runs
+SENSE_GATE_LEVEL = 0       # complex vs pair form gated after this level
+FFT_REL_L2 = 1e-5          # cuFFT vs the pair DFT at 256 px, float32
+ADJOINT_REL = 1e-5         # <A x, y> vs <x, A^H y>, sums in complex128
 # The cine (2D+time) serving path: README's 128 px, T = 24, 4 coils, R = 8
 CINE_FRAMES = 24
 CINE_CHAINS = 4            # the CineEngineSpec default; serve_recon's is 16
@@ -259,6 +286,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, float32 outside tensor cores
 PALLAS = "inverseproblemwithdiffusionmodel_tpu/ops/pallas_kernels.py"
 FIR_TAGS = ["up2x", "down2x", "up2x.bwd", "down2x.bwd"]
+FLR_TAGS = ["flr_fwd", "flr_bwd", "flr_fwd.bf16", "flr_bwd.bf16"]
 REPLACES = {
     "up2x": f"{PALLAS}:179",
     "down2x": f"{PALLAS}:199",
@@ -268,9 +296,12 @@ REPLACES = {
     "flr_bwd": f"{PALLAS}:84",
 }
 CSRC = "inverseproblemwithdiffusionmodel_tpu_torch/ops/csrc"
-SOURCES = {"flr_fwd": f"{CSRC}/flr.cu", "flr_bwd": f"{CSRC}/flr.cu"}
+SOURCES = {}
 for _tag in FIR_TAGS:   # the float32 and bf16 forms of one Pallas kernel
     SOURCES[_tag] = SOURCES[f"{_tag}.bf16"] = f"{CSRC}/fir2x.cu"
+    REPLACES[f"{_tag}.bf16"] = REPLACES[_tag]
+for _tag in ("flr_fwd", "flr_bwd"):
+    SOURCES[_tag] = SOURCES[f"{_tag}.bf16"] = f"{CSRC}/flr.cu"
     REPLACES[f"{_tag}.bf16"] = REPLACES[_tag]
 
 
@@ -542,32 +573,94 @@ def summarize(rows, what: str):
 
 def flr_numbers(shape, y, dx, db, x, b, g, fl, fused_leaky_relu):
     """Hold K4's outputs from the op's run against the plain versions, then
-    time each kernel and its plain version."""
+    time each kernel and its plain version. float32 within KERNEL_RTOL of
+    the largest |value|; bf16 within 1 bf16 ulp of it (the kernel and its
+    plain version both compute in float32 and round once), counting the
+    elements that differ at all; the bound counts x's element size."""
     slope, scale = 0.2, 2 ** 0.5
-    C, n = shape[-1], x.numel()
+    C, n, size = shape[-1], x.numel(), x.element_size()
+    bf16 = x.dtype == torch.bfloat16
     y_ref = fused_leaky_relu(x, b, slope, scale)
     dx_ref = fl.fused_leaky_relu_bwd_plain(x, b, g, slope, scale)
     db_ref = dx_ref.reshape(-1, C).sum(0)
-    errs = {}
+    errs, n_diff = {}, {}
     for name, out, ref in (("y", y, y_ref), ("dx", dx, dx_ref),
                            ("db", db, db_ref)):
-        errs[name] = (out - ref).abs().max().item()
-        top = ref.abs().max().item()
-        if not errs[name] <= KERNEL_RTOL * top:
-            raise AssertionError(f"flr {shape} {name}: max_abs_err "
-                                 f"{errs[name]} > {KERNEL_RTOL} * {top}")
+        errs[name] = (out.float() - ref.float()).abs().max().item()
+        n_diff[name] = int((out != ref).sum().item())
+        tol = (bf16_ulp(ref) if bf16
+               else KERNEL_RTOL * ref.abs().max().item())
+        if out.dtype != x.dtype or not errs[name] <= tol:
+            raise AssertionError(f"flr {shape} {x.dtype} {name}: "
+                                 f"{out.dtype}, max_abs_err {errs[name]} > "
+                                 f"{tol}")
     fwd_k = lambda: fl.flr_forward(x, b, slope, scale)
     bwd_k = lambda: fl.flr_backward(x, b, g, slope, scale)
-    fwd = dict(err=errs["y"], ms=graph_ms(fwd_k),
+    fwd = dict(err=errs["y"], n_diff=n_diff["y"], ms=graph_ms(fwd_k),
                ms_with_host=cuda_ms(fwd_k), plain_ms=graph_ms(
                    lambda: fused_leaky_relu(x, b, slope, scale)),
-               **bound(4 * (2 * n + C), 3 * n))      # read x, b; write y
-    bwd = dict(err=errs["dx"], db_err=errs["db"], ms=graph_ms(bwd_k),
+               **bound(size * (2 * n + C), 3 * n))   # read x, b; write y
+    bwd = dict(err=errs["dx"], db_err=errs["db"],
+               n_diff=n_diff["dx"] + n_diff["db"], ms=graph_ms(bwd_k),
                ms_with_host=cuda_ms(bwd_k), plain_ms=graph_ms(
                    lambda: fl.fused_leaky_relu_bwd_plain(x, b, g, slope,
                                                          scale)),
-               **bound(4 * (3 * n + C), 2 * n))      # read x, b, g; write dx
+               **bound(size * (3 * n + C), 2 * n))   # read x, b, g; write dx
     return fwd, bwd
+
+
+def flr_phase(fl, gen):
+    """K4 as a user calls it (fused_leaky_relu_kernel and its gradient) at
+    FLR_SHAPES in float32 and bf16, the launches counted; then each output
+    held to its plain version and each kernel timed (flr_numbers). Returns
+    (per-kernel sums over the shapes, the launches, the bf16 elements that
+    differ from the plain versions)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.ops.fused_act import (
+        fused_leaky_relu)
+    flr_in = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FLR_SHAPES:
+            x = torch.randn(*shape, generator=gen).cuda().to(dtype)
+            b = torch.randn(shape[-1], generator=gen).cuda().to(dtype)
+            g = torch.randn(*shape, generator=gen).cuda().to(dtype)
+            flr_in.append((shape, x, b, g))
+    fl.LAUNCHES.clear()
+    flr_out = []
+    for shape, x, b, g in flr_in:           # the op, as a user calls it
+        xg, bg = x.clone().requires_grad_(), b.clone().requires_grad_()
+        y = fl.fused_leaky_relu_kernel(xg, bg)
+        dx, db = torch.autograd.grad(y, (xg, bg), g)
+        flr_out.append((y.detach(), dx, db))
+    torch.cuda.synchronize()
+    launches = dict(fl.LAUNCHES)
+    if launches != {name: len(FLR_SHAPES) for name in FLR_TAGS}:
+        raise AssertionError(f"K4 op launched {launches}")
+    flr_rows = {name: [] for name in FLR_TAGS}
+    for (shape, x, b, g), (y, dx, db) in zip(flr_in, flr_out):
+        fwd, bwd = flr_numbers(shape, y, dx, db, x, b, g, fl,
+                               fused_leaky_relu)
+        tag = ".bf16" if x.dtype == torch.bfloat16 else ""
+        flr_rows["flr_fwd" + tag].append(fwd)
+        flr_rows["flr_bwd" + tag].append(bwd)
+        for name, r in (("flr_fwd" + tag, fwd), ("flr_bwd" + tag, bwd)):
+            print(f"    {name} {shape}: kernel_ms device {r['ms']:.4f} "
+                  f"with host {r['ms_with_host']:.4f}, plain_ms "
+                  f"{r['plain_ms']:.4f} library_ms: no single call, bound_us "
+                  f"{1e3 * r['bound_ms']:.2f} ({r['bound_by']}) max_abs_err "
+                  f"{r['err']:.3g}" + (f" (db {r['db_err']:.3g})"
+                                       if "db_err" in r else ""), flush=True)
+    summary = {}
+    for name, rs in flr_rows.items():
+        tot = {key: sum(r[key] for r in rs) for key in
+               ("ms", "ms_with_host", "plain_ms", "bound_ms", "bytes_ms",
+                "ops_ms")}
+        summary[name] = dict(tot, err=max(r["err"] for r in rs),
+                             library_ms=None,
+                             bound_by="bytes" if tot["bytes_ms"]
+                             >= tot["ops_ms"] else "operations")
+    diffs = {n: sum(r["n_diff"] for r in rs)
+             for n, rs in flr_rows.items() if n.endswith(".bf16")}
+    return summary, launches, diffs
 
 
 def run_pc_sampling(pc_sampling, argv):
@@ -2265,6 +2358,267 @@ def report_train_ncsn(tn: dict, t: float) -> None:
         f"CPU side {tn['cpu_check_s']:.1f} s); no K1/K2/K4 launch")
 
 
+def sense_cli(module, argv: list) -> dict:
+    """`module.main(argv)` (one of the complex reconstruction scripts) with
+    its output echoed indented: the reconstructions, the wall seconds, the
+    sampler's seconds alone (ald_inverse_seg_proximal_real_imag between
+    CUDA synchronizations; the config, data, operator and net set-up
+    apart), the peak memory and the NRMSE / SSIM it prints."""
+    sampler = module.ald_inverse_seg_proximal_real_imag
+    seconds = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        out = sampler(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t_run)
+        return out
+
+    save_dir = tempfile.mkdtemp(prefix="chip_smoke_sense_")
+    out = io.StringIO()
+    module.ald_inverse_seg_proximal_real_imag = timed
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        with contextlib.redirect_stdout(out), warnings_quiet():
+            recons = module.main(argv + ["--save_dir", save_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        artifacts = sorted(os.listdir(os.path.join(
+            save_dir, os.listdir(save_dir)[0])))
+    finally:
+        module.ald_inverse_seg_proximal_real_imag = sampler
+        shutil.rmtree(save_dir, ignore_errors=True)
+    for line in out.getvalue().splitlines():
+        print(f"    {line}", flush=True)
+    found = re.search(r"NRMSE (\S+)\s+SSIM (\S+)", out.getvalue())
+    if found is None or len(seconds) != 1:
+        raise AssertionError(f"{module.__name__}: no NRMSE / SSIM printed "
+                             f"or {len(seconds)} sampler calls")
+    return dict(recons=recons, wall_s=wall, sampler_s=seconds[0],
+                peak=torch.cuda.max_memory_allocated(),
+                nrmse=float(found.group(1)), ssim=float(found.group(2)),
+                artifacts=artifacts)
+
+
+def sense_phase(fk, fl, device="cuda") -> dict:
+    """The complex64 reconstruction path from the README's headline CLI
+    down: scripts.acdc_SENSE_real_img.main at full width (the ACDC
+    NCSNv2Deepest, 256 px, ngf 128, weights from seed 0; SENSE_SAMPLES
+    chains, R = 8, 4 coils, CG 8, lr_scaled 5.0, the ladder cut to
+    SENSE_LEVELS levels) with torch's defaults, then the single-coil script
+    with SingleCoil and the SENSE script guided (seg UNet from seed 0), at
+    SENSE_SIDE_SAMPLES chains; the cuFFT pair against the pair DFT at 256
+    px; the complex sampler against the pair reconstructor on
+    acdc_problem's geometry, same weights, CG iterations and noise, float32
+    mode, level by level; the complex sampler card vs CPU at 32 px (ngf 8,
+    2 levels); SENSE's adjointness on the card. Launches no K1, K2 or K4."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import (
+        NCSNv2Deepest, make_score_fn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators import (
+        L2Penalty, RandomUndersamplingFourier, SENSE, make_sense)
+    from inverseproblemwithdiffusionmodel_tpu_torch.ops.fft import (
+        i2k_complex, k2i_complex)
+    from inverseproblemwithdiffusionmodel_tpu_torch.ops.fft_pair import (
+        i2k_pair, k2i_pair)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
+        ALDConfig, ald_inverse_seg_proximal_real_imag)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald_pair import (
+        make_stepped_pair_reconstructor)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        sigma_ladder)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        acdc_SENSE_real_img as sense_script,
+        acdc_inv_seg_sampling_keep_center_prox_real_imag as single_script)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.device import (
+        gaussian_noise)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    cfg, model = acdc_model()
+    size = cfg.data.image_size
+    numbers = {}
+    common = ["--override", f"recons.num_classes={SENSE_LEVELS}", "--seed",
+              "0", "--device", str(device)]
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    runs = {
+        "sense": (sense_script, SENSE_SAMPLES, [
+            "--R", str(ACDC_R), "--num_sens", str(ACDC_COILS),
+            "--lr_scaled", str(ACDC_LR_SCALED)]),
+        "single_coil": (single_script, SENSE_SIDE_SAMPLES, [
+            "--R", str(ACDC_R), "--proximal", "SingleCoil"]),
+        "sense_guided": (sense_script, SENSE_SIDE_SAMPLES, [
+            "--R", str(ACDC_R), "--num_sens", str(ACDC_COILS),
+            "--lr_scaled", str(ACDC_LR_SCALED), "--seg_start_time", "0.5"]),
+    }
+    for name, (module, chains, flags) in runs.items():
+        r = sense_cli(module, flags + common + ["--num_samples", str(chains)])
+        recons = r.pop("recons")
+        if not (isinstance(recons, np.ndarray)
+                and recons.dtype == np.complex64
+                and recons.shape == (chains, size, size, 1)
+                and np.isfinite(recons).all()
+                and np.isfinite([r["nrmse"], r["ssim"]]).all()):
+            raise AssertionError(f"{name}: reconstructions "
+                                 f"{getattr(recons, 'shape', None)} "
+                                 f"{getattr(recons, 'dtype', None)}, NRMSE "
+                                 f"{r['nrmse']}, SSIM {r['ssim']}")
+        r["chain_steps"] = chain_steps = SENSE_LEVELS * 3 * chains
+        r["chain_steps_per_s"] = chain_steps / r["sampler_s"]
+        numbers[name] = r
+    no_kernel_launches(fk, fl, "the complex reconstruction scripts")
+
+    # cuFFT against the pair DFT at the net's size, the chains' batch
+    gen = torch.Generator().manual_seed(0)
+    xr, xi = (torch.randn(ACDC_CHAINS, size, size, 1, generator=gen)
+              .to(device) for _ in range(2))
+    with torch.inference_mode(), float32_exact():
+        k = i2k_complex(torch.complex(xr, xi))
+        kr, ki = i2k_pair(xr, xi)
+        b = k2i_complex(k)
+        br, bi = k2i_pair(k.real.contiguous(), k.imag.contiguous())
+    numbers["fft_vs_pair_dft_rel_l2"] = fft_rel = max(
+        rel_l2(torch.view_as_real(k), torch.stack([kr, ki], -1)),
+        rel_l2(torch.view_as_real(b), torch.stack([br, bi], -1)))
+    if not fft_rel <= FFT_REL_L2:
+        raise AssertionError(f"cuFFT vs the pair DFT: rel L2 {fft_rel}")
+
+    # The complex sampler against the pair reconstructor, level by level
+    model = model.to(device)
+    lin_pair, prox_pair, sigmas, yr, yi = acdc_problem(cfg, device)
+    sense = SENSE(base=RandomUndersamplingFourier(mask=lin_pair.mask),
+                  sens_maps=torch.complex(lin_pair.sens_re, lin_pair.sens_im))
+    prox = L2Penalty(lin_tfm=sense, num_iters=ACDC_CG_ITERS)
+    snap_cfg = ALDConfig(n_steps_each=cfg.sampling.n_steps_each,
+                         step_lr=cfg.sampling.step_lr, snapshot_every=1)
+    levels = {"complex": [], "pair": []}
+
+    def keep(form):
+        return lambda c, sigma, a, b: levels[form].append(
+            torch.complex(a, b).cpu())
+
+    with float32_exact():
+        x_complex = ald_inverse_seg_proximal_real_imag(
+            make_score_fn(model, sigmas), sigmas, torch.complex(yr, yi),
+            sense, prox, config=snap_cfg, lr_scaled=ACDC_LR_SCALED,
+            snapshot_fn=keep("complex"), noise=gaussian_noise(0, device),
+            device=device).cpu()
+        x_pair = torch.complex(*make_stepped_pair_reconstructor(
+            model, sigmas, lin_pair, prox_pair, snap_cfg,
+            lr_scaled=ACDC_LR_SCALED, snapshot_fn=keep("pair"),
+            device=device)(yr, yi, noise=gaussian_noise(0, device))).cpu()
+    by_level = [rel_l2(torch.view_as_real(a), torch.view_as_real(b))
+                for a, b in zip(levels["complex"], levels["pair"])]
+    numbers["complex_vs_pair_rel_l2"] = dict(
+        by_level=by_level, final=rel_l2(torch.view_as_real(x_complex),
+                                        torch.view_as_real(x_pair)))
+    if len(by_level) != ACDC_LEVELS or not (
+            by_level[SENSE_GATE_LEVEL] <= MODEL_REL_L2):
+        raise AssertionError(f"complex vs pair form: rel L2 by level "
+                             f"{by_level}")
+    del model, levels
+
+    # One proximal step of each form on the chains' state, torch's
+    # defaults: the CLI's CG 8 on cuFFT against recon's CG 4 on the normal
+    # kernel (A^H y baked in, as the pair reconstructor does)
+    alpha = cfg.sampling.step_lr * ACDC_LR_SCALED
+    z, y_c = torch.complex(xr, xi), torch.complex(yr, yi)
+    ahy = lin_pair.conj_op(yr, yi)
+    baked = prox_pair.replace(ahy_re=ahy[0], ahy_im=ahy[1])
+    with torch.inference_mode():
+        numbers["prox_ms"] = dict(
+            complex_cg8=cuda_ms(lambda: L2Penalty(lin_tfm=sense)(
+                z, y_c, alpha, 1.0), reps=10),
+            complex_cg4=cuda_ms(lambda: prox(z, y_c, alpha, 1.0), reps=10),
+            pair_cg4=cuda_ms(lambda: baked(xr, xi, yr, yi, alpha, 1.0),
+                             reps=10))
+
+    # The complex sampler card vs CPU at 32 px, same weights and noise
+    tiny = load_config("ACDC", "real-imag",
+                       **{"data.image_size": 32, "model.ngf": 8})
+    net_cpu = seeded_weights(NCSNv2Deepest(tiny), seed=0).eval()
+    tiny_sigmas = sigma_ladder(tiny.model.sigma_begin, tiny.model.sigma_end,
+                               2, "geometric")
+    op = make_sense("exp", ACDC_COILS, ACDC_R, 1 / 16, (32, 32, 1), seed=0,
+                    num_frames=1)
+    x_true = torch.complex(*(torch.rand(2, 32, 32, 1, generator=gen)
+                             for _ in range(2)))
+    y_tiny = op(x_true)
+    draws = [torch.randn(2, 32, 32, 1, generator=gen) for _ in range(12)]
+    tiny_cfg = ALDConfig(n_steps_each=3, step_lr=tiny.sampling.step_lr)
+    finals = []
+    with float32_exact():
+        for dev in (device, "cpu"):
+            net = copy.deepcopy(net_cpu).to(dev)
+            it = iter(draws)
+            finals.append(ald_inverse_seg_proximal_real_imag(
+                make_score_fn(net, tiny_sigmas), tiny_sigmas, y_tiny, op,
+                L2Penalty(lin_tfm=op), config=tiny_cfg,
+                lr_scaled=ACDC_LR_SCALED,
+                noise=lambda shape: next(it).to(dev), device=dev).cpu())
+    numbers["tiny_card_vs_cpu_rel_l2"] = tiny_rel = rel_l2(
+        *(torch.view_as_real(f) for f in finals))
+    if not tiny_rel <= MODEL_REL_L2:
+        raise AssertionError(f"complex sampler card vs CPU: rel L2 "
+                             f"{tiny_rel}")
+
+    # SENSE's adjointness on the card, on the mask's support
+    sense_op = make_sense("exp", ACDC_COILS, ACDC_R, 1 / 16, (size, size, 1),
+                          seed=0, num_frames=1).to(device)
+    x = torch.complex(xr[:1], xi[:1])
+    y = sense_op.base.mask * torch.complex(
+        *(torch.randn(ACDC_COILS, 1, size, size, 1, generator=gen)
+          .to(device) for _ in range(2)))
+    with torch.inference_mode():
+        lhs = torch.sum(sense_op(x).conj().cdouble() * y.cdouble()).item()
+        rhs = torch.sum(x.conj().cdouble()
+                        * sense_op.conj_op(y).cdouble()).item()
+    numbers["adjoint_rel"] = adj = abs(lhs - rhs) / abs(lhs)
+    if not adj <= ADJOINT_REL:
+        raise AssertionError(f"SENSE adjointness on the card: {adj}")
+    no_kernel_launches(fk, fl, "the complex reconstruction path")
+    return numbers
+
+
+def report_sense(sn: dict, t: float, recon_f32: float) -> None:
+    for name in ("sense", "single_coil", "sense_guided"):
+        r = sn[name]
+        print(f"    {name}: wall {r['wall_s']:.2f} s, sampler "
+              f"{r['sampler_s']:.4f} s for {r['chain_steps']} chain-steps, "
+              f"{r['chain_steps_per_s']:.2f} chain-steps/s, peak {r['peak']} "
+              f"bytes, NRMSE {r['nrmse']} SSIM {r['ssim']} (random weights: "
+              f"only checked finite), artifacts {r['artifacts']}",
+              flush=True)
+    cp = sn["complex_vs_pair_rel_l2"]
+    say("sense", t, f"acdc_SENSE_real_img.main at full width (NCSNv2Deepest "
+        f"256 px, ngf 128, seed 0), {SENSE_SAMPLES} chains, R = {ACDC_R}, "
+        f"{ACDC_COILS} coils, CG 8, lr_scaled {ACDC_LR_SCALED}, "
+        f"recons.num_classes={SENSE_LEVELS} (the 348 -> 0.01 ladder cut from "
+        f"2311 levels to {SENSE_LEVELS}) x 3 steps, cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}: "
+        f"{sn['sense']['chain_steps_per_s']:.2f} chain-steps/s "
+        f"({sn['sense']['chain_steps_per_s'] / recon_f32:.3f} x recon's f32 "
+        f"{recon_f32:.2f}); single-coil SingleCoil "
+        f"{sn['single_coil']['chain_steps_per_s']:.2f} and guided "
+        f"{sn['sense_guided']['chain_steps_per_s']:.2f} at "
+        f"{SENSE_SIDE_SAMPLES} chains; cuFFT vs pair DFT rel L2 "
+        f"{sn['fft_vs_pair_dft_rel_l2']:.3g} (<= {FFT_REL_L2}); complex vs "
+        f"pair form (float32 mode) rel L2 after level {SENSE_GATE_LEVEL} "
+        f"{cp['by_level'][SENSE_GATE_LEVEL]:.3g} (<= {MODEL_REL_L2}), by "
+        f"level {json.dumps([float(f'{v:.3g}') for v in cp['by_level']])}, "
+        f"final {cp['final']:.3g}; one proximal step, device ms "
+        f"{json.dumps({k: round(v, 4) for k, v in sn['prox_ms'].items()})}; "
+        f"tiny complex sampler card vs CPU rel L2 "
+        f"{sn['tiny_card_vs_cpu_rel_l2']:.3g} (<= {MODEL_REL_L2}); SENSE "
+        f"adjointness {sn['adjoint_rel']:.3g} (<= {ADJOINT_REL}); no "
+        f"K1/K2/K4 launch")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2277,8 +2631,6 @@ def main() -> None:
     from inverseproblemwithdiffusionmodel_tpu_torch.ops import _build
     from inverseproblemwithdiffusionmodel_tpu_torch.ops import (
         fir_kernels as fk, flr_kernels as fl)
-    from inverseproblemwithdiffusionmodel_tpu_torch.ops.fused_act import (
-        fused_leaky_relu)
     from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
         pc_sampling)
     from inverseproblemwithdiffusionmodel_tpu_torch.sde import (
@@ -2427,49 +2779,12 @@ def main() -> None:
                       for n, rs in vp_rows.items()}))
 
     t = time.perf_counter()
-    flr_in = []
-    for shape in FLR_SHAPES:
-        x = torch.randn(*shape, generator=gen).cuda()
-        b = torch.randn(shape[-1], generator=gen).cuda()
-        g = torch.randn(*shape, generator=gen).cuda()
-        flr_in.append((shape, x, b, g))
-    fl.LAUNCHES.clear()
-    flr_out = []
-    for shape, x, b, g in flr_in:           # the op, as a user calls it
-        xg, bg = x.clone().requires_grad_(), b.clone().requires_grad_()
-        y = fl.fused_leaky_relu_kernel(xg, bg)
-        dx, db = torch.autograd.grad(y, (xg, bg), g)
-        flr_out.append((y.detach(), dx, db))
-    torch.cuda.synchronize()
-    launches["flr_op"] = dict(fl.LAUNCHES)
-    if launches["flr_op"] != {"flr_fwd": len(FLR_SHAPES),
-                              "flr_bwd": len(FLR_SHAPES)}:
-        raise AssertionError(f"K4 op launched {launches['flr_op']}")
-    flr_rows = {"flr_fwd": [], "flr_bwd": []}
-    for (shape, x, b, g), (y, dx, db) in zip(flr_in, flr_out):
-        fwd, bwd = flr_numbers(shape, y, dx, db, x, b, g, fl,
-                               fused_leaky_relu)
-        flr_rows["flr_fwd"].append(fwd)
-        flr_rows["flr_bwd"].append(bwd)
-        for name, r in (("flr_fwd", fwd), ("flr_bwd", bwd)):
-            print(f"    {name} {shape}: kernel_ms device {r['ms']:.4f} "
-                  f"with host {r['ms_with_host']:.4f}, plain_ms "
-                  f"{r['plain_ms']:.4f} library_ms: no single call, bound_us "
-                  f"{1e3 * r['bound_ms']:.2f} ({r['bound_by']}) max_abs_err "
-                  f"{r['err']:.3g}" + (f" (db {r['db_err']:.3g})"
-                                       if "db_err" in r else ""), flush=True)
-    for name, rs in flr_rows.items():
-        tot = {key: sum(r[key] for r in rs) for key in
-               ("ms", "ms_with_host", "plain_ms", "bound_ms", "bytes_ms",
-                "ops_ms")}
-        summary[name] = dict(tot, err=max(r["err"] for r in rs),
-                             library_ms=None,
-                             bound_by="bytes" if tot["bytes_ms"]
-                             >= tot["ops_ms"] else "operations")
-    del flr_in, flr_out
+    flr_summary, launches["flr_op"], flr_diff = flr_phase(fl, gen)
+    summary.update(flr_summary)
     say("flr", t, f"K4 forward, dx and db match the plain versions at "
-        f"{len(FLR_SHAPES)} shapes (rtol {KERNEL_RTOL}); launches "
-        f"{launches['flr_op']}")
+        f"{len(FLR_SHAPES)} shapes in float32 (rtol {KERNEL_RTOL}) and bf16 "
+        f"(1 bf16 ulp of the largest |value|; elements that differ at all "
+        f"{json.dumps(flr_diff)}); launches {launches['flr_op']}")
 
     # 4. model ----------------------------------------------------------------
     t = time.perf_counter()
@@ -2768,6 +3083,12 @@ def main() -> None:
         f"{json.dumps(rec['card_vs_cpu_rel_l2'])} (each <= {MODEL_REL_L2}); "
         f"no K1/K2/K4 launch")
 
+    # 10b. sense --------------------------------------------------------------
+    t = time.perf_counter()
+    sn = sense_phase(fk, fl)
+    launches["sense"] = {}
+    report_sense(sn, t, rec["f32"]["chain_steps_per_s"])
+
     # 11. serve ---------------------------------------------------------------
     t = time.perf_counter()
     srv = serve_phase(fk, fl)
@@ -2859,13 +3180,13 @@ def main() -> None:
              if isinstance(r, dict)}) + f"; every sample finite; tiny VP PC "
         f"run card vs CPU rel L2 {sv['tiny_card_vs_cpu_rel_l2']:.3g} (<= "
         f"{MODEL_REL_L2})")
-    print(json.dumps({"ncsnv2": nv2, "recon": rec, "serve": srv,
+    print(json.dumps({"ncsnv2": nv2, "recon": rec, "sense": sn,
+                      "serve": srv,
                       "cine": cine, "train_ncsn": tn, "train_bf16": tb,
                       "sample_vp": sv}), flush=True)
 
     kernels = []
-    for name in FIR_TAGS + [f"{n}.bf16" for n in FIR_TAGS] + [
-            "flr_fwd", "flr_bwd"]:
+    for name in FIR_TAGS + [f"{n}.bf16" for n in FIR_TAGS] + FLR_TAGS:
         s = summary[name]
         by_path = {path: counts[name] for path, counts in launches.items()
                    if counts.get(name)}

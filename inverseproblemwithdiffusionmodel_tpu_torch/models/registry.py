@@ -84,7 +84,7 @@ TASK_NAME_TO_MODEL_CTOR = {
     "Diffusion": lambda config: NCSNv2Deepest(config),
     "Diffusion1D": NCSN1D,
     "Diffusion3D": _not_ported("Diffusion3D", "Slice C"),
-    "Clf": _not_ported("Clf", "Slice B"),
+    "Clf": _not_ported("Clf", "Slice E"),
     "Seg": lambda config: build_seg_unet(),
 }
 

@@ -5,9 +5,9 @@ arrays are (re, im) float32 pairs, the FFT is the matmul DFT of
 ops/fft_pair.py, and the multi-coil SENSE normal operator collapses to one
 W x W matrix per mask row (`line_mask_normal_kernel`). The operators are
 frozen dataclasses holding tensors (Flax `struct.PyTreeNode`s in the JAX
-package): `.replace(...)` returns a changed copy and `.to(device)` moves
-every tensor. Images are channel-last (B, H, W, C); SENSE measurements
-(num_sens, B, H, W, C).
+package; operators/base._Tensors): `.replace(...)` returns a changed copy
+and `.to(device)` moves every tensor. Images are channel-last (B, H, W,
+C); SENSE measurements (num_sens, B, H, W, C).
 """
 from __future__ import annotations
 
@@ -17,26 +17,11 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .base import _Tensors
 from ..ops.fft_pair import _dft_mats, cconj_mul, cmul, i2k_pair, k2i_pair
 from ..utils.precision import float32_matmul
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
-
-
-class _Tensors:
-    """`.replace(**changes)` and `.to(device)` for frozen dataclasses whose
-    tensor fields (and nested operators) move together."""
-
-    def replace(self, **changes):
-        return dataclasses.replace(self, **changes)
-
-    def to(self, device):
-        changes = {}
-        for f in dataclasses.fields(self):
-            value = getattr(self, f.name)
-            if isinstance(value, (torch.Tensor, _Tensors)):
-                changes[f.name] = value.to(device)
-        return self.replace(**changes)
 
 
 @dataclasses.dataclass(frozen=True)

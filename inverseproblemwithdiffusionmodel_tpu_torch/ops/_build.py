@@ -41,8 +41,10 @@ _ARGTYPES = {
     "fir_down2x_bf16": [_PTR, _PTR] + [_I64] * 4 + [_F32] * 8 + [_PTR],
     # csrc/flr.cu: x, bias, y, rows, C, slope, scale, stream.
     "flr_fwd_f32": [_PTR] * 3 + [_I64] * 2 + [_F32] * 2 + [_PTR],
+    "flr_fwd_bf16": [_PTR] * 3 + [_I64] * 2 + [_F32] * 2 + [_PTR],
     # csrc/flr.cu: x, bias, g, dx, rows, C, scale, scale * slope, stream.
     "flr_bwd_f32": [_PTR] * 4 + [_I64] * 2 + [_F32] * 2 + [_PTR],
+    "flr_bwd_bf16": [_PTR] * 4 + [_I64] * 2 + [_F32] * 2 + [_PTR],
 }
 
 

@@ -6,11 +6,14 @@ it, in the JAX package or here; it exists as a standalone op.
 
 `fused_leaky_relu_kernel(x, bias)` is a `torch.autograd.Function` over
 `flr_forward` and `flr_backward`: on a CUDA tensor these launch `flr_fwd_f32`
-and `flr_bwd_f32` (csrc/flr.cu, built by ops/_build.py) or raise; on a CPU
-tensor they run the plain versions, `ops/fused_act.fused_leaky_relu` and
-`fused_leaky_relu_bwd_plain`. The bias gradient is a torch reduction over
-the rows of dx on both devices, as JAX computes it in XLA. Launches are
-counted in `LAUNCHES` ("flr_fwd", "flr_bwd").
+and `flr_bwd_f32`, or `flr_fwd_bf16` and `flr_bwd_bf16` for bf16 x and bias
+(csrc/flr.cu, built by ops/_build.py), or raise; on a CPU tensor they run
+the plain versions, `ops/fused_act.fused_leaky_relu` and
+`fused_leaky_relu_bwd_plain`. The bf16 forms compute in float32 and round
+once, like their plain versions. The bias gradient is a torch reduction
+over the rows of dx on both devices, as JAX computes it in XLA. Launches
+are counted in `LAUNCHES` ("flr_fwd", "flr_bwd"; ".bf16" appended in
+bf16).
 """
 from __future__ import annotations
 
@@ -28,14 +31,23 @@ def fused_leaky_relu_bwd_plain(x: torch.Tensor, bias: torch.Tensor,
                                g: torch.Tensor, negative_slope: float,
                                scale: float) -> torch.Tensor:
     """The backward kernel's plain version: g * (scale if x + b >= 0 else
-    scale * slope), the factor multiplied in Python as in the JAX package."""
-    return g * torch.where(x + bias >= 0, scale, scale * negative_slope)
+    scale * slope), the factor multiplied in Python as in the JAX package.
+    bf16 is computed in float32 and rounded to bf16 once."""
+    compute = torch.promote_types(x.dtype, torch.float32)
+    v = x.to(compute) + bias.to(compute)
+    return (g.to(compute) * torch.where(v >= 0, scale, scale
+                                        * negative_slope)).to(x.dtype)
+
+
+# the kernels' dtypes: (C launcher suffix, LAUNCHES key suffix)
+_DTYPES = {torch.float32: ("f32", ""), torch.bfloat16: ("bf16", ".bf16")}
 
 
 def _check(x: torch.Tensor, bias: torch.Tensor) -> None:
-    if x.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError(f"fused_leaky_relu_kernel takes float32, got "
-                        f"{x.dtype} and {bias.dtype}")
+    if x.dtype not in _DTYPES or bias.dtype != x.dtype:
+        raise TypeError(f"fused_leaky_relu_kernel takes float32 or bfloat16 "
+                        f"x and a bias of the same dtype, got {x.dtype} and "
+                        f"{bias.dtype}")
     if x.ndim < 1 or bias.shape != (x.shape[-1],):
         raise ValueError(f"bias must have shape (C,) = ({x.shape[-1]},), "
                          f"got {tuple(bias.shape)} for x {tuple(x.shape)}")
@@ -49,17 +61,21 @@ def _call(fn: str, *tensors: torch.Tensor, out: torch.Tensor, scalars
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{fn}: the kernel takes contiguous tensors")
+    if any(t.dtype != out.dtype for t in tensors) or out.dtype not in _DTYPES:
+        raise TypeError(f"{fn}: float32 or bf16 tensors of one dtype, got "
+                        f"{[t.dtype for t in tensors]}")
+    suffix, tag = _DTYPES[out.dtype]
     lib = _build.build().lib
     C = tensors[0].shape[-1]
     rows = tensors[0].numel() // C if C else 0
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = getattr(lib, f"{fn}_f32")(*(t.data_ptr() for t in tensors),
-                                       out.data_ptr(), rows, C, *scalars,
-                                       stream)
+        rc = getattr(lib, f"{fn}_{suffix}")(*(t.data_ptr() for t in tensors),
+                                            out.data_ptr(), rows, C, *scalars,
+                                            stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[fn] += 1
+    LAUNCHES[fn + tag] += 1
     return out
 
 
@@ -101,6 +117,7 @@ class _FusedLeakyReLU(torch.autograd.Function):
 def fused_leaky_relu_kernel(x: torch.Tensor, bias: torch.Tensor,
                             negative_slope: float = 0.2,
                             scale: float = 2 ** 0.5) -> torch.Tensor:
-    """y = scale * leaky_relu(x + bias); x (..., C) float32, bias (C,)."""
+    """y = scale * leaky_relu(x + bias); x (..., C) and bias (C,) float32,
+    or both bf16."""
     _check(x, bias)
     return _FusedLeakyReLU.apply(x, bias, float(negative_slope), float(scale))

@@ -1,10 +1,11 @@
 """Annealed Langevin dynamics: the sampler parameters and the update step.
 
 Port of `ALDConfig`, `_labels`, `_langevin_update`, the guidance
-gradients `compute_clf_grad` / `compute_seg_grad` and the 2D+time ladders
+gradients `compute_clf_grad` / `compute_seg_grad`, the 2D+time ladders
 (`interp_sigmas_T`, `interp_sigma_T_indices`, `setup_2d_time_ladders`)
+and the complex reconstruction sampler `ald_inverse_seg_proximal_real_imag`
 from inverseproblemwithdiffusionmodel_tpu/samplers/ald.py (reference:
-ncsn/models/ALD_optimizers.py:49-155 and 342-361,
+ncsn/models/ALD_optimizers.py:49-155, 161-327 and 342-361,
 ncsn/models/__init__.py:172-215). Randomness is injected: the update
 takes its noise tensor, drawn by the caller from a `noise(shape)` function
 (utils/device.gaussian_noise builds one from a seed and an explicit
@@ -17,11 +18,15 @@ builds one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .sigmas import get_lh_weights
+from ..utils.device import Noise, gaussian_noise, resolve_device
+from ..utils.misc import stack_parts, unstack_parts
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -162,3 +167,98 @@ def compute_seg_grad(seg_fn: Callable[[torch.Tensor], torch.Tensor],
     if mode == "FG":
         grad = grad * label[..., None].to(grad.dtype)
     return grad
+
+
+# -- inverse problem: seg-guided ALD with proximal data consistency ---------
+
+def ald_inverse_seg_proximal_real_imag(
+    score_fn: ScoreFn,
+    sigmas,
+    measurement: torch.Tensor,
+    lin_tfm,
+    proximal,
+    seed: int = 0,
+    config: ALDConfig = ALDConfig(),
+    lr_scaled: float = 1.0,
+    seg_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    seg_label: Optional[torch.Tensor] = None,
+    seg_lamda: float = 1.0,
+    seg_start_time: float = 1.0,
+    seg_step_type: str = "linear",
+    seg_mode: str = "full",
+    snapshot_fn: Optional[Callable] = None,
+    noise: Optional[Noise] = None,
+    device="cuda",
+) -> torch.Tensor:
+    """The single-coil / SENSE reconstruction sampler on complex64
+    operators (reference: ALDInvSegProximalRealImag,
+    ALD_optimizers.py:161-327): a host loop over levels and inner steps.
+
+    It starts at A^H y. Each inner step runs one score forward over the
+    interleaved [Re, Im] batch (2B), adds the segmentation guidance
+    gradient g_seg / sigma * (lh_w * seg_lamda) where `seg_fn` is given
+    (its ramp from get_lh_weights, zero until `seg_start_time`), takes the
+    Langevin step of Re and Im, then the proximal step on z = x_re + i
+    x_im with alpha = step_lr * lr_scaled and lamda 1 (the unscaled
+    step_lr, as the reference's :247,313-315). A denoising step at the last
+    level ends the chain when config.denoise.
+
+    measurement, lin_tfm and proximal move to `device`; score_fn and seg_fn
+    must already run there. `seed` takes the place of the JAX PRNG key;
+    `noise(shape)` overrides it and is drawn Re, then Im, per inner step,
+    as the JAX key schedule splits (`key, k_re, k_im = split(key, 3)`).
+    seg_label: (B, H, W) int. snapshot_fn(level, sigma, x_re, x_im) runs on
+    the host every config.snapshot_every levels. Runs under
+    torch.inference_mode, or torch.no_grad with guidance (its gradient
+    needs autograd). Returns complex64 (B, H, W, C).
+    """
+    device = resolve_device(device)
+    if noise is None:
+        noise = gaussian_noise(seed, device)
+    sigmas = torch.as_tensor(sigmas, dtype=torch.float32).to(device)
+    L = sigmas.shape[0]
+    sigma_last = sigmas[-1]
+    lin_tfm, proximal = lin_tfm.to(device), proximal.to(device)
+    measurement = measurement.to(device)
+    use_seg = seg_fn is not None
+    if use_seg:
+        if seg_label is None:
+            raise ValueError("seg_fn given but seg_label is None")
+        label = torch.as_tensor(seg_label).to(device)
+        # the seg net sees Re and Im separately, the same label for both
+        seg_label2 = stack_parts(label, label)
+        lh_weights = get_lh_weights(sigmas, seg_start_time,
+                                    seg_step_type).to(device)
+    alpha = config.step_lr * lr_scaled
+    with torch.no_grad() if use_seg else torch.inference_mode():
+        x0 = lin_tfm.conj_op(measurement)
+        x_re, x_im = x0.real, x0.imag
+        for c in range(L):
+            sigma = sigmas[c]
+            step_size = config.step_lr * (sigma / sigma_last) ** 2
+            for _ in range(config.n_steps_each):
+                stacked = stack_parts(x_re, x_im)
+                grads = score_fn(stacked, _labels(stacked, c))
+                if use_seg:
+                    g_seg = compute_seg_grad(seg_fn, stacked, seg_label2,
+                                             seg_mode)
+                    grads = grads + g_seg / sigma * (lh_weights[c]
+                                                     * seg_lamda)
+                g_re, g_im = unstack_parts(grads)
+                x_re = _langevin_update(x_re, g_re, step_size,
+                                        noise(x_re.shape))
+                x_im = _langevin_update(x_im, g_im, step_size,
+                                        noise(x_im.shape))
+                z = proximal(torch.complex(x_re, x_im), measurement, alpha,
+                             1.0)
+                x_re, x_im = z.real, z.imag
+            if (snapshot_fn is not None and config.snapshot_every > 0
+                    and c % config.snapshot_every == 0):
+                snapshot_fn(c, float(sigma), x_re, x_im)
+        if config.denoise:
+            stacked = stack_parts(x_re, x_im)
+            g_re, g_im = unstack_parts(score_fn(stacked,
+                                                _labels(stacked, L - 1)))
+            x_re = x_re + sigma_last ** 2 * g_re
+            x_im = x_im + sigma_last ** 2 * g_im
+        return torch.complex(x_re, x_im)

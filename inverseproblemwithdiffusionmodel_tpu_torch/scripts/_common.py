@@ -26,7 +26,9 @@ from ..training.checkpoint import Checkpointer
 def save_artifacts(save_dir: str, args: Optional[Dict[str, Any]] = None,
                    **arrays: Any) -> str:
     """Save numpy arrays as .npy + args.json in a new timestamped directory
-    under save_dir; returns that directory."""
+    under save_dir; returns that directory. args.json also records the
+    datasets this process loaded (`data_provenance`), as in the JAX
+    package."""
     run_dir = os.path.join(save_dir,
                            datetime.now().strftime("%Y_%m_%d_%H_%M_%S_%f"))
     os.makedirs(run_dir, exist_ok=True)
@@ -37,6 +39,12 @@ def save_artifacts(save_dir: str, args: Optional[Dict[str, Any]] = None,
         payload = {k: (v if isinstance(v, (int, float, str, bool, list,
                                            type(None))) else str(v))
                    for k, v in args.items()}
+        # which datasets this process loaded, and whether each came from
+        # files or the synthetic stand-in
+        from ..data.datasets import data_provenance
+        prov = data_provenance()
+        if prov:
+            payload["data_provenance"] = prov
         with open(os.path.join(run_dir, "args.json"), "w") as f:
             json.dump(payload, f, indent=2, default=str)
     return run_dir

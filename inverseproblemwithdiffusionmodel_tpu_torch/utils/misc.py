@@ -1,12 +1,13 @@
 """Batch collation for the training steps, the synthetic phase, the 1-D
 foreground filter, and the Re/Im interleave of the inverse samplers.
 
-Port of `collate_batch`, `add_phase`, `filter_batch`, `stack_parts` and
-`unstack_parts` from inverseproblemwithdiffusionmodel_tpu/utils/misc.py
-(reference: helpers/load_data.py:324-440). The random draws (a global
-phase per sample, a low-resolution phase patch) come from a torch.Generator
-on the batch's device unless they are given: tests feed the numbers JAX
-draws.
+Port of `collate_batch`, `add_phase`, `filter_batch`, `stack_parts`,
+`unstack_parts` and `undersample_seg_mask` from
+inverseproblemwithdiffusionmodel_tpu/utils/misc.py (reference:
+helpers/load_data.py:324-440, helpers/utils.py:314-327). The random draws
+(a global phase per sample, a low-resolution phase patch, the kept seg
+pixels) come from a torch.Generator on the batch's device unless they are
+given: tests feed the numbers JAX draws.
 """
 from __future__ import annotations
 
@@ -120,3 +121,26 @@ def filter_batch(batch: torch.Tensor, th: float,
                                   device=batch.device) <= keep_prob)
     mask[0:2] = True
     return mask.float()
+
+
+def undersample_seg_mask(label: torch.Tensor, fraction: float,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """Keep exactly max(1, int(num_foreground * fraction)) of the
+    foreground (> 0) pixels of `label`, chosen uniformly: the kept pixels
+    are 1, all others 0, in label's dtype and shape (reference:
+    helpers/utils.py:314-327 randperm-selects that count). The uniform
+    ranks come from `generator`, on label's device."""
+    if not 0.0 <= fraction <= 1.0:
+        raise ValueError(f"fraction {fraction} outside [0, 1]")
+    flat = label.reshape(-1)
+    fg = flat > 0
+    k = torch.clamp_min(torch.floor(fg.sum() * fraction).long(), 1)
+    # foreground pixels ranked by i.i.d. uniforms; keep the k best ranks
+    scores = torch.where(fg, torch.rand(flat.shape, generator=generator,
+                                        device=flat.device), torch.inf)
+    ranks = torch.empty_like(flat, dtype=torch.long)
+    ranks[torch.argsort(scores)] = torch.arange(flat.numel(),
+                                                device=flat.device)
+    kept = ((ranks < k) & fg).to(flat.dtype)
+    return kept.reshape(label.shape)

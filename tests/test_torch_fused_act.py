@@ -124,3 +124,82 @@ def test_cuda_kernels_match_plain_versions():
         torch.testing.assert_close(dx, ref_dx, rtol=1e-6, atol=1e-6)
         torch.testing.assert_close(db, ref_dx.reshape(-1, shape[-1]).sum(0),
                                    rtol=1e-5, atol=1e-5)
+
+
+# -- bf16 -------------------------------------------------------------------
+# The port's bf16 forms compute in float32 and round once; the Pallas kernel
+# computes in bf16 (x + b, slope * v and scale * ... each rounded). The two
+# agree within 1 bf16 ulp of the largest |value|; db, a sum over rows of
+# the rounded dx in another order, within 2.
+
+def _bf16_ulp(ref: np.ndarray) -> float:
+    return 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+
+
+def _bf16(a: np.ndarray):
+    """(the torch bf16 tensor, the jnp bf16 array) of the same values."""
+    t = torch.from_numpy(a).bfloat16()
+    return t, jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("slope,scale", PARAMS)
+def test_bf16_forward_and_gradients_hold_to_pallas(shape, slope, scale):
+    x, b = _inputs(shape, seed=5)
+    g = np.random.RandomState(6).randn(*shape).astype(np.float32)
+    (xt, xj), (bt, bj), (gt, gj) = _bf16(x), _bf16(b), _bf16(g)
+    xt.requires_grad_()
+    bt.requires_grad_()
+    y = fl.fused_leaky_relu_kernel(xt, bt, slope, scale)
+    dx, db = torch.autograd.grad(y, (xt, bt), gt)
+    assert y.dtype == dx.dtype == db.dtype == torch.bfloat16
+    y_j, vjp = jax.vjp(lambda v, c: pk.fused_leaky_relu_pallas(v, c, slope,
+                                                               scale), xj, bj)
+    dx_j, db_j = vjp(gj)
+    assert y_j.dtype == dx_j.dtype == db_j.dtype == jnp.bfloat16
+    for ours, ref, ulps in ((y, y_j, 1), (dx, dx_j, 1), (db, db_j, 2)):
+        ref = np.asarray(ref, np.float32)
+        err = np.abs(ours.detach().float().numpy() - ref).max()
+        assert err <= ulps * _bf16_ulp(ref), (err, _bf16_ulp(ref))
+
+
+def test_bf16_plain_versions_round_the_float32_result_once():
+    x, b = _inputs((6, 16), seed=7)
+    g = np.random.RandomState(8).randn(6, 16).astype(np.float32)
+    xt, bt, gt = (torch.from_numpy(a).bfloat16() for a in (x, b, g))
+    for ours, ref in (
+            (fused_leaky_relu(xt, bt),
+             fused_leaky_relu(xt.float(), bt.float())),
+            (fl.fused_leaky_relu_bwd_plain(xt, bt, gt, 0.2, 2 ** 0.5),
+             fl.fused_leaky_relu_bwd_plain(xt.float(), bt.float(), gt.float(),
+                                           0.2, 2 ** 0.5))):
+        assert ours.dtype == torch.bfloat16
+        assert torch.equal(ours, ref.bfloat16())
+
+
+def test_wrapper_refuses_mixed_dtypes():
+    with pytest.raises(TypeError, match="same dtype"):
+        fl.fused_leaky_relu_kernel(torch.zeros(2, 4, dtype=torch.bfloat16),
+                                   torch.zeros(4))
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_kernels_match_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator().manual_seed(1)
+    for shape in [(2 * 64 * 64, 128), (2 * 16 * 16, 256), (7 * 5 * 5, 3),
+                  (3, 4, 5, 12)]:
+        x = torch.randn(*shape, generator=gen).bfloat16().cuda()
+        b = torch.randn(shape[-1], generator=gen).bfloat16().cuda()
+        g = torch.randn(*shape, generator=gen).bfloat16().cuda()
+        xg, bg = x.clone().requires_grad_(), b.clone().requires_grad_()
+        fl.LAUNCHES.clear()
+        y = fl.fused_leaky_relu_kernel(xg, bg)
+        dx, db = torch.autograd.grad(y, (xg, bg), g)
+        torch.cuda.synchronize()
+        assert fl.LAUNCHES == {"flr_fwd.bf16": 1, "flr_bwd.bf16": 1}
+        assert torch.equal(y, fused_leaky_relu(x, b))
+        ref_dx = fl.fused_leaky_relu_bwd_plain(x, b, g, 0.2, 2 ** 0.5)
+        assert torch.equal(dx, ref_dx)
+        assert torch.equal(db, ref_dx.reshape(-1, shape[-1]).sum(0))

@@ -84,6 +84,15 @@ def test_importing_the_port_loads_no_jax_module():
         "ddpm\n"
         "from inverseproblemwithdiffusionmodel_tpu_torch.sde import "
         "sampling, sde_lib\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.operators import "
+        "base, masking, proximal\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.ops import fft\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch import parallel\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.utils import "
+        "metrics\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.scripts import "
+        "acdc_SENSE_real_img, "
+        "acdc_inv_seg_sampling_keep_center_prox_real_imag\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -101,18 +110,24 @@ def test_no_source_of_the_port_imports_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+RECON_SCRIPTS = ["acdc_SENSE_real_img",
+                 "acdc_inv_seg_sampling_keep_center_prox_real_imag"]
+
+
 @pytest.mark.parametrize("script", ["pc_sampling", "profile_forward",
                                     "profile_forward --step --bf16",
                                     "serve_recon", "seg_grad_precision",
-                                    "train_ncsn"])
+                                    "train_ncsn"] + RECON_SCRIPTS)
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path, script):
     script, *flags = script.split()
     module = importlib.import_module(
         f"inverseproblemwithdiffusionmodel_tpu_torch.scripts.{script}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    save_dir = ["--save_dir", str(tmp_path)]
     argv = flags + {
-        "pc_sampling": ["--save_dir", str(tmp_path)],
-        "train_ncsn": ["--ds_name", "ACDC", "--log_dir", str(tmp_path)]
+        "pc_sampling": save_dir,
+        "train_ncsn": ["--ds_name", "ACDC", "--log_dir", str(tmp_path)],
+        **{name: save_dir for name in RECON_SCRIPTS},
     }.get(script, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main(argv)
@@ -215,6 +230,18 @@ def test_entry_point_runs_on_the_cpu_when_asked(tmp_path):
     assert samples.shape == (2, 16, 16, 3) and "(nfe=4)" in out.getvalue()
     (run_dir,) = list(tmp_path.iterdir())
     assert sorted(os.listdir(run_dir)) == ["args.json", "samples.npy"]
+
+
+def test_reconstruction_script_runs_on_the_cpu_when_asked(tmp_path):
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        acdc_inv_seg_sampling_keep_center_prox_real_imag as script)
+    with contextlib.redirect_stdout(io.StringIO()):
+        recons = script.main([
+            "--device", "cpu", "--save_dir", str(tmp_path), "--override",
+            "data.image_size=16", "--override", "model.ngf=4", "--override",
+            "recons.num_classes=2", "--num_steps_each", "1"])
+    assert isinstance(recons, np.ndarray) and recons.shape == (1, 16, 16, 1)
+    assert np.isfinite(recons).all()
 
 
 def test_unported_checkpoint_loading_raises(tmp_path):
