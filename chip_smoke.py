@@ -96,6 +96,23 @@ phases, each printing one line with its own seconds:
    CG 4, the same injected noise), level by level, gated after the first
    level; the complex sampler card vs CPU at 32 px (ngf 8, 2 levels);
    SENSE's adjointness on the card.
+10c. map_tv: the MAP and TV baselines at the ACDC geometry (NCSNv2Deepest
+   256 px, ngf 128, seed 0; the ACDC loader's synthetic test slice),
+   torch's defaults: acdc_SENSE_MAP.main (4 coils, R = 8, lamda 0.1, the
+   config's 200 Adam iterations), acdc_MAP.main and
+   acdc_MAP_keep_center.main (20 of the 200 iterations) and
+   acdc_SENSE_TV.main (4 coils, R = 8, 200 iterations; its TV objective
+   must fall below the one at A^H y): iterations/s of the optimizer alone
+   (between CUDA synchronizations, the set-up apart), wall s, peak memory,
+   NRMSE / SSIM (finite); one MAP iteration split by CUDA events (the net
+   at batch 2, the data gradient, the Adam update) and profiled (launches
+   per iteration, the device's idle share). In the float32 mode: the first
+   ascent directions of map_optimizer, map_optimizer_pair and the stepped
+   pair optimizer (and of the two TV forms) at three starts, gated at 1e-5
+   from zero and at 1e-5 times the data term's cancellation factor kappa
+   at and near A^H y; the forms after 200 iterations within the bounds of
+   tests/test_torch_map_long.py, which a doubled-weight control must
+   break; a tiny MAP direction card vs CPU.
 11. serve: the serving entry point at the recon geometry, for f32 and
    bf16: scripts.serve_recon.build_engine (weights from seed 0), the
    engine's warm-up, 3 requests over HTTP on 127.0.0.1 (npz in and out:
@@ -124,6 +141,18 @@ phases, each printing one line with its own seconds:
    spatial net, the temporal step and net, the proximal and the rest,
    and profiled; card against CPU: the full-width NCSN1D and one inner
    step on one chain, random shift off and on.
+12b. cine_complex: the complex 2D+time CLIs at the cine geometry (CINE127
+   128 px, T = 24, 4 coils, R = 8; both nets ngf 128, seed 0), torch's
+   defaults: cine_SENSE_real_img_2d_time.main (4 chains, diffusion1d,
+   lr_scaled 5.0, CG 8 on cuFFT, 8 of the 1000 levels): chain-steps/s of
+   ald_2d_time alone, wall s, peak memory, NRMSE / SSIM (finite), and the
+   ratio to Stepped2DTimePairReconstructor on the same problem and seed;
+   in the float32 mode on one chain the complex form against the pair form
+   level by level, gated after levels 0 and 7 at 1e-4; the modes tv, none
+   and tv-only at 2 levels (finite); cine_SENSE_real_img_2d_time_MAP.main
+   (1 chain, 20 of the 200 iterations): iterations/s, peak memory;
+   cine_inv_sampling_keep_center_prox_real_imag.main (4 chains, 8 levels):
+   chain-steps/s.
 13. train_ncsn: discrete score training through scripts.train_ncsn.main
    on the loaders' synthetic stand-ins (train_ncsn_phase): ACDC
    real-imag, NCSNv2Deepest at full width (256 px, ngf 128, seed 0), at
@@ -168,9 +197,8 @@ batch >= 2; PERF.md), so the card computes in float32 like the reference.
 The sampling and training runs themselves use torch's defaults, as a
 user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
-sense, serve, cine, train_ncsn, each train_bf16 run, each sample_vp run)
-and read
-just after it. Any failure raises and
+sense, map_tv, serve, cine, cine_complex, train_ncsn, each train_bf16
+run, each sample_vp run) and read just after it. Any failure raises and
 exits non-zero. Phases 9 to 15 print their numbers as one JSON line
 before `total`. The last
 lines are nvidia-smi's name and power limit, a JSON line of per-kernel
@@ -242,6 +270,24 @@ CINE_LEVELS = 8            # of the config's 1000
 CINE_WIN = 8               # 8 x 8 pixel tubes: the temporal net's 64 channels
 CINE_LAMDA_T = 0.5         # the in-process request's temporal weight
 CINE_CHECK_LEVEL = 1       # the first level with a temporal step
+# The MAP and TV baselines at the ACDC geometry (map_tv) and the complex
+# 2D+time cine CLIs at the cine geometry (cine_complex)
+MAP_LAMDA = 0.1            # the MAP scripts' default prior weight
+MAP_SIDE_ITERS = 20        # acdc_MAP, acdc_MAP_keep_center: of the 200
+MAP_SPLIT_ITERS = 10       # iterations split by CUDA events and profiled
+MAP_DIR_REL_L2 = 1e-5      # first ascent directions: the forms, card vs CPU
+# The forms after the config's 200 iterations, float32 mode: b1 = b2 = 0.5
+# makes Adam nearly sign descent, which hovers about the optimum on the
+# side rounding decides. The bounds of tests/test_torch_map_long.py (read
+# there at 16 px: MAP 5.95e-3 rel L2, TV 3.72e-3), which a control with
+# the prior or TV weight doubled must break
+MAP_LONG_REL = 3e-2        # rel L2 of two forms' iterates
+MAP_LONG_FAR_SHARE = 0.25  # share of elements more than 5 lr apart
+CINE_COMPLEX_CHAINS = 4    # the 2D+time CLI and the single-frame CLI
+CINE_COMPLEX_GATES = (0, 7)  # complex vs pair form gated after these levels
+CINE_F32_CHAINS = 1        # the float32-mode comparison: of the CLI's 4
+CINE_MODE_LEVELS = 2       # the tv, none and tv-only runs
+CINE_MAP_ITERS = 20        # cine_SENSE_real_img_2d_time_MAP: of the 200
 # Discrete score training through scripts.train_ncsn on the loaders'
 # synthetic stand-ins (24 + 6 ACDC slices at 256 px; 12 + 4 cine videos
 # as 8 x 8 tubes of 24 frames): run name -> (its flags, steps)
@@ -1532,11 +1578,8 @@ def cine_phase(fk, fl, device="cuda") -> dict:
 def profile_level(recon, yr, yi, n_steps, device, level: int = 0) -> dict:
     """One level step (n_steps inner steps at `level`) of `recon` timed by
     CUDA events
-    and by the host clock, then the same under torch.profiler: the top 10
-    device kernels and the top 10 operators by device time (with call
-    counts), launches per inner step, and the device's idle share of the
-    profiled window."""
-    from torch.profiler import ProfilerActivity, profile
+    and by the host clock, then the same under torch.profiler
+    (profile_calls)."""
     from inverseproblemwithdiffusionmodel_tpu_torch.utils.device import (
         gaussian_noise)
     noise = gaussian_noise(7, device)
@@ -1544,13 +1587,27 @@ def profile_level(recon, yr, yi, n_steps, device, level: int = 0) -> dict:
         xr, xi, prox = recon.start(yr, yi)
         step = lambda: recon.level_step(prox, xr, xi, yr, yi, level, noise)
         device_ms, host_ms = cuda_ms(step, reps=3, host=True)
+        prof = profile_calls(step, n_steps)
+    return dict(level_device_ms=device_ms, level_host_ms=host_ms,
+                launches_per_inner_step=prof.pop("launches_per_unit"),
+                device_events_per_inner_step=prof.pop(
+                    "device_events_per_unit"), **prof)
+
+
+def profile_calls(step, n_units: int) -> dict:
+    """`step()` once under torch.profiler after a synchronize: the wall and
+    the kernels' ms, the device's idle share of the window, launches and
+    device events per unit (`step` covering n_units of them), the top 10
+    device kernels and the top 10 operators by device time (with call
+    counts)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_run = time.perf_counter()
+        step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t_run = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t_run)
+        wall_us = 1e6 * (time.perf_counter() - t_run)
     events = prof.key_averages()
     kernels = sorted((e for e in events if e.device_type.name == "CUDA"),
                      key=lambda e: -e.device_time_total)
@@ -1561,11 +1618,10 @@ def profile_level(recon, yr, yi, n_steps, device, level: int = 0) -> dict:
     launches = sum(e.count for e in events if e.key.startswith(
         ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")))
     return dict(
-        level_device_ms=device_ms, level_host_ms=host_ms,
         profiled_wall_ms=wall_us / 1e3, profiled_device_ms=device_us / 1e3,
         idle_share=idle_share(prof, wall_us),
-        launches_per_inner_step=launches / n_steps,
-        device_events_per_inner_step=sum(e.count for e in kernels) / n_steps,
+        launches_per_unit=launches / n_units,
+        device_events_per_unit=sum(e.count for e in kernels) / n_units,
         top_kernels=[(e.key[:90], e.count, e.device_time_total / 1e3)
                      for e in kernels[:10]],
         top_ops=[(e.key, e.count, e.self_device_time_total / 1e3)
@@ -2358,14 +2414,18 @@ def report_train_ncsn(tn: dict, t: float) -> None:
         f"CPU side {tn['cpu_check_s']:.1f} s); no K1/K2/K4 launch")
 
 
-def sense_cli(module, argv: list) -> dict:
-    """`module.main(argv)` (one of the complex reconstruction scripts) with
-    its output echoed indented: the reconstructions, the wall seconds, the
-    sampler's seconds alone (ald_inverse_seg_proximal_real_imag between
-    CUDA synchronizations; the config, data, operator and net set-up
-    apart), the peak memory and the NRMSE / SSIM it prints."""
-    sampler = module.ald_inverse_seg_proximal_real_imag
-    seconds = []
+def timed_cli(module, argv: list, owner=None,
+              name: str = "ald_inverse_seg_proximal_real_imag") -> dict:
+    """`module.main(argv)` (one of the reconstruction scripts) with its
+    output echoed indented: the reconstructions, the wall seconds, the
+    seconds of its one call of `owner.name` alone (the sampler or
+    optimizer, between CUDA synchronizations; the config, data, operator
+    and net set-up apart) with that call's arguments and output, the peak
+    memory and the NRMSE / SSIM it prints. `owner` is the module whose
+    global `name` main calls (default `module`)."""
+    owner = owner or module
+    sampler = getattr(owner, name)
+    seconds, calls = [], []
 
     def timed(*args, **kwargs):
         torch.cuda.synchronize()
@@ -2373,11 +2433,12 @@ def sense_cli(module, argv: list) -> dict:
         out = sampler(*args, **kwargs)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t_run)
+        calls.append((args, kwargs, out))
         return out
 
-    save_dir = tempfile.mkdtemp(prefix="chip_smoke_sense_")
+    save_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     out = io.StringIO()
-    module.ald_inverse_seg_proximal_real_imag = timed
+    setattr(owner, name, timed)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2389,16 +2450,16 @@ def sense_cli(module, argv: list) -> dict:
         artifacts = sorted(os.listdir(os.path.join(
             save_dir, os.listdir(save_dir)[0])))
     finally:
-        module.ald_inverse_seg_proximal_real_imag = sampler
+        setattr(owner, name, sampler)
         shutil.rmtree(save_dir, ignore_errors=True)
     for line in out.getvalue().splitlines():
         print(f"    {line}", flush=True)
     found = re.search(r"NRMSE (\S+)\s+SSIM (\S+)", out.getvalue())
     if found is None or len(seconds) != 1:
         raise AssertionError(f"{module.__name__}: no NRMSE / SSIM printed "
-                             f"or {len(seconds)} sampler calls")
+                             f"or {len(seconds)} calls of {name}")
     return dict(recons=recons, wall_s=wall, sampler_s=seconds[0],
-                peak=torch.cuda.max_memory_allocated(),
+                call=calls[0], peak=torch.cuda.max_memory_allocated(),
                 nrmse=float(found.group(1)), ssim=float(found.group(2)),
                 artifacts=artifacts)
 
@@ -2457,8 +2518,9 @@ def sense_phase(fk, fl, device="cuda") -> dict:
             "--lr_scaled", str(ACDC_LR_SCALED), "--seg_start_time", "0.5"]),
     }
     for name, (module, chains, flags) in runs.items():
-        r = sense_cli(module, flags + common + ["--num_samples", str(chains)])
+        r = timed_cli(module, flags + common + ["--num_samples", str(chains)])
         recons = r.pop("recons")
+        del r["call"]
         if not (isinstance(recons, np.ndarray)
                 and recons.dtype == np.complex64
                 and recons.shape == (chains, size, size, 1)
@@ -2617,6 +2679,526 @@ def report_sense(sn: dict, t: float, recon_f32: float) -> None:
         f"{sn['tiny_card_vs_cpu_rel_l2']:.3g} (<= {MODEL_REL_L2}); SENSE "
         f"adjointness {sn['adjoint_rel']:.3g} (<= {ADJOINT_REL}); no "
         f"K1/K2/K4 launch")
+
+
+def map_parting(a: torch.Tensor, b: torch.Tensor, lr: float) -> dict:
+    """Two iterates (complex or (re, im) stacked last): rel L2, the share
+    of elements more than lr apart and more than 5 lr apart."""
+    a, b = (torch.view_as_real(v) if v.is_complex() else v for v in (a, b))
+    d = (a.double() - b.double()).abs()
+    return dict(rel_l2=rel_l2(a, b), share_lr=float((d > lr).double().mean()),
+                share_5lr=float((d > 5 * lr).double().mean()))
+
+
+def map_within(p: dict) -> bool:
+    return p["rel_l2"] <= MAP_LONG_REL and p["share_5lr"] <= MAP_LONG_FAR_SHARE
+
+
+@contextlib.contextmanager
+def first_ascent(point, into: dict, form: str):
+    """Inside the block map_optimizer, map_optimizer_pair and
+    tv_reconstruction(_pair) evaluate their ascent direction once at
+    `point` (an (re, im) pair) into into[form] instead of running Adam."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers import (
+        map_opt, map_pair)
+
+    def run(ascent, x0, config):
+        into[form] = torch.stack(ascent(*point))
+        return x0
+
+    saved = map_opt._run_adam, map_pair._run_adam
+    map_opt._run_adam = map_pair._run_adam = run
+    try:
+        yield
+    finally:
+        map_opt._run_adam, map_pair._run_adam = saved
+
+
+def map_tv_phase(fk, fl, device="cuda") -> dict:
+    """The MAP and TV baselines at the ACDC geometry (NCSNv2Deepest 256 px,
+    ngf 128, weights from seed 0; the ACDC loader's synthetic test slice
+    and phase), torch's defaults: acdc_SENSE_MAP.main (4 coils, R = 8,
+    lamda 0.1, the config's 200 Adam iterations), acdc_MAP.main and
+    acdc_MAP_keep_center.main at MAP_SIDE_ITERS iterations, and
+    acdc_SENSE_TV.main (4 coils, R = 8, 200 iterations; gate: its TV
+    objective below the one at A^H y): iterations/s of the optimizer alone,
+    wall s, peak memory, NRMSE / SSIM (finite). A MAP iteration split by
+    CUDA events into the net forward at batch 2, the data gradient (SENSE
+    forward and adjoint on cuFFT), the Adam update and the rest; launches
+    and the device's idle share under the profiler. In the float32 mode:
+    the first ascent directions of map_optimizer, map_optimizer_pair and
+    the stepped pair optimizer at one point, the three after 200
+    iterations against the bounds and a doubled-lamda control; the same
+    for tv_reconstruction and its pair form; a tiny MAP direction card vs
+    CPU. Launches no K1, K2 or K4."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import (
+        NCSNv2Deepest, make_score_fn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators import (
+        make_sense)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.pair import (
+        PairSENSE)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers import (
+        map_opt, map_pair)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        get_sigmas, sigma_ladder)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        acdc_MAP, acdc_MAP_keep_center, acdc_SENSE_MAP, acdc_SENSE_TV)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    cfg, model = acdc_model()
+    size = cfg.data.image_size
+    n_iters = cfg.MAP.n_iters
+    numbers = {}
+    common = ["--seed", "0", "--device", str(device)]
+    coils = ["--R", str(ACDC_R), "--num_sens", str(ACDC_COILS)]
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    runs = {
+        "sense_map": (acdc_SENSE_MAP, acdc_MAP, "map_optimizer", coils + [
+            "--lamda", str(MAP_LAMDA)], n_iters),
+        "map": (acdc_MAP, acdc_MAP, "map_optimizer", [
+            "--n_iters", str(MAP_SIDE_ITERS)], MAP_SIDE_ITERS),
+        "map_keep_center": (acdc_MAP_keep_center, acdc_MAP, "map_optimizer",
+                            ["--R", str(ACDC_R), "--n_iters",
+                             str(MAP_SIDE_ITERS)], MAP_SIDE_ITERS),
+        "sense_tv": (acdc_SENSE_TV, acdc_SENSE_TV, "tv_reconstruction",
+                     coils, n_iters),
+    }
+    for name, (module, owner, fn, flags, iters) in runs.items():
+        r = timed_cli(module, flags + common, owner, fn)
+        recons = r.pop("recons")
+        (args, kwargs, out) = r.pop("call")
+        if not (isinstance(recons, np.ndarray)
+                and recons.dtype == np.complex64
+                and recons.shape == (1, size, size, 1)
+                and np.isfinite(recons).all()
+                and np.isfinite([r["nrmse"], r["ssim"]]).all()):
+            raise AssertionError(f"{name}: reconstruction "
+                                 f"{getattr(recons, 'shape', None)}, NRMSE "
+                                 f"{r['nrmse']}, SSIM {r['ssim']}")
+        r["iters"] = iters
+        r["iters_per_s"] = iters / r["sampler_s"]
+        if name == "sense_tv":
+            y, op, weight = args[:3]
+            with torch.no_grad():
+                objective = lambda x: float(
+                    0.5 * torch.sum(torch.abs(op(x) - y) ** 2)
+                    + weight * map_opt.tv_norm_noncircular(x, (1, 2)))
+                r["objective"] = dict(start=objective(op.conj_op(y)),
+                                      end=objective(out))
+            if not r["objective"]["end"] < r["objective"]["start"]:
+                raise AssertionError(f"TV objective {r['objective']}")
+        numbers[name] = r
+        del args, kwargs, out
+    no_kernel_launches(fk, fl, "the MAP and TV scripts")
+
+    # One MAP iteration of the SENSE problem split by CUDA events, torch's
+    # defaults, as acdc_SENSE_MAP runs it (map_optimizer's ascent and
+    # _run_adam's step, written out)
+    model = model.to(device)
+    sigmas = get_sigmas(cfg, "recons")
+    score = make_score_fn(model, sigmas)
+    op = make_sense("exp", ACDC_COILS, ACDC_R, 1 / 16, (size, size, 1),
+                    seed=0, num_frames=1).to(device)
+    gen = torch.Generator().manual_seed(0)
+    mag = torch.rand(1, size, size, 1, generator=gen)
+    phase = torch.randn(1, size, size, 1, generator=gen)
+    x_true = torch.polar(mag, phase).to(device)
+    with torch.no_grad():
+        y = op(x_true)
+        x0 = op.conj_op(y)
+    map_cfg = map_opt.MAPConfig(n_iters=n_iters, lr=cfg.MAP.lr)
+    timer = PhaseTimer()
+    net = timer.wrap("net_forward", lambda xr, xi: map_opt._score_pair(
+        score, xr, xi, 1))
+    data = timer.wrap("data_gradient", lambda xr, xi: op.log_lh_grad(
+        torch.complex(xr, xi), y, 1.0))
+    adam = timer.wrap("adam_update", map_opt.adam_step)
+
+    def iteration(params, state):
+        g = data(*params)
+        s_re, s_im = net(*params)
+        return adam(params, (-(g.real + MAP_LAMDA * s_re),
+                             -(g.imag + MAP_LAMDA * s_im)), state, map_cfg)
+
+    timed_iteration = timer.wrap("iteration", iteration)
+
+    def iterations(n, params, state):
+        for _ in range(n):
+            params, state = timed_iteration(params, state)
+        return params, state
+
+    with torch.inference_mode():
+        params, state = iteration((x0.real, x0.imag),
+                                  map_opt.adam_init((x0.real, x0.imag)))
+        timer.events.clear()
+        params, state = iterations(MAP_SPLIT_ITERS, params, state)
+        split = {k: v / MAP_SPLIT_ITERS for k, v in timer.ms().items()}
+        split["rest"] = split["iteration"] - sum(
+            split[k] for k in ("net_forward", "data_gradient",
+                               "adam_update"))
+        prof = profile_calls(lambda: iterations(MAP_SPLIT_ITERS, params,
+                                                state), MAP_SPLIT_ITERS)
+    numbers["iteration"] = dict(split_ms=split, **prof)
+    no_kernel_launches(fk, fl, "the MAP iteration")
+
+    # Float32 mode: the three MAP forms and the two TV forms on this
+    # problem, first at one point, then after the config's 200 iterations.
+    # The forms' data terms A^H (y - A x) differ by the rounding of A x
+    # (cuFFT against the pair DFT, a few 1e-7 of |y|), which reaches the
+    # direction scaled by kappa = |y| / |direction|; near A^H y the
+    # residual cancels A x against y and kappa is 25 to 50. So the
+    # directions are gated at MAP_DIR_REL_L2 from a zero start (x_init = 0,
+    # kappa about 1), and at MAP_DIR_REL_L2 * kappa at A^H y (the runs'
+    # start) and at a start 10 % of A^H y's rms off it; the stepped form
+    # runs the pair form's operations and is gated at MAP_DIR_REL_L2
+    # everywhere.
+    pair_op = PairSENSE(mask=op.base.mask,
+                        sens_re=op.sens_maps.real.contiguous(),
+                        sens_im=op.sens_maps.imag.contiguous())
+    y_pair = (y.real.contiguous(), y.imag.contiguous())
+    start = (x0.real.contiguous(), x0.imag.contiguous())
+    rms = torch.view_as_real(x0).pow(2).mean().sqrt()
+    off = tuple(v + 0.1 * rms * torch.randn(v.shape, generator=gen).to(device)
+                for v in start)
+    zero = tuple(torch.zeros_like(v) for v in start)
+    stepped = map_pair.make_stepped_map_pair_optimizer(
+        model, sigmas, pair_op, map_cfg, device=device)
+    forms = {
+        "complex": lambda w: torch.view_as_real(map_opt.map_optimizer(
+            score, y, op, w, map_cfg, device=device)),
+        "pair": lambda w: torch.stack(map_pair.map_optimizer_pair(
+            score, y_pair, pair_op, w, map_cfg, device=device), -1),
+        "stepped": lambda w: torch.stack(stepped(model, *y_pair, w), -1),
+        "tv_complex": lambda w: torch.view_as_real(
+            map_opt.tv_reconstruction(y, op, w, map_cfg, device=device)),
+        "tv_pair": lambda w: torch.stack(map_pair.tv_reconstruction_pair(
+            y_pair, pair_op, w, map_cfg, device=device), -1),
+    }
+    tv_weight = 1e-3                    # acdc_SENSE_TV's --reg_weight
+    first = {}
+    with float32_exact():
+        for where, point in (("zero_start", zero), ("off_start", off),
+                             ("at_ahy", start)):
+            dirs = {}
+            for form in ("complex", "pair", "tv_complex", "tv_pair"):
+                with first_ascent(point, dirs, form):
+                    forms[form](tv_weight if form.startswith("tv") else
+                                MAP_LAMDA)
+            saved = map_pair.adam_step
+            map_pair.adam_step = lambda p, g, s, c: (
+                dirs.__setitem__("stepped", -torch.stack(g)), (p, s))[1]
+            try:
+                with torch.inference_mode():
+                    _, state0 = stepped.start(*y_pair)
+                    stepped.step(stepped.score_fn(model), point, state0,
+                                 *y_pair, torch.tensor(MAP_LAMDA,
+                                                       device=device))
+            finally:
+                map_pair.adam_step = saved
+            y_norm = torch.view_as_real(y).norm()
+            first[where] = dict(
+                complex_vs_pair=rel_l2(dirs["complex"], dirs["pair"]),
+                stepped_vs_pair=rel_l2(dirs["stepped"], dirs["pair"]),
+                tv_complex_vs_pair=rel_l2(dirs["tv_complex"],
+                                          dirs["tv_pair"]),
+                kappa=float(y_norm / dirs["pair"].norm()),
+                tv_kappa=float(y_norm / dirs["tv_pair"].norm()))
+    numbers["first_ascent_rel_l2"] = first
+    def held(where, scaled):
+        f = first[where]
+        k, k_tv = (f["kappa"], f["tv_kappa"]) if scaled else (1.0, 1.0)
+        return (f["complex_vs_pair"] <= MAP_DIR_REL_L2 * k
+                and f["tv_complex_vs_pair"] <= MAP_DIR_REL_L2 * k_tv
+                and f["stepped_vs_pair"] <= MAP_DIR_REL_L2)
+
+    if not (held("zero_start", False) and held("off_start", True)
+            and held("at_ahy", True)):
+        raise AssertionError(f"first ascent directions {first}")
+    with float32_exact():
+        ends = {form: run(tv_weight if form.startswith("tv") else MAP_LAMDA)
+                for form, run in forms.items()}
+        ends["control"] = forms["pair"](2 * MAP_LAMDA)
+        ends["tv_control"] = forms["tv_pair"](2 * tv_weight)
+    lr = map_cfg.lr
+    numbers["after_200"] = long = {
+        "complex_vs_pair": map_parting(ends["complex"], ends["pair"], lr),
+        "stepped_vs_pair": map_parting(ends["stepped"], ends["pair"], lr),
+        "control_vs_pair": map_parting(ends["control"], ends["pair"], lr),
+        "tv_complex_vs_pair": map_parting(ends["tv_complex"],
+                                          ends["tv_pair"], lr),
+        "tv_control_vs_pair": map_parting(ends["tv_control"],
+                                          ends["tv_pair"], lr)}
+    passed = {k: map_within(v) for k, v in long.items()}
+    if not all(ok != ("control" in k) for k, ok in passed.items()):
+        raise AssertionError(f"after {n_iters} iterations: {long}")
+    del ends, stepped, model
+    no_kernel_launches(fk, fl, "the MAP and TV forms")
+
+    # A tiny MAP direction card vs CPU at 32 px (ngf 8), float32 mode
+    tiny = load_config("ACDC", "real-imag",
+                       **{"data.image_size": 32, "model.ngf": 8})
+    net_cpu = seeded_weights(NCSNv2Deepest(tiny), seed=0).eval()
+    tiny_sigmas = sigma_ladder(tiny.recons.sigma_begin, tiny.recons.sigma_end,
+                               4, "geometric")
+    tiny_op = make_sense("exp", ACDC_COILS, ACDC_R, 1 / 16, (32, 32, 1),
+                         seed=0, num_frames=1)
+    tiny_y = tiny_op(torch.polar(torch.rand(1, 32, 32, 1, generator=gen),
+                                 torch.randn(1, 32, 32, 1, generator=gen)))
+    tiny_point = tuple(torch.rand(2, 1, 32, 32, 1, generator=gen))
+    tiny_dirs = {}
+    with float32_exact():
+        for dev in (device, "cpu"):
+            with first_ascent(tuple(v.to(dev) for v in tiny_point),
+                              tiny_dirs, str(dev)):
+                map_opt.map_optimizer(
+                    make_score_fn(copy.deepcopy(net_cpu).to(dev),
+                                  tiny_sigmas), tiny_y, tiny_op, MAP_LAMDA,
+                    device=dev)
+    numbers["tiny_card_vs_cpu_rel_l2"] = tiny_rel = rel_l2(
+        tiny_dirs[str(device)].cpu(), tiny_dirs["cpu"])
+    if not tiny_rel <= MAP_DIR_REL_L2:
+        raise AssertionError(f"tiny MAP direction card vs CPU: {tiny_rel}")
+    return numbers
+
+
+def report_map_tv(mt: dict, t: float) -> None:
+    for name in ("sense_map", "map", "map_keep_center", "sense_tv"):
+        r = mt[name]
+        print(f"    {name}: wall {r['wall_s']:.2f} s, optimizer "
+              f"{r['sampler_s']:.4f} s for {r['iters']} iterations, "
+              f"{r['iters_per_s']:.2f} iterations/s, peak {r['peak']} bytes, "
+              f"NRMSE {r['nrmse']} SSIM {r['ssim']} (random weights: only "
+              f"checked finite), artifacts {r['artifacts']}", flush=True)
+    it = mt["iteration"]
+    split = ", ".join(f"{k} {v:.3f}" for k, v in it["split_ms"].items())
+    print(f"    one MAP iteration (4-coil SENSE, the net at batch 2): device "
+          f"ms by part: {split}; profiled over {MAP_SPLIT_ITERS} iterations: "
+          f"wall {it['profiled_wall_ms']:.2f} ms, kernels "
+          f"{it['profiled_device_ms']:.2f} ms, idle share "
+          f"{it['idle_share']:.4f}, launches per iteration "
+          f"{it['launches_per_unit']:.1f}", flush=True)
+    for label, rows in (("kernel", it["top_kernels"]),
+                        ("op", it["top_ops"])):
+        for key, calls, ms in rows:
+            print(f"    top {label}: {ms:.3f} ms over {calls} calls | {key}",
+                  flush=True)
+    say("map_tv", t, f"acdc_SENSE_MAP.main at full width (NCSNv2Deepest 256 "
+        f"px, ngf 128, seed 0), {ACDC_COILS} coils, R = {ACDC_R}, lamda "
+        f"{MAP_LAMDA}, {mt['sense_map']['iters']} Adam iterations: "
+        f"{mt['sense_map']['iters_per_s']:.2f} iterations/s; acdc_MAP "
+        f"{mt['map']['iters_per_s']:.2f} and acdc_MAP_keep_center "
+        f"{mt['map_keep_center']['iters_per_s']:.2f} at {MAP_SIDE_ITERS} "
+        f"iterations (of 200); acdc_SENSE_TV "
+        f"{mt['sense_tv']['iters_per_s']:.2f} iterations/s, TV objective "
+        f"{json.dumps(mt['sense_tv']['objective'])} (end < start); an "
+        f"iteration {mt['iteration']['split_ms']['iteration']:.2f} ms, idle "
+        f"share {mt['iteration']['idle_share']:.4f}; float32 mode: "
+        f"first ascent rel L2 {json.dumps(mt['first_ascent_rel_l2'])} (from "
+        f"zero <= {MAP_DIR_REL_L2}; at and off A^H y <= {MAP_DIR_REL_L2} x "
+        f"kappa; the stepped form <= {MAP_DIR_REL_L2}); after 200 iterations "
+        f"{json.dumps(mt['after_200'])} (forms within rel L2 <= "
+        f"{MAP_LONG_REL} and share > 5 lr <= {MAP_LONG_FAR_SHARE}, the "
+        f"doubled-weight controls outside); tiny direction card vs CPU "
+        f"{mt['tiny_card_vs_cpu_rel_l2']:.3g} (<= {MAP_DIR_REL_L2}); no "
+        f"K1/K2/K4 launch")
+
+
+def cine_complex_phase(fk, fl, device="cuda") -> dict:
+    """The complex 2D+time cine CLIs at the cine phase's geometry (CINE127
+    128 px, T = 24, 4 coils, per-frame R = 8; CINE127 NCSNv2Deepest and
+    CINE127_1D NCSN1D, ngf 128 each, weights from seed 0), torch's
+    defaults: cine_SENSE_real_img_2d_time.main (4 chains, diffusion1d,
+    lr_scaled 5.0, L2Penalty CG 8, the recons ladder cut to 8 of 1000
+    levels): chain-steps/s of ald_2d_time alone, wall s, peak memory,
+    NRMSE / SSIM (finite), and the pair reconstructor
+    (Stepped2DTimePairReconstructor, the same score functions, pair SENSE,
+    CG 8 on the normal kernel) on the same problem and seed for the ratio.
+    In the float32 mode, on CINE_F32_CHAINS chain: the complex form
+    against the pair form level by level, gated after CINE_COMPLEX_GATES.
+    The modes tv, none and tv-only at CINE_MODE_LEVELS levels: finite.
+    cine_SENSE_real_img_2d_time_MAP.main (1 chain, diffusion1d,
+    CINE_MAP_ITERS iterations): iterations/s, peak. The single-frame
+    cine_inv_sampling_keep_center_prox_real_imag.main (4 chains, 8 levels):
+    chain-steps/s. Launches no K1, K2 or K4."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.pair import (
+        PairL2Penalty, PairSENSE)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
+        ALDConfig, ald_2d_time)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald_pair import (
+        Stepped2DTimePairReconstructor)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        sigma_ladder)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        cine_SENSE_real_img_2d_time as cine_script,
+        cine_SENSE_real_img_2d_time_MAP as cine_map_script,
+        cine_inv_sampling_keep_center_prox_real_imag as frame_script)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.device import (
+        gaussian_noise)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    T, chains = CINE_FRAMES, CINE_COMPLEX_CHAINS
+    size = load_config("CINE127", "real-imag").data.image_size
+    common = ["--seed", "0", "--device", str(device)]
+    levels = ["--override", f"recons.num_classes={CINE_LEVELS}"]
+    numbers = {}
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    r = timed_cli(cine_script, common + levels + [
+        "--num_samples", str(chains), "--mode_T", "diffusion1d",
+        "--lr_scaled", "5.0", "--proximal_type", "L2Penalty", "--R", "8",
+        "--num_sens", "4", "--num_frames", str(T), "--image_size",
+        str(size), "--win_size", str(CINE_WIN)], name="ald_2d_time")
+    recons = r.pop("recons")
+    args, kwargs, _ = r.pop("call")
+    if not (recons.dtype == np.complex64
+            and recons.shape == (chains, T, size, size, 1)
+            and np.isfinite(recons).all()
+            and np.isfinite([r["nrmse"], r["ssim"]]).all()):
+        raise AssertionError(f"cine CLI: {recons.shape} {recons.dtype}, "
+                             f"NRMSE {r['nrmse']}, SSIM {r['ssim']}")
+    n_steps = kwargs["config"].n_steps_each
+    r["chain_steps"] = CINE_LEVELS * n_steps * chains
+    r["chain_steps_per_s"] = r["chain_steps"] / r["sampler_s"]
+    numbers["cli"] = r
+    del recons
+
+    # The pair reconstructor on the CLI's problem, the same score
+    # functions, seed and CG iterations (CG on the normal kernel)
+    score_S, score_T, sigmas_S, sigmas_T, y, op, prox = args
+    maps = op.sens_maps
+
+    def pair_problem(n_chains):
+        pop = PairSENSE(mask=op.base.mask[:n_chains * T],
+                        sens_re=maps.real.contiguous(),
+                        sens_im=maps.imag.contiguous())
+        yb = y[:, :n_chains * T]
+        return (pop, PairL2Penalty.with_normal_kernel(
+            pop, num_iters=prox.num_iters), yb.real.contiguous(),
+            yb.imag.contiguous())
+
+    pop, pprox, yr, yi = pair_problem(chains)
+    common_kw = dict(lr_scaled=kwargs["lr_scaled"], mode_T="diffusion1d",
+                     lamda_T=kwargs["lamda_T"], win_size=CINE_WIN,
+                     num_frames=T, device=device)
+    pair_recon = Stepped2DTimePairReconstructor(
+        score_S, score_T, sigmas_S, sigmas_T, pop, pprox, kwargs["config"],
+        **common_kw)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    out = pair_recon(yr, yi, seed=0)
+    torch.cuda.synchronize()
+    numbers["pair_chain_steps_per_s"] = r["chain_steps"] / (
+        time.perf_counter() - t_run)
+    numbers["complex_over_pair"] = (r["chain_steps_per_s"]
+                                    / numbers["pair_chain_steps_per_s"])
+    if not all(torch.isfinite(v).all() for v in out):
+        raise AssertionError("cine pair reconstructor: not finite")
+    del out, pair_recon
+
+    # Float32 mode: complex vs pair form level by level on one chain
+    snap = ALDConfig(n_steps_each=n_steps, step_lr=kwargs["config"].step_lr,
+                     snapshot_every=1)
+    by_form = {"complex": [], "pair": []}
+    keep = lambda form: lambda c, sigma, a, b: by_form[form].append(
+        torch.stack([a, b], -1).cpu())
+    pop1, pprox1, yr1, yi1 = pair_problem(CINE_F32_CHAINS)
+    op1 = op.replace(base=op.base.replace(
+        mask=op.base.mask[:CINE_F32_CHAINS * T]))
+    with float32_exact():
+        ald_2d_time(score_S, score_T, sigmas_S, sigmas_T,
+                    y[:, :CINE_F32_CHAINS * T], op1,
+                    prox.replace(lin_tfm=op1), config=snap,
+                    snapshot_fn=keep("complex"),
+                    noise=gaussian_noise(0, device), **common_kw)
+        Stepped2DTimePairReconstructor(
+            score_S, score_T, sigmas_S, sigmas_T, pop1, pprox1, snap,
+            snapshot_fn=keep("pair"), **common_kw)(
+            yr1, yi1, noise=gaussian_noise(0, device))
+    by_level = [rel_l2(a, b) for a, b in zip(by_form["complex"],
+                                             by_form["pair"])]
+    numbers["complex_vs_pair_rel_l2"] = by_level
+    if len(by_level) != CINE_LEVELS or not all(
+            by_level[c] <= MODEL_REL_L2 for c in CINE_COMPLEX_GATES):
+        raise AssertionError(f"cine complex vs pair by level {by_level}")
+    del by_form
+
+    # The other temporal modes, 2 levels each, 4 chains
+    short = ALDConfig(n_steps_each=n_steps, step_lr=kwargs["config"].step_lr)
+    cut = lambda s: sigma_ladder(float(s[0]), float(s[-1]), CINE_MODE_LEVELS,
+                                 "geometric")
+    numbers["modes_finite"] = {}
+    for mode in ("tv", "none", "tv-only"):
+        x = ald_2d_time(score_S, None, cut(sigmas_S), cut(sigmas_T), y, op,
+                        prox, seed=0, config=short,
+                        **dict(common_kw, mode_T=mode))
+        numbers["modes_finite"][mode] = ok = bool(
+            torch.isfinite(torch.view_as_real(x)).all())
+        if not (ok and tuple(x.shape) == (chains, T, size, size, 1)):
+            raise AssertionError(f"mode_T {mode}: {tuple(x.shape)}, {ok}")
+    del args, score_S, score_T, prox, op, y, x
+
+    # The cine MAP CLI and the single-frame CLI
+    r = timed_cli(cine_map_script, common + [
+        "--num_samples", "1", "--mode_T", "diffusion1d", "--n_iters",
+        str(CINE_MAP_ITERS), "--num_frames", str(T), "--image_size",
+        str(size), "--win_size", str(CINE_WIN)],
+        name="map_optimizer_2d_time")
+    recons = r.pop("recons")
+    del r["call"]
+    if not (recons.shape == (1, T, size, size, 1)
+            and np.isfinite(recons).all()):
+        raise AssertionError(f"cine MAP CLI: {recons.shape}")
+    r["iters"] = CINE_MAP_ITERS
+    r["iters_per_s"] = CINE_MAP_ITERS / r["sampler_s"]
+    numbers["map_cli"] = r
+    r = timed_cli(frame_script, common + levels + [
+        "--num_samples", str(chains), "--R", "8"])
+    recons = r.pop("recons")
+    del r["call"]
+    if not (recons.shape == (chains, size, size, 1)
+            and np.isfinite(recons).all()):
+        raise AssertionError(f"single-frame cine CLI: {recons.shape}")
+    r["chain_steps"] = CINE_LEVELS * n_steps * chains
+    r["chain_steps_per_s"] = r["chain_steps"] / r["sampler_s"]
+    numbers["frame_cli"] = r
+    no_kernel_launches(fk, fl, "the complex cine CLIs")
+    return numbers
+
+
+def report_cine_complex(cc: dict, t: float) -> None:
+    for name, unit in (("cli", "chain-steps"), ("map_cli", "iterations"),
+                       ("frame_cli", "chain-steps")):
+        r = cc[name]
+        n = r.get("chain_steps", r.get("iters"))
+        rate = r.get("chain_steps_per_s", r.get("iters_per_s"))
+        print(f"    {name}: wall {r['wall_s']:.2f} s, timed call "
+              f"{r['sampler_s']:.4f} s for {n} {unit}, {rate:.2f} {unit}/s, "
+              f"peak {r['peak']} bytes, NRMSE {r['nrmse']} SSIM {r['ssim']} "
+              f"(random weights: only checked finite), artifacts "
+              f"{r['artifacts']}", flush=True)
+    say("cine_complex", t, f"cine_SENSE_real_img_2d_time.main (CINE127 128 "
+        f"px NCSNv2Deepest + CINE127_1D NCSN1D, ngf 128, seed 0; "
+        f"{CINE_FRAMES} frames, 4 coils, R = 8, {CINE_COMPLEX_CHAINS} chains, "
+        f"diffusion1d, CG 8; recons.num_classes={CINE_LEVELS} of 1000): "
+        f"{cc['cli']['chain_steps_per_s']:.2f} chain-steps/s, "
+        f"{cc['complex_over_pair']:.3f} x the pair reconstructor's "
+        f"{cc['pair_chain_steps_per_s']:.2f} on the same problem; float32 "
+        f"mode, {CINE_F32_CHAINS} chain, complex vs pair by level "
+        + json.dumps([float(f"{v:.3g}") for v in
+                      cc["complex_vs_pair_rel_l2"]])
+        + f" (levels {list(CINE_COMPLEX_GATES)} <= {MODEL_REL_L2}); modes "
+        f"finite at {CINE_MODE_LEVELS} levels "
+        f"{json.dumps(cc['modes_finite'])}; cine MAP CLI (1 chain, "
+        f"{CINE_MAP_ITERS} of 200 iterations) "
+        f"{cc['map_cli']['iters_per_s']:.2f} iterations/s, peak "
+        f"{cc['map_cli']['peak']} bytes; single-frame CLI "
+        f"{cc['frame_cli']['chain_steps_per_s']:.2f} chain-steps/s at "
+        f"{CINE_COMPLEX_CHAINS} chains; no K1/K2/K4 launch")
 
 
 def main() -> None:
@@ -3089,6 +3671,12 @@ def main() -> None:
     launches["sense"] = {}
     report_sense(sn, t, rec["f32"]["chain_steps_per_s"])
 
+    # 10c. map_tv -------------------------------------------------------------
+    t = time.perf_counter()
+    mt = map_tv_phase(fk, fl)
+    launches["map_tv"] = {}
+    report_map_tv(mt, t)
+
     # 11. serve ---------------------------------------------------------------
     t = time.perf_counter()
     srv = serve_phase(fk, fl)
@@ -3131,6 +3719,12 @@ def main() -> None:
     cine = cine_phase(fk, fl)
     launches["cine"] = {}
     report_cine(cine, t)
+
+    # 12b. cine_complex -------------------------------------------------------
+    t = time.perf_counter()
+    cc = cine_complex_phase(fk, fl)
+    launches["cine_complex"] = {}
+    report_cine_complex(cc, t)
 
     # 13. train_ncsn ----------------------------------------------------------
     t = time.perf_counter()
@@ -3181,9 +3775,9 @@ def main() -> None:
         f"run card vs CPU rel L2 {sv['tiny_card_vs_cpu_rel_l2']:.3g} (<= "
         f"{MODEL_REL_L2})")
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "sense": sn,
-                      "serve": srv,
-                      "cine": cine, "train_ncsn": tn, "train_bf16": tb,
-                      "sample_vp": sv}), flush=True)
+                      "map_tv": mt, "serve": srv, "cine": cine,
+                      "cine_complex": cc, "train_ncsn": tn,
+                      "train_bf16": tb, "sample_vp": sv}), flush=True)
 
     kernels = []
     for name in FIR_TAGS + [f"{n}.bf16" for n in FIR_TAGS] + FLR_TAGS:

@@ -3,10 +3,10 @@
 Port of `ALDConfig`, `_labels`, `_langevin_update`, the guidance
 gradients `compute_clf_grad` / `compute_seg_grad`, the 2D+time ladders
 (`interp_sigmas_T`, `interp_sigma_T_indices`, `setup_2d_time_ladders`)
-and the complex reconstruction sampler `ald_inverse_seg_proximal_real_imag`
-from inverseproblemwithdiffusionmodel_tpu/samplers/ald.py (reference:
-ncsn/models/ALD_optimizers.py:49-155, 161-327 and 342-361,
-ncsn/models/__init__.py:172-215). Randomness is injected: the update
+and the complex reconstruction samplers `ald_inverse_seg_proximal_real_imag`
+and `ald_2d_time` from inverseproblemwithdiffusionmodel_tpu/samplers/
+ald.py (reference: ncsn/models/ALD_optimizers.py:49-155, 161-327 and
+330-554, ncsn/models/__init__.py:172-215). Randomness is injected: the update
 takes its noise tensor, drawn by the caller from a `noise(shape)` function
 (utils/device.gaussian_noise builds one from a seed and an explicit
 torch.Generator), so a test can feed the JAX sampler's own draws.
@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from .sigmas import get_lh_weights
-from ..utils.device import Noise, gaussian_noise, resolve_device
+from ..utils.device import (Noise, Shift, gaussian_noise, random_shift,
+                            resolve_device)
 from ..utils.misc import stack_parts, unstack_parts
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -262,3 +263,90 @@ def ald_inverse_seg_proximal_real_imag(
             x_re = x_re + sigma_last ** 2 * g_re
             x_im = x_im + sigma_last ** 2 * g_im
         return torch.complex(x_re, x_im)
+
+
+# -- 2D+time (cine) on complex64 operators ----------------------------------
+
+def ald_2d_time(
+    score_fn_S: Optional[ScoreFn],
+    score_fn_T: Optional[ScoreFn],
+    sigmas,
+    sigmas_T,
+    measurement: torch.Tensor,
+    lin_tfm,
+    proximal,
+    seed: int = 0,
+    config: ALDConfig = ALDConfig(),
+    lr_scaled: float = 1.0,
+    mode_T: str = "diffusion1d",
+    lamda_T: float = 1.0,
+    if_random_shift: bool = False,
+    win_size: int = 8,
+    num_frames: Optional[int] = None,
+    snapshot_fn: Optional[Callable] = None,
+    noise: Optional[Noise] = None,
+    shift: Optional[Shift] = None,
+    device="cuda",
+) -> torch.Tensor:
+    """The factorized 2D+time cine reconstruction on complex64 operators
+    (reference: ALD_optimizers.py:330-554). measurement: (num_sens, B T, H,
+    W, C) complex; returns complex64 (B, T, H, W, C). It starts at A^H y;
+    per level and inner step: the spatial score step on all B T frames (Re
+    and Im interleaved, 2 B T), the temporal step (mode_T 'diffusion1d':
+    score_fn_T on the pixel tubes, its labels index the RAW sigmas_T,
+    optionally rolled by a random shift; 'tv': the FiniteDiff subgradient;
+    'none'; the '*-only' modes skip the spatial step and run over the
+    temporal ladder), then the proximal over all frames with alpha =
+    step_lr lr_scaled. No denoising step, as in the JAX package.
+
+    The state is the (re, im) pair and the inner step is the pair form's
+    (samplers/ald_pair._pair_2d_time_inner); only the proximal is complex.
+    Whether a level runs the temporal step is read from the host ladder
+    (JAX's lax.cond on sigma_T > 0), with no device read. `seed` takes the
+    place of the JAX PRNG key; `noise(shape)` and `shift(win)` override
+    its draws, in the JAX key schedule's order (the frames' Re and Im, then
+    where the temporal diffusion step runs its roll and the tubes' Re and
+    Im). snapshot_fn(level, sigma, x_re, x_im) runs on the host every
+    config.snapshot_every levels."""
+    from .ald_pair import _pair_2d_time_inner
+    from ..operators.finite_diff import FiniteDiff
+    if "diffusion1d" in mode_T and score_fn_T is None:
+        raise ValueError(f"mode_T={mode_T!r} needs a temporal score function")
+    device = resolve_device(device)
+    if noise is None:
+        noise = gaussian_noise(seed, device)
+    if not if_random_shift:
+        shift = None
+    elif shift is None:
+        shift = random_shift(seed)
+    levels, sigmas_T_host, labels_T = setup_2d_time_ladders(
+        sigmas, sigmas_T, mode_T)
+    f32 = dict(dtype=torch.float32, device=device)
+    sig, sig_T = (torch.as_tensor(v, **f32) for v in (levels, sigmas_T_host))
+    lr_scaled = torch.as_tensor(lr_scaled, **f32)
+    lamda_T = torch.as_tensor(lamda_T, **f32)
+    lin_tfm, proximal = lin_tfm.to(device), proximal.to(device)
+    measurement = measurement.to(device)
+    inner = _pair_2d_time_inner(score_fn_S, score_fn_T, FiniteDiff(dims=1),
+                                config, mode_T, win_size, sig[-1], sig_T[-1])
+
+    def prox(xr, xi, _yr, _yi, alpha, lamda):
+        z = proximal(torch.complex(xr, xi), measurement, alpha, lamda)
+        return z.real, z.imag
+
+    with torch.inference_mode():
+        x0 = lin_tfm.conj_op(measurement)               # (B T, H, W, C)
+        BT = x0.shape[0]
+        T = num_frames if num_frames is not None else BT
+        shape = (BT // T, T) + tuple(x0.shape[1:])
+        xr, xi = x0.real.reshape(shape), x0.imag.reshape(shape)
+        for c in range(len(levels)):
+            level = (c, int(labels_T[c]), sig[c], sig_T[c],
+                     bool(sigmas_T_host[c] > 0))
+            for _ in range(config.n_steps_each):
+                xr, xi = inner(prox, xr, xi, None, None, *level, lr_scaled,
+                               lamda_T, noise, shift)
+            if (snapshot_fn is not None and config.snapshot_every > 0
+                    and c % config.snapshot_every == 0):
+                snapshot_fn(c, float(levels[c]), xr, xi)
+        return torch.complex(xr, xi)

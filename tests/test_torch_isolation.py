@@ -93,6 +93,14 @@ def test_importing_the_port_loads_no_jax_module():
         "from inverseproblemwithdiffusionmodel_tpu_torch.scripts import "
         "acdc_SENSE_real_img, "
         "acdc_inv_seg_sampling_keep_center_prox_real_imag\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch import "
+        "regularizers, samplers\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.samplers import "
+        "map_opt, map_pair\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.scripts import "
+        "acdc_MAP, acdc_MAP_keep_center, acdc_SENSE_MAP, acdc_SENSE_TV, "
+        "cine_SENSE_real_img_2d_time, cine_SENSE_real_img_2d_time_MAP, "
+        "cine_inv_sampling_keep_center_prox_real_imag\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -111,7 +119,11 @@ def test_no_source_of_the_port_imports_jax(path):
 
 
 RECON_SCRIPTS = ["acdc_SENSE_real_img",
-                 "acdc_inv_seg_sampling_keep_center_prox_real_imag"]
+                 "acdc_inv_seg_sampling_keep_center_prox_real_imag",
+                 "acdc_MAP", "acdc_MAP_keep_center", "acdc_SENSE_MAP",
+                 "acdc_SENSE_TV", "cine_SENSE_real_img_2d_time",
+                 "cine_SENSE_real_img_2d_time_MAP",
+                 "cine_inv_sampling_keep_center_prox_real_imag"]
 
 
 @pytest.mark.parametrize("script", ["pc_sampling", "profile_forward",
