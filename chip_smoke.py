@@ -189,6 +189,31 @@ phases, each printing one line with its own seconds:
    samples, the printed nfe, K1/K2 launches per network evaluation,
    evaluations/s; --ckpt_dir on phase 14's bf16 CIFAR-10 VP checkpoint
    with 10 scales; a tiny VP PC run card vs CPU, same noise.
+16. quickstart_3d: the README quick start's pair and the 3-D temporal
+   prior at full width (weights from seed 0), torch's defaults:
+   scripts.unconditioned_sampling.main --ds_name MNIST (NCSNv2Deepest 32
+   px, ngf 128; 8 samples over the config's whole ladder, 232 levels x 5
+   steps and the denoise): the sampler's network evaluations/s (the set-up
+   apart), wall s, peak, finite (8, 32, 32, 1) samples;
+   scripts.train_ncsn.main --ds_name MNIST (synthetic digits, the config's
+   batch 128, 5 steps): s/step, images/s, peak; --task_name Diffusion3D on
+   CINE127_1D (NCSN3DShallow, ngf 128, 8 x 8 tubes of 24 frames as
+   volumes, the config's batch 90, 5 steps): s/step, peak; one step of
+   each at batch 1 card vs CPU in the float32 mode (loss, gradient);
+   NCSN3DShallow on tubes and volumes and NCSN3D on volumes card vs CPU at
+   batch 2 (float32 mode); the NCSN3DShallow forward at the cine CLI's
+   tube batch (2048: Re and Im of 4 chains x 256 tubes) through
+   make_tube_score_fn_3d: device and host ms, peak, the convolutions' FLOP
+   and rate, a profile's top kernels and operators; UNET1D (its own width)
+   card vs CPU at batch 2 and one forward at that tube batch;
+   unconditioned_sampling --task_name Diffusion3D and Diffusion1D on
+   CINE127_1D, 8 samples, the 400-level ladder cut to 20;
+   cine_SENSE_real_img_2d_time.main --task_name_T Diffusion3D and the same
+   call with Diffusion1D at the cine_complex geometry (4 chains, 4 of 1000
+   levels, CG 8 on cuFFT): chain-steps/s of the sampler alone, their
+   ratio, each net's device ms by CUDA events around its calls;
+   cine_SENSE_real_img_2d_time_MAP.main with Diffusion3D (1 chain, 10 of
+   200 iterations): iterations/s.
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -198,9 +223,9 @@ The sampling and training runs themselves use torch's defaults, as a
 user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
 sense, map_tv, serve, cine, cine_complex, train_ncsn, each train_bf16
-run, each sample_vp run) and read just after it. Any failure raises and
-exits non-zero. Phases 9 to 15 print their numbers as one JSON line
-before `total`. The last
+run, each sample_vp run, quickstart_3d) and read just after it. Any
+failure raises and exits non-zero. Phases 9 to 16 print their numbers as
+one JSON line before `total`. The last
 lines are nvidia-smi's name and power limit, a JSON line of per-kernel
 numbers, and
 `{"ok": true, "device": {...}}`. In the JSON line `ms`, `plain_ms` and
@@ -288,6 +313,17 @@ CINE_COMPLEX_GATES = (0, 7)  # complex vs pair form gated after these levels
 CINE_F32_CHAINS = 1        # the float32-mode comparison: of the CLI's 4
 CINE_MODE_LEVELS = 2       # the tv, none and tv-only runs
 CINE_MAP_ITERS = 20        # cine_SENSE_real_img_2d_time_MAP: of the 200
+# The README quick start (MNIST) and the 3-D temporal prior
+QS_SAMPLES = 8             # unconditioned_sampling's chains (the net's batch)
+QS_TRAIN_STEPS = 5         # train_ncsn --ds_name MNIST at the config's 128
+QS_3D_TRAIN_STEPS = 5      # train_ncsn Diffusion3D at the config's batch 90
+QS_3D_LEVELS = 20          # unconditioned 1-D / 3-D runs: of the 400 levels
+QS_CHAINS = 4              # the cine CLIs: as the cine_complex phase
+# The cine CLIs with Diffusion3D and Diffusion1D: 4 of the 1000 levels (3
+# with a temporal step), cut from cine_complex's 8 to keep the smoke near
+# 960 s (the 3-D temporal net took 5.2 s of a 5.6 s level step)
+QS_CINE_LEVELS = 4
+QS_MAP_ITERS = 10          # the cine MAP CLI with Diffusion3D: of the 200
 # Discrete score training through scripts.train_ncsn on the loaders'
 # synthetic stand-ins (24 + 6 ACDC slices at 256 px; 12 + 4 cine videos
 # as 8 x 8 tubes of 24 frames): run name -> (its flags, steps)
@@ -1599,7 +1635,7 @@ def profile_calls(step, n_units: int) -> dict:
     the kernels' ms, the device's idle share of the window, launches and
     device events per unit (`step` covering n_units of them), the top 10
     device kernels and the top 10 operators by device time (with call
-    counts)."""
+    counts), and the ms of cuDNN's NCHW <-> NHWC layout conversions."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1624,6 +1660,8 @@ def profile_calls(step, n_units: int) -> dict:
         device_events_per_unit=sum(e.count for e in kernels) / n_units,
         top_kernels=[(e.key[:90], e.count, e.device_time_total / 1e3)
                      for e in kernels[:10]],
+        layout_ms=sum(e.device_time_total for e in kernels if any(
+            k in e.key for k in ("nchwToNhwc", "nhwcToNchw"))) / 1e3,
         top_ops=[(e.key, e.count, e.self_device_time_total / 1e3)
                  for e in ops[:10]])
 
@@ -2415,14 +2453,16 @@ def report_train_ncsn(tn: dict, t: float) -> None:
 
 
 def timed_cli(module, argv: list, owner=None,
-              name: str = "ald_inverse_seg_proximal_real_imag") -> dict:
+              name: str = "ald_inverse_seg_proximal_real_imag",
+              metrics: bool = True) -> dict:
     """`module.main(argv)` (one of the reconstruction scripts) with its
     output echoed indented: the reconstructions, the wall seconds, the
     seconds of its one call of `owner.name` alone (the sampler or
     optimizer, between CUDA synchronizations; the config, data, operator
     and net set-up apart) with that call's arguments and output, the peak
-    memory and the NRMSE / SSIM it prints. `owner` is the module whose
-    global `name` main calls (default `module`)."""
+    memory and the NRMSE / SSIM it prints (`metrics`; a prior sampler
+    prints none). `owner` is the module whose global `name` main calls
+    (default `module`)."""
     owner = owner or module
     sampler = getattr(owner, name)
     seconds, calls = [], []
@@ -2455,12 +2495,13 @@ def timed_cli(module, argv: list, owner=None,
     for line in out.getvalue().splitlines():
         print(f"    {line}", flush=True)
     found = re.search(r"NRMSE (\S+)\s+SSIM (\S+)", out.getvalue())
-    if found is None or len(seconds) != 1:
+    if (metrics and found is None) or len(seconds) != 1:
         raise AssertionError(f"{module.__name__}: no NRMSE / SSIM printed "
                              f"or {len(seconds)} calls of {name}")
     return dict(recons=recons, wall_s=wall, sampler_s=seconds[0],
                 call=calls[0], peak=torch.cuda.max_memory_allocated(),
-                nrmse=float(found.group(1)), ssim=float(found.group(2)),
+                nrmse=float(found.group(1)) if found else None,
+                ssim=float(found.group(2)) if found else None,
                 artifacts=artifacts)
 
 
@@ -3201,6 +3242,424 @@ def report_cine_complex(cc: dict, t: float) -> None:
         f"{CINE_COMPLEX_CHAINS} chains; no K1/K2/K4 launch")
 
 
+def conv_flop(model: torch.nn.Module, run) -> float:
+    """FLOP of the convolutions `run()` makes `model` compute (2 per
+    multiply-add), counted by forward hooks from the shapes: out.numel()
+    I prod(k) for a convolution, in.numel() O prod(k) for a transposed
+    one. Norms, activations, pools and resizes are left out."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import (
+        layers, ncsn3d)
+    total = [0.0]
+
+    def conv(module, inputs, out):
+        total[0] += 2.0 * out.numel() * module.weight[0].numel()
+
+    def conv_t(module, inputs, out):
+        total[0] += 2.0 * inputs[0].numel() * module.weight[0].numel()
+
+    hooks = [m.register_forward_hook(
+        conv_t if isinstance(m, layers.ConvTranspose) else conv)
+        for m in model.modules() if isinstance(
+            m, (layers.Conv, layers.ConvTranspose, ncsn3d.TemporalDownConv))]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def step_card_vs_cpu(cfg, task: str, batch: torch.Tensor, data_mode: str,
+                     gen: torch.Generator, device="cuda") -> dict:
+    """One discrete train step of the task's net (weights from seed 0) on
+    the card and on the CPU in the float32 mode, the same batch and
+    injected draws (phi where real-imag, labels, noise): the loss and the
+    gradient's rel L2, gated at TRAIN_LOSS_REL and MODEL_REL_L2, and the
+    CPU's seconds."""
+    import math
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        load_model)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        get_sigmas)
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        TrainState, get_optimizer, make_score_train_step)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    model, _ = load_model(cfg, task, seed=0)
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    sigmas = get_sigmas(cfg)
+    rows = 2 * len(batch) if data_mode == "real-imag" else len(batch)
+    draws = dict(labels=torch.randint(0, len(sigmas), (rows,), generator=gen),
+                 noise=torch.randn((rows,) + batch.shape[1:], generator=gen))
+    if data_mode == "real-imag":
+        draws["phi"] = (torch.rand(len(batch), generator=gen) * 2 - 1
+                        ) * math.pi
+    out, cpu_s = {}, 0.0
+    for dev in (device, "cpu"):
+        model.load_state_dict(w0)
+        model.to(dev)
+        state = TrainState.create(model, get_optimizer(cfg),
+                                  ema_decay=cfg.model.ema_rate)
+        step = make_score_train_step(model, sigmas, data_mode=data_mode,
+                                     anneal_power=cfg.training.anneal_power,
+                                     if_centering=True)
+        t_dev = time.perf_counter()
+        with float32_exact():
+            state, loss = step(state, batch.to(dev), **{
+                k: v.to(dev) for k, v in draws.items()})
+        if dev == "cpu":
+            cpu_s = time.perf_counter() - t_dev
+        out[dev] = (float(loss), torch.cat([p.grad.detach().reshape(-1).cpu()
+                                            for p in model.parameters()]))
+        del state, step
+    (card_loss, card_g), (cpu_loss, cpu_g) = out[device], out["cpu"]
+    c = dict(loss=abs(card_loss - cpu_loss) / abs(cpu_loss),
+             grads=rel_l2(card_g, cpu_g), cpu_s=cpu_s)
+    if not (c["loss"] <= TRAIN_LOSS_REL and c["grads"] <= MODEL_REL_L2):
+        raise AssertionError(f"{task} train step card vs CPU: {c}")
+    del model
+    torch.cuda.empty_cache()
+    return c
+
+
+def forward_card_vs_cpu(model, x: torch.Tensor, sigmas: torch.Tensor,
+                        device="cuda") -> float:
+    """rel L2 of the model's output on the card against the CPU, float32
+    mode, the same weights and input; the model comes back on the card."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    with torch.inference_mode(), float32_exact():
+        card = model.to(device)(x.to(device), sigmas.to(device)).cpu()
+        cpu = model.cpu()(x, sigmas)
+    model.to(device)
+    return rel_l2(card, cpu)
+
+
+def event_timed(score, into: list):
+    """`score` with each call timed by a pair of CUDA events appended to
+    `into`."""
+    def timed(x, labels):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = score(x, labels)
+        end.record()
+        into.append((start, end))
+        return out
+
+    return timed
+
+
+def quickstart_3d_phase(fk, fl, device="cuda") -> dict:
+    """The README quick start's pair and the 3-D temporal prior at full
+    width, weights from seed 0, torch's defaults unless said:
+    unconditioned_sampling.main --ds_name MNIST (NCSNv2Deepest at 32 px,
+    ngf 128; QS_SAMPLES chains over the config's whole ladder, 232 levels
+    x 5 steps and the denoise): the sampler's network evaluations/s (the
+    set-up apart), wall s, peak, finite (8, 32, 32, 1) samples.
+    train_ncsn.main --ds_name MNIST (the synthetic digits, the config's
+    batch 128, QS_TRAIN_STEPS steps): s/step, images/s, peak; one step at
+    batch 1 card vs CPU in the float32 mode. NCSN3DShallow (CINE127_1D:
+    ngf 128, 8 x 8 tubes of 24 frames) card vs CPU at batch 2 on tubes and
+    on volumes, NCSN3D on volumes (float32 mode); the NCSN3DShallow
+    forward at the cine CLI's tube batch through make_tube_score_fn_3d:
+    device ms, host ms, peak, the convolutions' FLOP and rate, the top
+    kernels of a profile. train_ncsn.main --task_name Diffusion3D (the
+    config's batch 90, QS_3D_TRAIN_STEPS steps): s/step, peak; one step at
+    batch 1 card vs CPU. unconditioned_sampling.main --task_name
+    Diffusion3D and Diffusion1D on CINE127_1D, QS_SAMPLES chains, the
+    400-level ladder cut to QS_3D_LEVELS. cine_SENSE_real_img_2d_time.main
+    --task_name_T Diffusion3D at the cine_complex geometry (QS_CHAINS
+    chains, QS_CINE_LEVELS of 1000 levels, CG 8 on cuFFT): chain-steps/s of
+    the sampler alone, the ratio to the same call with Diffusion1D, the
+    nets' device ms by CUDA events around every score call; the _MAP CLI
+    with
+    Diffusion3D at 1 chain for QS_MAP_ITERS iterations. UNET1D at its own
+    width card vs CPU at batch 2 (float32 mode) and one forward at the tube
+    batch. Launches none of K1, K2 or K4."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import registry
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.ncsn1d import (
+        UNET1D)
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.ncsn3d import (
+        NCSN3D)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        get_sigmas)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        cine_SENSE_real_img_2d_time as cine_script,
+        cine_SENSE_real_img_2d_time_MAP as cine_map_script, train_ncsn,
+        unconditioned_sampling as uncond)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    numbers = {}
+    gen = torch.Generator().manual_seed(11)
+    cfg_m = load_config("MNIST")
+    cfg_t = load_config("CINE127_1D", "real-imag")
+    common = ["--seed", "0", "--device", str(device)]
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+
+    # The quick start: sample, then train
+    r = timed_cli(uncond, common + ["--ds_name", "MNIST", "--num_samples",
+                                    str(QS_SAMPLES)],
+                  name="ald_unconditional_sampler", metrics=False)
+    samples = r.pop("recons")
+    del r["call"]
+    s = cfg_m.data.image_size
+    if not (samples.shape == (QS_SAMPLES, s, s, 1)
+            and np.isfinite(samples).all()):
+        raise AssertionError(f"MNIST samples: {samples.shape}")
+    r["evals"] = (cfg_m.model.num_classes * cfg_m.sampling.n_steps_each
+                  + int(cfg_m.sampling.denoise))
+    r["evals_per_s"] = r["evals"] / r["sampler_s"]
+    numbers["mnist_sample"] = r
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_quickstart_")
+    try:
+        data_root = os.path.join(root, "no_data")
+        os.makedirs(data_root)
+        for name, flags, steps, batch_size in (
+                ("mnist_train", ["--ds_name", "MNIST"], QS_TRAIN_STEPS,
+                 cfg_m.training.batch_size),
+                ("train_3d", ["--ds_name", "CINE127_1D", "--task_name",
+                              "Diffusion3D", "--mode", "real-imag",
+                              "--flatten_type", "temporal"],
+                 QS_3D_TRAIN_STEPS, cfg_t.training.batch_size)):
+            rec = {}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t_run = time.perf_counter()
+            with timed_fit(train_ncsn, rec, "end_conv.bias"), \
+                    warnings_quiet():
+                state = train_ncsn.main(flags + [
+                    "--device", device, "--log_dir", os.path.join(root, name),
+                    "--data_root", data_root, "--override",
+                    f"training.n_iters={steps}"])
+            torch.cuda.synchronize()
+            s_step = float(np.mean(rec["step_s"][1:]))
+            numbers[name] = dict(
+                net=type(state.model).__name__, batch=batch_size,
+                steps=state.step, s_per_step=s_step,
+                images_per_s=batch_size / s_step,
+                first_step_s=rec["step_s"][0],
+                first_step_peak=rec["first_peak"],
+                steady_peak=torch.cuda.max_memory_allocated(),
+                wall_s=time.perf_counter() - t_run, losses=rec["losses"],
+                params=sum(p.numel() for p in state.model.parameters()))
+            if not (state.step == steps and np.isfinite(rec["losses"]).all()):
+                raise AssertionError(f"{name}: step {state.step}, losses "
+                                     f"{rec['losses']}")
+            del state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    numbers["mnist_step_card_vs_cpu"] = step_card_vs_cpu(
+        cfg_m, "Diffusion", torch.rand(1, s, s, 1, generator=gen),
+        "real-valued", gen, device)
+    win, T = 8, cfg_t.data.image_size
+    numbers["step_3d_card_vs_cpu"] = step_card_vs_cpu(
+        cfg_t, "Diffusion3D", torch.rand(1, win, win, T, 1, generator=gen),
+        "real-imag", gen, device)
+
+    # NCSN3DShallow and NCSN3D alone
+    sig = torch.tensor([40.0, 0.05])
+    net, _ = registry.load_model(cfg_t, "Diffusion3D", seed=0)
+    net = net.eval()
+    checks = {
+        "shallow_tubes": forward_card_vs_cpu(
+            net, torch.rand(2, win * win, T, generator=gen), sig, device),
+        "shallow_volumes": forward_card_vs_cpu(
+            net, torch.rand(2, 1, win, win, T, generator=gen), sig, device)}
+    deep = seeded_weights(NCSN3D(cfg_t), 0).eval()
+    checks["ncsn3d_volumes"] = forward_card_vs_cpu(
+        deep, torch.rand(2, 1, win, win, T, generator=gen), sig, device)
+    del deep
+    numbers["nets_card_vs_cpu"] = checks
+    if not all(v <= MODEL_REL_L2 for v in checks.values()):
+        raise AssertionError(f"3-D nets card vs CPU: {checks}")
+    size = load_config("CINE127").data.image_size
+    tubes_b = 2 * QS_CHAINS * (size // win) ** 2     # Re and Im of the tubes
+    score = registry.make_tube_score_fn_3d(net, get_sigmas(cfg_t, "recons"),
+                                           win)
+    x = torch.rand(tubes_b, T, win * win, device=device)
+    labels = torch.full((tubes_b,), 5, device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        run = lambda: score(x, labels)
+        flop = conv_flop(net, run)
+        ms, host = cuda_ms(run, reps=3, host=True)
+        prof = profile_calls(run, 1)
+    numbers["forward_3d"] = dict(
+        batch=tubes_b, device_ms=ms, host_ms=host,
+        peak=torch.cuda.max_memory_allocated(), conv_tflop=flop / 1e12,
+        conv_tflop_per_s=flop / ms / 1e9, **prof)
+    # UNET1D at its own width
+    unet = seeded_weights(UNET1D(cfg_t), 0).eval()
+    u = forward_card_vs_cpu(unet, torch.rand(2, win * win, T, generator=gen),
+                            sig, device)
+    uscore = registry.make_score_fn(unet, get_sigmas(cfg_t, "recons"))
+    with torch.inference_mode():
+        run = lambda: uscore(x, labels)
+        uflop = conv_flop(unet, run)
+        ums = cuda_ms(run, reps=3)
+    numbers["unet1d"] = dict(card_vs_cpu=u, batch=tubes_b, device_ms=ums,
+                             conv_tflop=uflop / 1e12,
+                             params=sum(p.numel() for p in unet.parameters()))
+    if not u <= MODEL_REL_L2:
+        raise AssertionError(f"UNET1D card vs CPU {u}")
+    del net, unet, score, uscore, x
+    torch.cuda.empty_cache()
+
+    # Prior sampling from the temporal priors, the ladder cut
+    for task, shape in (("Diffusion3D", (QS_SAMPLES, win, win, T, 1)),
+                        ("Diffusion1D", (QS_SAMPLES, T, win * win))):
+        r = timed_cli(uncond, common + [
+            "--ds_name", "CINE127_1D", "--task_name", task, "--mode",
+            "real-imag", "--num_samples", str(QS_SAMPLES), "--override",
+            f"model.num_classes={QS_3D_LEVELS}"],
+            name="ald_unconditional_sampler", metrics=False)
+        out = r.pop("recons")
+        del r["call"]
+        if not (out.shape == shape and np.isfinite(out).all()):
+            raise AssertionError(f"{task} samples: {out.shape}")
+        r["evals"] = QS_3D_LEVELS * cfg_t.sampling.n_steps_each + 1
+        r["evals_per_s"] = r["evals"] / r["sampler_s"]
+        numbers[f"sample_{task}"] = r
+
+    # The cine CLIs with the 3-D temporal prior, and with NCSN1D
+    cli = common + ["--override", f"recons.num_classes={QS_CINE_LEVELS}",
+                    "--num_samples", str(QS_CHAINS), "--mode_T",
+                    "diffusion1d", "--lr_scaled", "5.0", "--proximal_type",
+                    "L2Penalty", "--R", "8", "--num_sens", "4",
+                    "--num_frames", str(T), "--image_size", str(size),
+                    "--win_size", str(win)]
+    for task in ("Diffusion3D", "Diffusion1D"):
+        events = {"spatial": [], "temporal": []}
+        sampler = cine_script.ald_2d_time
+
+        def split(score_S, score_T, *rest, **kwargs):
+            return sampler(event_timed(score_S, events["spatial"]),
+                           event_timed(score_T, events["temporal"]), *rest,
+                           **kwargs)
+
+        cine_script.ald_2d_time = split
+        try:
+            r = timed_cli(cine_script, cli + ["--task_name_T", task],
+                          name="ald_2d_time")
+        finally:
+            cine_script.ald_2d_time = sampler
+        recons = r.pop("recons")
+        args, kwargs, _ = r.pop("call")
+        if not (recons.shape == (QS_CHAINS, T, size, size, 1)
+                and np.isfinite(recons).all()):
+            raise AssertionError(f"cine CLI {task}: {recons.shape}")
+        n_steps = kwargs["config"].n_steps_each
+        r["chain_steps"] = QS_CINE_LEVELS * n_steps * QS_CHAINS
+        r["chain_steps_per_s"] = r["chain_steps"] / r["sampler_s"]
+        sampler_ms = 1e3 * r["sampler_s"]
+        for part, pairs in events.items():
+            ms = [a.elapsed_time(b) for a, b in pairs]
+            r[f"{part}_net_calls"] = len(ms)
+            r[f"{part}_net_ms"] = float(np.sum(ms))
+            r[f"{part}_net_share"] = float(np.sum(ms)) / sampler_ms
+        r["temporal_levels"] = r["temporal_net_calls"] // n_steps
+        # a level step with a temporal step: its ms, the temporal net's part
+        r["level_ms"] = sampler_ms / QS_CINE_LEVELS
+        r["temporal_net_ms_per_level"] = (
+            r["temporal_net_ms"] / max(r["temporal_levels"], 1))
+        numbers[f"cine_{task}"] = r
+        del args, kwargs, recons
+    numbers["cine_3d_over_1d"] = (
+        numbers["cine_Diffusion3D"]["chain_steps_per_s"]
+        / numbers["cine_Diffusion1D"]["chain_steps_per_s"])
+    r = timed_cli(cine_map_script, common + [
+        "--num_samples", "1", "--mode_T", "diffusion1d", "--task_name_T",
+        "Diffusion3D", "--n_iters", str(QS_MAP_ITERS), "--num_frames",
+        str(T), "--image_size", str(size), "--win_size", str(win)],
+        name="map_optimizer_2d_time")
+    recons = r.pop("recons")
+    del r["call"]
+    if not (recons.shape == (1, T, size, size, 1)
+            and np.isfinite(recons).all()):
+        raise AssertionError(f"cine MAP CLI Diffusion3D: {recons.shape}")
+    r["iters_per_s"] = QS_MAP_ITERS / r["sampler_s"]
+    numbers["cine_map_3d"] = r
+    no_kernel_launches(fk, fl, "the quickstart_3d phase")
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def report_quickstart_3d(qs: dict, t: float) -> None:
+    ms, tr, tr3 = qs["mnist_sample"], qs["mnist_train"], qs["train_3d"]
+    f3, u1 = qs["forward_3d"], qs["unet1d"]
+    print(f"    MNIST sampling: {ms['evals']} evaluations at batch "
+          f"{QS_SAMPLES}, {ms['evals_per_s']:.2f} evaluations/s (sampler "
+          f"{ms['sampler_s']:.4f} s), wall {ms['wall_s']:.2f} s, peak "
+          f"{ms['peak']} bytes, artifacts {ms['artifacts']}", flush=True)
+    for name, r in (("MNIST train_ncsn", tr), ("Diffusion3D train_ncsn", tr3)):
+        print(f"    {name}: {r['net']} ({r['params']} params), batch "
+              f"{r['batch']}, {r['steps']} steps: {r['s_per_step']:.4f} "
+              f"s/step (first {r['first_step_s']:.2f} s excluded), "
+              f"{r['images_per_s']:.2f} images/s; peak first step "
+              f"{r['first_step_peak']} bytes, steady {r['steady_peak']}; "
+              f"wall {r['wall_s']:.2f} s; losses "
+              f"{[round(v, 2) for v in r['losses']]}", flush=True)
+    print(f"    NCSN3DShallow forward at batch {f3['batch']} tubes (torch "
+          f"defaults): {f3['device_ms']:.2f} device ms, {f3['host_ms']:.2f} "
+          f"host ms, peak {f3['peak']} bytes, convolutions "
+          f"{f3['conv_tflop']:.2f} TFLOP, {f3['conv_tflop_per_s']:.1f} "
+          f"TFLOP/s; profiled: kernels {f3['profiled_device_ms']:.2f} ms "
+          f"(NCDHW <-> NDHWC conversions {f3['layout_ms']:.2f}), idle share "
+          f"{f3['idle_share']:.4f}, launches {f3['launches_per_unit']:.0f}",
+          flush=True)
+    for label, rows in (("kernel", f3["top_kernels"]),
+                        ("op", f3["top_ops"])):
+        for key, calls, kms in rows:
+            print(f"    top {label}: {kms:.3f} ms over {calls} calls | {key}",
+                  flush=True)
+    print(f"    UNET1D ({u1['params']} params) forward at batch "
+          f"{u1['batch']}: {u1['device_ms']:.2f} device ms, "
+          f"{u1['conv_tflop']:.3f} TFLOP", flush=True)
+    for task in ("Diffusion3D", "Diffusion1D"):
+        r, c = qs[f"sample_{task}"], qs[f"cine_{task}"]
+        print(f"    {task}: prior sampling {r['evals']} evaluations, "
+              f"{r['evals_per_s']:.2f}/s, peak {r['peak']} bytes; cine CLI "
+              f"{c['chain_steps_per_s']:.2f} chain-steps/s (sampler "
+              f"{c['sampler_s']:.2f} s), a level {c['level_ms']:.1f} ms, by "
+              f"CUDA events spatial net {c['spatial_net_ms']:.1f} ms "
+              f"({c['spatial_net_share']:.3f}), temporal net "
+              f"{c['temporal_net_ms']:.1f} ms ({c['temporal_net_share']:.3f}; "
+              f"{c['temporal_net_ms_per_level']:.1f} ms a level with a "
+              f"temporal step, {c['temporal_levels']} such levels), peak "
+              f"{c['peak']} bytes", flush=True)
+    say("quickstart_3d", t, f"unconditioned_sampling --ds_name MNIST "
+        f"(NCSNv2Deepest 32 px, ngf 128, seed 0; {QS_SAMPLES} samples, the "
+        f"whole 232 x 5 ladder): {ms['evals_per_s']:.2f} evaluations/s; "
+        f"train_ncsn MNIST batch {tr['batch']} {tr['s_per_step']:.4f} s/step "
+        f"({tr['images_per_s']:.2f} images/s); Diffusion3D (NCSN3DShallow, "
+        f"ngf 128, 8x8 tubes of 24 frames) batch {tr3['batch']} "
+        f"{tr3['s_per_step']:.4f} s/step, peak {tr3['steady_peak']} bytes; "
+        f"steps card vs CPU (float32 mode) MNIST "
+        f"{json.dumps(qs['mnist_step_card_vs_cpu'])}, 3-D "
+        f"{json.dumps(qs['step_3d_card_vs_cpu'])}; nets card vs CPU "
+        f"{json.dumps(qs['nets_card_vs_cpu'])}, UNET1D "
+        f"{u1['card_vs_cpu']:.3g} (<= {MODEL_REL_L2}); 3-D forward at "
+        f"{f3['batch']} tubes {f3['device_ms']:.2f} ms; cine CLI "
+        f"(diffusion1d, {QS_CHAINS} chains, {QS_CINE_LEVELS} of 1000 "
+        f"levels) "
+        f"with Diffusion3D {qs['cine_Diffusion3D']['chain_steps_per_s']:.2f} "
+        f"chain-steps/s, {qs['cine_3d_over_1d']:.3f} x Diffusion1D's "
+        f"{qs['cine_Diffusion1D']['chain_steps_per_s']:.2f}; the 3-D "
+        f"temporal net {qs['cine_Diffusion3D']['temporal_net_share']:.3f} of "
+        f"the sampler's time; cine MAP CLI Diffusion3D (1 chain, "
+        f"{QS_MAP_ITERS} of 200) {qs['cine_map_3d']['iters_per_s']:.2f} "
+        f"iterations/s; unconditioned 3-D / 1-D ({QS_3D_LEVELS} of 400 "
+        f"levels) {qs['sample_Diffusion3D']['evals_per_s']:.2f} / "
+        f"{qs['sample_Diffusion1D']['evals_per_s']:.2f} evaluations/s; no "
+        f"K1/K2/K4 launch")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3774,10 +4233,17 @@ def main() -> None:
              if isinstance(r, dict)}) + f"; every sample finite; tiny VP PC "
         f"run card vs CPU rel L2 {sv['tiny_card_vs_cpu_rel_l2']:.3g} (<= "
         f"{MODEL_REL_L2})")
+
+    # 16. quickstart_3d -------------------------------------------------------
+    t = time.perf_counter()
+    qs = quickstart_3d_phase(fk, fl)
+    launches["quickstart_3d"] = {}
+    report_quickstart_3d(qs, t)
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "sense": sn,
                       "map_tv": mt, "serve": srv, "cine": cine,
                       "cine_complex": cc, "train_ncsn": tn,
-                      "train_bf16": tb, "sample_vp": sv}), flush=True)
+                      "train_bf16": tb, "sample_vp": sv,
+                      "quickstart_3d": qs}, default=str), flush=True)
 
     kernels = []
     for name in FIR_TAGS + [f"{n}.bf16" for n in FIR_TAGS] + FLR_TAGS:

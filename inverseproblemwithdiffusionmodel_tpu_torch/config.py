@@ -64,15 +64,16 @@ def load_config(ds_name: str, mode: str = "real-valued", **overrides: Any
     """A dataset config, as the JAX package's `load_config` reads it from
     its YAML file. mode == "complex" sets two input channels (real and
     imaginary stacked). Extra keyword args are dotted-key overrides, e.g.
-    ``**{"model.ngf": 32}``. Ported: ACDC, CINE127, CINE127_1D, CINE64 and
-    CINE64_1D (configs_discrete.DATASETS); others raise."""
+    ``**{"model.ngf": 32}``. Ported: ACDC, CINE127, CINE127_1D, CINE64,
+    CINE64_1D, MNIST and SanityCheck1D (configs_discrete.DATASETS); others
+    raise."""
     from .configs_discrete import DATASETS
     if mode not in DATA_MODES:
         raise ValueError(f"unknown data mode {mode!r}; one of {DATA_MODES}")
     if ds_name not in DATASETS:
         raise NotImplementedError(
-            f"dataset config {ds_name!r} is not ported yet; ported: "
-            f"{sorted(DATASETS)}")
+            f"dataset config {ds_name!r} is not ported yet (ROADMAP: Slice "
+            f"E); ported: {sorted(DATASETS)}")
     config = Config(copy.deepcopy(DATASETS[ds_name]))
     if mode == "complex":
         config.data.channels = 2

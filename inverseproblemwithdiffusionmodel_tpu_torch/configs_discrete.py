@@ -4,9 +4,10 @@ The JAX package reads these from YAML files (inverseproblemwithdiffusion
 model_tpu/configs/*.yml through `config.load_config`); the port keeps the
 same trees as dicts so it needs no yaml. Ported: ACDC (configs/acdc.yml),
 the cine frames CINE127 and CINE64 and their pixel-tube temporal configs
-CINE127_1D and CINE64_1D (configs/cine*.yml), and the Seg / Clf
-architecture and trainer constants of configs/general_config.yml
-(`GENERAL`).
+CINE127_1D and CINE64_1D (configs/cine*.yml), MNIST (configs/mnist.yml,
+the README quick start's), SanityCheck1D (configs/sanity_check_1d.yml),
+and the Seg / Clf architecture and trainer constants of
+configs/general_config.yml (`GENERAL`).
 """
 from __future__ import annotations
 
@@ -106,8 +107,76 @@ CINE64 = _cine("CINE64", 64, 1, 32, 400, 33, 500, 9e-07)
 CINE64_1D = _cine("CINE64", 24, 64, 128, 200, 40, 200, 0.001, th=0.06,
                   leq=1000)
 
+# MNIST 32x32 (reference: ncsn/configs/mnist.yml)
+MNIST = {
+    "training": {
+        "log_all_sigmas": False, "snapshot_sampling": True,
+        "snapshot_freq": 5000, "n_iters": 300001, "batch_size": 128,
+        "clf_batch_size": 512, "n_epochs": 200, "anneal_power": 2,
+    },
+    "sampling": {
+        "n_interpolations": 15, "interpolation": False, "inpainting": False,
+        "num_samples4fid": 10000, "fid": False, "ckpt_id": 300000,
+        "data_init": False, "batch_size": 1, "step_lr": 6.2e-06,
+        "n_steps_each": 5, "final_only": True, "denoise": True,
+    },
+    "data": {
+        "num_workers": 0, "dataset": "MNIST", "image_size": 32,
+        "channels": 1, "logit_transform": False,
+        "uniform_dequantization": False, "gaussian_dequantization": False,
+        "random_flip": True, "rescaled": False,
+    },
+    "model": {
+        "spec_norm": False, "sigma_begin": 50, "num_classes": 232,
+        "ema": True, "ema_rate": 0.999, "sigma_dist": "geometric",
+        "sigma_end": 0.01, "normalization": "InstanceNorm++",
+        "nonlinearity": "elu", "ngf": 128,
+    },
+    "optim": {
+        "amsgrad": False, "weight_decay": 0.0, "optimizer": "Adam",
+        "lr": 0.0001, "beta1": 0.9, "eps": 1e-08,
+    },
+    "MAP": {"n_iters": 15000, "lr": 0.001},
+    "recons": {
+        "sigma_dist": "geometric", "sigma_begin": 50, "num_classes": 232,
+        "sigma_end": 0.01,
+    },
+    "fast_fid": {
+        "batch_size": 1000, "num_samples": 1000, "step_lr": 6.2e-06,
+        "n_steps_each": 5, "begin_ckpt": 5000, "end_ckpt": 300000,
+        "verbose": False, "ensemble": False,
+    },
+    "test": {"begin_ckpt": 5000, "end_ckpt": 300000, "batch_size": 100},
+}
+
+# the synthetic ramp + sine signals, 64-channel tubes of 32 steps
+# (reference: ncsn/configs/sanity_check_1D.yml)
+SANITY_CHECK_1D = {
+    "training": {
+        "log_all_sigmas": False, "snapshot_sampling": True,
+        "snapshot_freq": 5000, "n_iters": 80001, "batch_size": 32,
+        "n_epochs": 100, "use_IN": False, "anneal_power": 2,
+    },
+    "sampling": dict(CINE64_1D["sampling"]),
+    "data": {
+        "num_workers": 8, "dataset": "SanityCheck1D", "image_size": 32,
+        "channels": 64, "logit_transform": False,
+        "uniform_dequantization": False, "gaussian_dequantization": False,
+        "random_flip": True, "rescaled": False, "th": 0.06, "leq": 1000,
+    },
+    "model": dict(CINE64_1D["model"], sigma_begin=40, num_classes=200),
+    "optim": dict(ACDC["optim"]),
+    "recons": {
+        "sigma_dist": "geometric", "sigma_begin": 40, "num_classes": 400,
+        "sigma_end": 0.01,
+    },
+    "fast_fid": dict(ACDC["fast_fid"]),
+    "test": dict(ACDC["test"]),
+}
+
 DATASETS = {"ACDC": ACDC, "CINE127": CINE127, "CINE127_1D": CINE127_1D,
-            "CINE64": CINE64, "CINE64_1D": CINE64_1D}
+            "CINE64": CINE64, "CINE64_1D": CINE64_1D, "MNIST": MNIST,
+            "SanityCheck1D": SANITY_CHECK_1D}
 
 # Seg / Clf architectures and generic trainer constants (reference:
 # ncsn/configs/general_config.yml, configs/general_configs.py:4-10)

@@ -1,11 +1,15 @@
-"""Data of the discrete training path: the ACDC and CINE loaders (with
-seeded synthetic stand-ins) and host-side numpy transforms."""
+"""Data of the discrete training path: the MNIST, ACDC, CINE and
+SanityCheck1D loaders (with seeded synthetic stand-ins) and host-side numpy
+transforms."""
 from . import transforms
 from .datasets import (ArrayDataset, REGISTERED_DATA_ROOT_DIR,
                        data_provenance, load_acdc, load_cine, load_data,
-                       load_tissue_data, synthetic_acdc_slice,
-                       synthetic_cine)
+                       load_mnist, load_sanity_check_1d, load_tissue_data,
+                       synthetic_acdc_slice, synthetic_cine,
+                       synthetic_digits)
 
 __all__ = ["ArrayDataset", "REGISTERED_DATA_ROOT_DIR", "data_provenance",
-           "load_acdc", "load_cine", "load_data", "load_tissue_data",
-           "synthetic_acdc_slice", "synthetic_cine", "transforms"]
+           "load_acdc", "load_cine", "load_data", "load_mnist",
+           "load_sanity_check_1d", "load_tissue_data",
+           "synthetic_acdc_slice", "synthetic_cine", "synthetic_digits",
+           "transforms"]

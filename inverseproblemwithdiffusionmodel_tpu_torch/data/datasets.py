@@ -1,16 +1,18 @@
-"""Dataset loaders of the discrete training path: ACDC .npz slices and the
-CINE .mat volumes (frames or pixel tubes).
+"""Dataset loaders of the discrete training path: MNIST (IDX files),
+ACDC .npz slices, the CINE .mat volumes (frames or pixel tubes) and the
+synthetic SanityCheck1D signals.
 
 A copy of the numpy code of inverseproblemwithdiffusionmodel_tpu/data/
-datasets.py (`ArrayDataset`, `REGISTERED_DATA_ROOT_DIR`, `synthetic_cine`
-and `load_cine` :243-366, `load_tissue_data`, `synthetic_acdc_slice` and
-`load_acdc` :392-456, `load_data` :523-575; reference: helpers/
-load_data.py:55-283); the port imports nothing of the JAX package. Roots
-come from the IPDM_DATA_ROOT environment variable or arguments. Where the
-files are absent a loader warns and falls back to a seeded synthetic
-stand-in of the same shapes; `data_provenance()` says which datasets this
-process loaded through `load_data` and from which source. MNIST, CIFAR-10,
-SanityCheck1D and the image folders are not ported (ROADMAP: Slice E).
+datasets.py (`ArrayDataset`, `REGISTERED_DATA_ROOT_DIR`, `_read_idx`,
+`synthetic_digits` and `load_mnist` :84-131, `synthetic_cine` and
+`load_cine` :243-366, `load_tissue_data`, `synthetic_acdc_slice` and
+`load_acdc` :392-456, `load_sanity_check_1d` :460, `load_data` :523-575;
+reference: helpers/load_data.py:55-298); the port imports nothing of the
+JAX package. Roots come from the IPDM_DATA_ROOT environment variable or
+arguments. Where the files are absent a loader warns and falls back to a
+seeded synthetic stand-in of the same shapes; `data_provenance()` says
+which datasets this process loaded through `load_data` and from which
+source. CIFAR-10 and the image folders are not ported (ROADMAP: Slice E).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from ..utils.reshape import reshape_temporal_dim_np
 DATA_ROOT = os.environ.get("IPDM_DATA_ROOT", os.path.expanduser("~/data"))
 
 REGISTERED_DATA_ROOT_DIR = {
+    "MNIST": os.path.join(DATA_ROOT, "mnist"),
     "CINE64": os.path.join(DATA_ROOT, "cine_64"),
     "CINE64_1D": os.path.join(DATA_ROOT, "cine_64"),
     "CINE127": os.path.join(DATA_ROOT, "cine_127"),
@@ -66,6 +69,67 @@ def _warn_synthetic(name: str, root: str):
     warnings.warn(
         f"{name}: dataset not found under {root!r}; using a SYNTHETIC "
         f"stand-in (set IPDM_DATA_ROOT or pass root_dir for real data)")
+
+
+# ---------------------------------------------------------------------------
+# MNIST (reference: load_data.py:95-108)
+# ---------------------------------------------------------------------------
+
+def _read_idx(path: str) -> np.ndarray:
+    """An IDX file (optionally gzipped) as a uint8 array of its shape."""
+    import gzip
+    op = gzip.open if path.endswith(".gz") else open
+    with op(path, "rb") as f:
+        magic = int.from_bytes(f.read(4), "big")
+        ndim = magic & 0xFF
+        shape = [int.from_bytes(f.read(4), "big") for _ in range(ndim)]
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(shape)
+
+
+def synthetic_digits(n: int, size: int, seed: int = 0
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Digit-like blobs, a bright stroke pattern per class: the synthetic
+    stand-in for MNIST. Images (n, size, size, 1) float32 in [0, 1] and
+    their classes (n,)."""
+    rng = np.random.RandomState(seed)
+    ys = rng.randint(0, 10, n)
+    xs = np.zeros((n, size, size), np.float32)
+    yy, xx = np.mgrid[0:size, 0:size] / (size - 1)
+    for i, c in enumerate(ys):
+        phase = 2 * np.pi * c / 10
+        img = (np.sin(3 * np.pi * yy + phase) *
+               np.cos((2 + c % 3) * np.pi * xx - phase))
+        cy, cx = rng.uniform(0.3, 0.7, 2)
+        bump = np.exp(-(((yy - cy) ** 2 + (xx - cx) ** 2) / 0.05))
+        xs[i] = np.clip(np.abs(img) * bump + 0.05 * rng.rand(size, size),
+                        0, 1)
+    return xs[..., None], ys
+
+
+def load_mnist(root_dir: Optional[str] = None, mode: str = "train",
+               size: int = 32, **_) -> ArrayDataset:
+    """MNIST resized to size x size (reference: load_data.py:95-108):
+    images (N, size, size, 1) in [0, 1] and labels (N,). Reads the
+    standard IDX files (train-* or t10k-*, plain or .gz, in root, MNIST/raw
+    or raw) if present; the synthetic digits otherwise."""
+    if mode not in ("train", "val", "test"):
+        raise ValueError(f"unknown split {mode!r}")
+    root = root_dir or REGISTERED_DATA_ROOT_DIR["MNIST"]
+    prefix = "train" if mode == "train" else "t10k"
+    candidates = [os.path.join(root, sub, f"{prefix}-images-idx3-ubyte{gz}")
+                  for sub in ("", "MNIST/raw", "raw") for gz in ("", ".gz")]
+    img_path = next((p for p in candidates if os.path.exists(p)), None)
+    if img_path is None:
+        _warn_synthetic("MNIST", root)
+        n = 2048 if mode == "train" else 256
+        xs, ys = synthetic_digits(n, size, seed=0 if mode == "train" else 1)
+        return ArrayDataset(xs, ys)
+    lbl_path = img_path.replace("images-idx3", "labels-idx1")
+    xs = _read_idx(img_path).astype(np.float32) / 255.0       # (N, 28, 28)
+    ys = _read_idx(lbl_path).astype(np.int64)
+    if size != xs.shape[1]:
+        xs = np.stack([T.resize(x[None], (size, size))[0] for x in xs])
+    return ArrayDataset(xs[..., None], ys)
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +322,24 @@ def load_acdc(root_dir: Optional[str] = None,
 
 
 # ---------------------------------------------------------------------------
+# SanityCheck1D (reference: load_data.py:286-298)
+# ---------------------------------------------------------------------------
+
+def load_sanity_check_1d(num_samples: int = 1024, num_channels: int = 4,
+                         num_features: int = 24, seed: int = 0,
+                         **_) -> ArrayDataset:
+    """s(t) = a t / T + b sin(w t) + noise, a ~ Unif{-1, 1} per sample and
+    channel: (N, T, C) float32, channel-last."""
+    rng = np.random.RandomState(seed)
+    b, w, sigma = 0.2, 1.0, 0.01
+    a = rng.choice([-1.0, 1.0], (num_samples, 1, num_channels))
+    t = np.arange(num_features, dtype=np.float32)[None, :, None]
+    x = a * t / num_features + b * np.sin(w * t)
+    x = x + rng.randn(*x.shape).astype(np.float32) * sigma
+    return ArrayDataset(x.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
 # dispatch (reference: load_data.py:55-92)
 # ---------------------------------------------------------------------------
 
@@ -273,6 +355,8 @@ def load_data(ds_name: str, mode: str = "train", **kwargs) -> ArrayDataset:
 
 
 def _load_data(ds_name: str, mode: str = "train", **kwargs) -> ArrayDataset:
+    if ds_name == "MNIST":
+        return load_mnist(mode=mode, **kwargs)
     if ds_name in ("CINE64", "CINE127"):
         root = kwargs.pop("root_dir", REGISTERED_DATA_ROOT_DIR[ds_name])
         size = 64 if ds_name == "CINE64" else 127
@@ -294,6 +378,15 @@ def _load_data(ds_name: str, mode: str = "train", **kwargs) -> ArrayDataset:
                          default_hw=size, **kwargs)
     if ds_name == "ACDC":
         return load_acdc(mode=mode, **kwargs)
+    if ds_name == "SanityCheck1D":
+        _SYNTH_FLAG["v"] = True          # synthetic by construction
+        # the reference's splits: train seed 0, 1000 samples; val and test
+        # seed 10, 300 (load_data.py:88-91)
+        train = mode == "train"
+        kwargs.setdefault("seed", 0 if train else 10)
+        kwargs.setdefault("num_samples", 1000 if train else 300)
+        return load_sanity_check_1d(**kwargs)
     raise NotImplementedError(
         f"dataset {ds_name!r} is not ported yet (ROADMAP: Slice E); ported: "
-        f"ACDC, CINE64, CINE127, CINE64_1D, CINE127_1D")
+        f"MNIST, ACDC, CINE64, CINE127, CINE64_1D, CINE127_1D, "
+        f"SanityCheck1D")

@@ -1,20 +1,21 @@
-"""Activations and the NCSN (RefineNet-family) building blocks, NCHW or
-NCT.
+"""Activations and the NCSN (RefineNet-family) building blocks, NCHW, NCT
+or NCDHW.
 
 Port of inverseproblemwithdiffusionmodel_tpu/models/layers.py: `get_act`,
 `centered_input`, `Conv` (dilation, `pre_pad`), `conv1x1` / `conv3x3`,
-`ConvTranspose`, the
-pools, CRP / RCU / MSF / RefineBlock, ConvMeanPool and ResidualBlock
-(reference: ncsn/models/layers.py, layers1d.py). As in the JAX package
+`ConvTranspose`, the pools and `nearest_up_2x`, CRP / RCU / MSF /
+RefineBlock, ConvMeanPool and ResidualBlock (reference:
+ncsn/models/layers.py, layers1d.py, layers3d.py). As in the JAX package
 every block takes `ndim`, the number of spatial axes: 2 for images, 1 for
-the temporal prior's pixel tubes; the pools follow the rank of their
-input. The JAX package is channel-last; these blocks are channels-first,
-torch's and cuDNN's own layout, and take their input widths at
-construction. Submodules carry the names Flax gives them
-(`Conv_0`, `ConvMeanPool_1`, `adapt_0`, `norm1`, ...), so a Flax parameter
-tree maps onto the state dict leaf by leaf (utils/convert.py). Torch's
-default init, U(+-1/sqrt(fan_in)) for weights and biases, is the JAX
-package's `torch_kernel_init`.
+the temporal prior's pixel tubes, 3 for the 2D+time volumes of
+models/ncsn3d.py; the pools follow the rank of their input. The JAX
+package is channel-last; these blocks are channels-first, torch's and
+cuDNN's own layout, and take their input widths at construction.
+Submodules carry the names Flax gives them (`Conv_0`, `ConvMeanPool_1`,
+`adapt_0`, `norm1`, ...), so a Flax parameter tree maps onto the state
+dict leaf by leaf (utils/convert.py). Torch's default init,
+U(+-1/sqrt(fan_in)) for weights and biases, is the JAX package's
+`torch_kernel_init`.
 """
 from __future__ import annotations
 
@@ -50,11 +51,13 @@ def centered_input(config) -> bool:
     return bool(data.logit_transform or data.rescaled)
 
 
-_CONV = {1: F.conv1d, 2: F.conv2d}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
 
 
 class Conv(nn.Module):
-    """N-D convolution (ndim 1 or 2), symmetric padding (kernel_size // 2
+    """N-D convolution (ndim 1, 2 or 3), symmetric padding (kernel_size // 2
     * dilation by default), optional extra zero padding `pre_pad` = (lo,
     hi) per axis. Weight (O, I, *k) and bias (O,), drawn as torch's
     nn.Conv2d draws them, U(+-1/sqrt(fan_in))."""
@@ -99,27 +102,47 @@ def conv3x3(in_features: int, features: int, stride: int = 1,
                 use_bias=use_bias, ndim=ndim)
 
 
-class ConvTranspose(nn.ConvTranspose2d):
-    """2-D transposed convolution, output size (in - 1) s - 2p + k + o
-    (`output_padding` o on the high side), as the JAX `ConvTranspose`. The
-    JAX layer correlates the zero-dilated input with the spatially flipped
-    kernel (kh, kw, I, O); torch's weight (I, O, kh, kw) is that kernel
-    transposed, unflipped (utils/convert.py)."""
+class ConvTranspose(nn.Module):
+    """N-D transposed convolution (ndim 1, 2 or 3) with a kernel size,
+    stride, padding and output padding per axis (an int is the same on
+    every axis): output size (in - 1) s - 2p + k + o, `output_padding` o
+    on the high side, as the JAX `ConvTranspose` (reference: ncsn3d.py:177
+    for the asymmetric temporal form). The JAX layer correlates the
+    zero-dilated input with the spatially flipped kernel (*k, I, O);
+    torch's conv_transpose weight (I, O, *k) is that kernel transposed,
+    unflipped (utils/convert.py). Weight and bias are drawn U(+-1 /
+    sqrt(O prod(k))), torch's default."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: int,
-                 stride: int, padding: int, output_padding: int = 0):
-        super().__init__(in_features, features, kernel_size, stride=stride,
-                         padding=padding, output_padding=output_padding)
+    def __init__(self, in_features: int, features: int, kernel_size,
+                 stride, padding, output_padding=0, ndim: int = 2):
+        super().__init__()
+        per_axis = lambda v: (tuple(v) if isinstance(v, (tuple, list))
+                              else (v,) * ndim)
+        k = per_axis(kernel_size)
+        self.stride, self.padding = per_axis(stride), per_axis(padding)
+        self.output_padding = per_axis(output_padding)
+        self.in_channels, self.out_channels = in_features, features
+        self.ndim = ndim
+        self.weight = nn.Parameter(torch.empty((in_features, features) + k))
+        self.bias = nn.Parameter(torch.empty(features))
+        bound = 1.0 / math.sqrt(features * math.prod(k))
+        with torch.no_grad():
+            for p in (self.weight, self.bias):
+                p.uniform_(-bound, bound)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _CONV_T[self.ndim](x, self.weight, self.bias, self.stride,
+                                  self.padding, self.output_padding)
 
 
-_MAX_POOL = {3: F.max_pool1d, 4: F.max_pool2d}
-_AVG_POOL = {3: F.avg_pool1d, 4: F.avg_pool2d}
+_MAX_POOL = {3: F.max_pool1d, 4: F.max_pool2d, 5: F.max_pool3d}
+_AVG_POOL = {3: F.avg_pool1d, 4: F.avg_pool2d, 5: F.avg_pool3d}
 
 
 def max_pool(x: torch.Tensor, window: int = 5, stride: int = 1,
              padding: int = 2) -> torch.Tensor:
-    """Max pool over the spatial axes of an NCT or NCHW x; the padding
-    counts as -inf."""
+    """Max pool over the spatial axes of an NCT, NCHW or NCDHW x; the
+    padding counts as -inf."""
     return _MAX_POOL[x.ndim](x, window, stride, padding)
 
 
@@ -134,6 +157,14 @@ def mean_pool_2x(x: torch.Tensor) -> torch.Tensor:
     """2x decimating mean pool (the reference's sum of shifted slices /
     2^ndim, layers.py:311-313)."""
     return _AVG_POOL[x.ndim](x, 2, 2)
+
+
+def nearest_up_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest-neighbour upsample over every spatial axis (the
+    reference's cat-4-copies + PixelShuffle, layers.py:337-341)."""
+    for axis in range(2, x.ndim):
+        x = torch.repeat_interleave(x, 2, dim=axis)
+    return x
 
 
 class _FlaxNamed(nn.Module):

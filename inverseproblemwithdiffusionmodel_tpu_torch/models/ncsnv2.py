@@ -8,10 +8,11 @@ centered; the output is divided by the per-sample noise level.
 
 `forward(x, used_sigmas)` takes x as (B, C, H, W) and the sigma VALUES
 (B,), not ladder labels. With ndim=1 the same family runs on (B, C, T)
-pixel tubes (models/ncsn1d.py, the temporal prior), as in the JAX
-package. The JAX package is channel-last; for the C = 1 of
-the MRI configs an NHWC (B, H, W, 1) tensor and its contiguous NCHW form
-share their memory, so the samplers keep the JAX axis order and hand the
+pixel tubes (models/ncsn1d.py, the temporal prior), and NCSNv2 at ndim=3
+on 2D+time volumes (models/ncsn3d.NCSN3D), as in the JAX package. The
+JAX package is channel-last; for the C = 1 of the MRI configs an NHWC
+(B, H, W, 1) tensor and its contiguous NCHW form share their memory, so
+the samplers keep the JAX axis order and hand the
 net a view (models/registry.make_score_fn). The view must carry NCHW
 strides: given channels-last strides, torch runs the convolutions in
 NHWC instead (PERF.md).
@@ -49,7 +50,7 @@ class _NCSNv2Family(nn.Module):
         self.act = act = get_act(config)
         norm = get_normalization(config, conditional=False)
         self.centered = centered_input(config)
-        self.begin_conv = Conv(config.data.channels, ngf, 3, ndim=ndim)
+        self.begin_conv = Conv(self._io_channels(), ngf, 3, ndim=ndim)
         width = ngf
         self.widths = []
         for name, mult, resample, dilation in self.STAGES:
@@ -71,7 +72,11 @@ class _NCSNv2Family(nn.Module):
                                               ndim=ndim))
             ref_width = mult * ngf
         self.normalizer = norm(ngf)
-        self.end_conv = Conv(ngf, config.data.channels, 3, ndim=ndim)
+        self.end_conv = Conv(ngf, self._io_channels(), 3, ndim=ndim)
+
+    def _io_channels(self) -> int:
+        """The net's input and output channels."""
+        return self.config.data.channels
 
     def _adjust_padding(self, stage: str) -> bool:
         return False

@@ -1,4 +1,5 @@
-"""Normalization layers of the NCSNv2 score networks, NCHW or NCT.
+"""Normalization layers of the NCSNv2 score networks, NCHW, NCT or
+NCDHW.
 
 Port of the unconditional norms of inverseproblemwithdiffusionmodel_tpu/
 models/normalization.py (reference: ncsn/models/normalization.py).
@@ -6,10 +7,10 @@ InstanceNorm++ is InstanceNorm with the per-channel means, normalized over
 the channel axis, re-injected through a learned alpha. Instance statistics
 use the biased variance with eps 1e-5; the statistics of the channel means
 use the UNBIASED variance (torch.var's default, ddof=1), so C >= 2.
-Statistics run over every spatial axis (H and W, or T of the temporal
-prior). Parameters carry the Flax names: alpha, gamma, beta of shape (C,). The
-norms take their width only (the JAX modules' `bias` flag, unused by
-every net here, is left out).
+Statistics run over every spatial axis (H and W; T of the temporal
+prior; the three axes of the 2D+time volumes). Parameters carry the Flax
+names: alpha, gamma, beta of shape (C,). The norms take their width only
+(the JAX modules' `bias` flag, unused by every net here, is left out).
 """
 from __future__ import annotations
 

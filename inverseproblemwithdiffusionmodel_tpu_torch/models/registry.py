@@ -4,8 +4,10 @@ Port of `create_model`, `get_network`, `build_seg_unet`,
 `TASK_NAME_TO_MODEL_CTOR`, `load_model` and `make_score_fn` from
 inverseproblemwithdiffusionmodel_tpu/models/registry.py. Ported: NCSN++,
 DDPM, the NCSNv2 family (with the size-suffixed aliases), its 1-D members
-(the cine temporal prior, task "Diffusion1D") and the seg UNet;
-`make_seg_fn` is the seg UNet's counterpart of `make_score_fn`, and
+(the cine temporal prior, task "Diffusion1D") and UNET1D, the 3-D nets
+(NCSN3D, and NCSN3DShallow for task "Diffusion3D") and the seg UNet;
+`make_seg_fn` is the seg UNet's counterpart of `make_score_fn`,
+`make_tube_score_fn_3d` its form for a 3-D net on pixel tubes, and
 `continuous_model_fn` the network as the continuous stack's score function
 calls it.
 """
@@ -20,6 +22,7 @@ from ..config import load_general_config
 from ..samplers.sigmas import sigma_ladder
 from .ddpm import DDPM
 from .ncsn1d import NCSN1D, NCSN1DDeeper, NCSN1DDeepest, UNET1D
+from .ncsn3d import NCSN3D, NCSN3DShallow, tube_window
 from .ncsnpp import NCSNpp
 from .ncsnv2 import NCSNv2, NCSNv2Deeper, NCSNv2Deepest, _NCSNv2Family
 from .unet import UNet
@@ -30,6 +33,7 @@ _MODELS = {
     "ncsnv2_deepest": NCSNv2Deepest,
     "ncsn1d": NCSN1D, "ncsn1d_deeper": NCSN1DDeeper,
     "ncsn1d_deepest": NCSN1DDeepest, "unet1d": UNET1D,
+    "ncsn3d": NCSN3D, "ncsn3d_shallow": NCSN3DShallow,
     # size-suffixed aliases (reference: models/ncsnv2.py registers
     # ncsnv2_64/128/256 for the <96 / <=128 / <=256 px variants)
     "ncsnv2_64": NCSNv2, "ncsnv2_128": NCSNv2Deeper,
@@ -40,7 +44,8 @@ _MODELS = {
 def get_model(name: str):
     if name not in _MODELS:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet; ported: {sorted(_MODELS)}")
+            f"model {name!r} is not ported yet (ROADMAP: Queue 1); ported: "
+            f"{sorted(_MODELS)}")
     return _MODELS[name]
 
 
@@ -64,13 +69,12 @@ def get_network(config):
 
 
 def build_seg_unet(general_config=None) -> UNet:
-    """The segmentation UNet of general_config's `Seg` section (2-D)."""
+    """The segmentation UNet of general_config's `Seg` section, at its
+    `spatial_dims`."""
     seg = (general_config or load_general_config()).Seg
-    if seg.spatial_dims != 2:
-        raise NotImplementedError(f"a {seg.spatial_dims}-D UNet is not "
-                                  "ported (2-D only)")
     return UNet(out_channels=seg.out_channels, features=tuple(seg.channels),
-                strides=tuple(seg.strides), in_channels=seg.in_channels)
+                strides=tuple(seg.strides), in_channels=seg.in_channels,
+                ndim=seg.spatial_dims)
 
 
 def _not_ported(task: str, slice_: str):
@@ -83,7 +87,7 @@ def _not_ported(task: str, slice_: str):
 TASK_NAME_TO_MODEL_CTOR = {
     "Diffusion": lambda config: NCSNv2Deepest(config),
     "Diffusion1D": NCSN1D,
-    "Diffusion3D": _not_ported("Diffusion3D", "Slice C"),
+    "Diffusion3D": NCSN3DShallow,
     "Clf": _not_ported("Clf", "Slice E"),
     "Seg": lambda config: build_seg_unet(),
 }
@@ -92,10 +96,15 @@ TASK_NAME_TO_MODEL_CTOR = {
 def example_input(config, task_name: str) -> torch.Tensor:
     """A zero batch of one, channel-last, at the shape the JAX package
     initializes a task's model with (its `_example_input`): (1, s, s, C)
-    images, (1, T, C) tubes of the 1-D prior."""
+    images, (1, T, C) tubes of the 1-D prior, (1, win, win, T, C3) volumes
+    of the 3-D prior."""
     data = config.data
     if task_name == "Diffusion1D":
         return torch.zeros(1, data.image_size, data.channels)
+    if task_name == "Diffusion3D":
+        win = tube_window(config)
+        return torch.zeros(1, win, win, data.image_size,
+                           data.get("channels_3d", 1))
     if task_name in ("Diffusion", "Seg"):
         s = data.image_size
         return torch.zeros(1, s, s, data.channels)
@@ -136,8 +145,9 @@ def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
     as in the JAX package; the net runs on contiguous NCHW (`to_nchw`, no
     copy for C = 1) and the score comes back channel-last. The 1-D nets
     take channel-last tubes (B', T, C) the same way: for the C = win^2
-    channels of a tube the move to (B', C, T) is a copy. `sigmas` moves
-    to the model's device.
+    channels of a tube the move to (B', C, T) is a copy. The 3-D nets
+    take channel-last volumes (B, kx, ky, T, C3) as NCDHW, and tubes as
+    the 1-D nets do. `sigmas` moves to the model's device.
 
     compute_dtype=torch.bfloat16 runs the net on a bf16 copy of the weights
     with a bf16 input and sigmas, and casts the score back to float32; the
@@ -164,6 +174,23 @@ def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
     return score_fn
 
 
+def make_tube_score_fn_3d(model: torch.nn.Module, sigmas, win: int
+                          ) -> Callable[[torch.Tensor, torch.Tensor],
+                                        torch.Tensor]:
+    """The score adapter of a 3-D net (NCSN3D, NCSN3DShallow) on the
+    2D+time sampler's pixel tubes (B', T, win^2): `make_score_fn`, which
+    hands the net the (B', win^2, T) tubes it views as volumes, after a
+    window check. The net takes its window from config.data.channels; a
+    sampler's `win` that disagrees would tile the tubes wrongly, so it
+    raises ValueError."""
+    channels = int(model.config.data.channels)
+    if win * win != channels:
+        raise ValueError(
+            f"win_size {win} (k^2 = {win * win}) does not match the 3-D "
+            f"net's config.data.channels = {channels}")
+    return make_score_fn(model, sigmas)
+
+
 def continuous_model_fn(model: torch.nn.Module, config
                         ) -> Callable[[torch.Tensor, torch.Tensor],
                                       torch.Tensor]:
@@ -184,7 +211,8 @@ def continuous_model_fn(model: torch.nn.Module, config
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) -> contiguous (B, C, H, W), or (B, T, C) -> (B, C, T).
+    """(B, H, W, C) -> contiguous (B, C, H, W), (B, T, C) -> (B, C, T), or
+    (B, kx, ky, T, C) -> (B, C, kx, ky, T).
     For C = 1 this is a view of the same memory. The bare permute would
     not do: for C = 1 its strides are channels-last strides, and torch
     then runs every convolution of the net in NHWC against NCHW weights,

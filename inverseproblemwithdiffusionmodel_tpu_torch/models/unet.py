@@ -1,16 +1,16 @@
-"""Encoder-decoder segmentation UNet, NCHW.
+"""Encoder-decoder UNet, rank-generic (NCT, NCHW or NCDHW).
 
-Port of `PReLU` and `UNet` (2-D) from inverseproblemwithdiffusionmodel_tpu/
-models/unet.py, the reference's MONAI UNet with num_res_units=0
-(helpers/load_model.py:28-31): strided convolutions down, transposed
+Port of `PReLU` and `UNet` from inverseproblemwithdiffusionmodel_tpu/
+models/unet.py, the reference's MONAI UNet with num_res_units=0: the
+segmentation net (2-D, helpers/load_model.py:28-31) and the body of the
+1-D score net UNET1D (models/ncsn1d.py). Strided convolutions down, transposed
 convolutions up with the skip concatenated before each, instance norm and
 PReLU after every layer but the last. Submodules carry the Flax names
 (`down_{i}`, `prelu_down_{i}`, `bottom`, `prelu_bottom`, `up_{i}`,
 `prelu_up_{i}`), so utils/convert.flax_to_torch_unet maps a Flax tree onto
-the state dict. `forward` takes NCHW; models/registry.make_seg_fn adapts it
-to the channel-last tensors of the samplers. Torch's instance norm raises
-on a 1 x 1 map (the JAX norm returns zeros there), so an input must leave
-the bottom at least 2 pixels wide: 32 px for four stride-2 levels.
+the state dict. `forward` takes channels first; models/registry.
+make_seg_fn adapts the seg net to the channel-last tensors of the
+samplers. A map of one element normalizes to zeros, as in the JAX norm.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ class UNet(nn.Module):
                  features: Sequence[int] = (64, 128, 256, 512, 1024),
                  strides: Sequence[int] = (2, 2, 2, 2),
                  in_channels: int = 1, norm: Optional[str] = "instance",
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, ndim: int = 2):
         super().__init__()
         if len(features) != len(strides) + 1:
             raise ValueError(f"{len(features)} features need "
@@ -51,11 +51,12 @@ class UNet(nn.Module):
         width = in_channels
         skips = []
         for i, (f, s) in enumerate(zip(features[:-1], strides)):
-            self.add_module(f"down_{i}", Conv(width, f, k, stride=s))
+            self.add_module(f"down_{i}", Conv(width, f, k, stride=s,
+                                              ndim=ndim))
             self.add_module(f"prelu_down_{i}", PReLU())
             width = f
             skips.append(f)
-        self.bottom = Conv(width, features[-1], k)
+        self.bottom = Conv(width, features[-1], k, ndim=ndim)
         self.prelu_bottom = PReLU()
         width = features[-1]
         for i, (f, s) in enumerate(zip(reversed(features[:-1]),
@@ -64,7 +65,7 @@ class UNet(nn.Module):
             out = out_channels if last else f
             self.add_module(f"up_{i}", ConvTranspose(
                 width + skips[-(i + 1)], out, k, stride=s, padding=k // 2,
-                output_padding=s - 1))
+                output_padding=s - 1, ndim=ndim))
             if not last:
                 self.add_module(f"prelu_up_{i}", PReLU())
             width = out

@@ -1,15 +1,17 @@
 """Annealed Langevin dynamics: the sampler parameters and the update step.
 
-Port of `ALDConfig`, `_labels`, `_langevin_update`, the guidance
-gradients `compute_clf_grad` / `compute_seg_grad`, the 2D+time ladders
-(`interp_sigmas_T`, `interp_sigma_T_indices`, `setup_2d_time_ladders`)
-and the complex reconstruction samplers `ald_inverse_seg_proximal_real_imag`
-and `ald_2d_time` from inverseproblemwithdiffusionmodel_tpu/samplers/
-ald.py (reference: ncsn/models/ALD_optimizers.py:49-155, 161-327 and
-330-554, ncsn/models/__init__.py:172-215). Randomness is injected: the update
-takes its noise tensor, drawn by the caller from a `noise(shape)` function
-(utils/device.gaussian_noise builds one from a seed and an explicit
-torch.Generator), so a test can feed the JAX sampler's own draws.
+Port of `ALDConfig`, `_labels`, `_langevin_update`, the prior sampler
+`ald_unconditional_sampler`, the guidance gradients `compute_clf_grad` /
+`compute_seg_grad`, the 2D+time ladders (`interp_sigmas_T`,
+`interp_sigma_T_indices`, `setup_2d_time_ladders`) and the complex
+reconstruction samplers `ald_inverse_seg_proximal_real_imag` and
+`ald_2d_time` from inverseproblemwithdiffusionmodel_tpu/samplers/ald.py
+(reference: ncsn/models/ALD_optimizers.py:49-155, 158, 161-327 and
+330-554, ncsn/models/__init__.py:172-215). Randomness is injected: the
+update takes its noise tensor, drawn by the caller from a `noise(shape)`
+function (utils/device.gaussian_noise builds one from a seed and an
+explicit torch.Generator), so a test can feed the JAX sampler's own
+draws.
 
 Score function interface: `score_fn(x, labels) -> score`, labels an
 integer (B,) tensor of ladder indices; models/registry.make_score_fn
@@ -52,6 +54,60 @@ def _langevin_update(x: torch.Tensor, grad: torch.Tensor,
                      ) -> torch.Tensor:
     """x + s * grad + noise * sqrt(2 s), s a float32 tensor."""
     return x + step_size * grad + noise * torch.sqrt(step_size * 2.0)
+
+
+# -- unconditional sampling ---------------------------------------------------
+
+def ald_unconditional_sampler(
+    score_fn: ScoreFn,
+    sigmas,
+    shape: Tuple[int, ...],
+    seed: int = 0,
+    config: ALDConfig = ALDConfig(),
+    x_init: Optional[torch.Tensor] = None,
+    snapshot_fn: Optional[Callable] = None,
+    noise: Optional[Noise] = None,
+    device="cuda",
+) -> torch.Tensor:
+    """Prior sampling by annealed Langevin dynamics (reference:
+    ALD_optimizers.py:66-137 with its default hooks): a host loop over the
+    levels and config.n_steps_each inner steps, each one score evaluation
+    and a Langevin update with step_lr (sigma / sigma_L)^2, then where
+    config.denoise one denoising step x + sigma_L^2 score(x) at the last
+    level.
+
+    shape: (B, *feature), the score function's channel-last layout. x
+    starts at U(0, 1) unless `x_init` is given. One torch.Generator on
+    `device`, seeded with `seed`, draws the start and then the inner
+    steps' noise in order (it takes the JAX PRNG key's place);
+    `noise(shape)` overrides the noise, one draw per inner step, as the
+    JAX key schedule draws it. snapshot_fn(level, sigma, x) runs on the
+    host every config.snapshot_every levels. score_fn must run on
+    `device`. Runs under torch.inference_mode; returns float32 x."""
+    device = resolve_device(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    if noise is None:
+        noise = lambda s: torch.randn(tuple(s), generator=gen, device=device)
+    sigmas = torch.as_tensor(sigmas, dtype=torch.float32).to(device)
+    L = sigmas.shape[0]
+    sigma_last = sigmas[-1]
+    with torch.inference_mode():
+        if x_init is None:
+            x = torch.rand(tuple(shape), generator=gen, device=device)
+        else:
+            x = torch.as_tensor(x_init, dtype=torch.float32).to(device)
+        for c in range(L):
+            sigma = sigmas[c]
+            step_size = config.step_lr * (sigma / sigma_last) ** 2
+            for _ in range(config.n_steps_each):
+                grad = score_fn(x, _labels(x, c))
+                x = _langevin_update(x, grad, step_size, noise(x.shape))
+            if (snapshot_fn is not None and config.snapshot_every > 0
+                    and c % config.snapshot_every == 0):
+                snapshot_fn(c, float(sigma), x)
+        if config.denoise:
+            x = x + sigma_last ** 2 * score_fn(x, _labels(x, L - 1))
+        return x
 
 
 # -- 2D+time ladders (host numpy: the level loop reads them on the host) ----

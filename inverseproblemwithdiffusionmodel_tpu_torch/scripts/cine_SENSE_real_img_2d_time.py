@@ -16,8 +16,9 @@ axis and the per-frame mask tiled to match. It prints the sampler's
 chain-steps/s between CUDA synchronizations (the config, data, operator
 and nets' set-up apart) and the wall seconds. The random draws (the phase,
 the chains' noise, the tubes' roll) come from torch.Generators seeded with
---seed. --task_name_T Diffusion3D (NCSN3DShallow on pixel tubes) is not
-ported yet and raises NotImplementedError (ROADMAP: Slice C).
+--seed. --task_name_T Diffusion3D takes the temporal score of a 3-D net
+(NCSN3DShallow) on the pixel tubes (models/registry.make_tube_score_fn_3d,
+which checks --win_size against the net's window).
 """
 from __future__ import annotations
 
@@ -29,19 +30,14 @@ import torch
 from ._common import apply_overrides, add_common_args, save_artifacts, reload_model
 from ..config import load_config
 from ..data import load_cine, transforms as dT
-from ..models.registry import make_score_fn
+from ..models.registry import make_score_fn, make_tube_score_fn_3d
 from ..operators import get_proximal, make_sense
 from ..parallel import repeat_measurement
 from ..samplers.ald import ALDConfig, ald_2d_time, setup_2d_time_ladders
 from ..samplers.sigmas import check_ladder_stability, get_sigmas
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, synchronize
 from ..utils.metrics import nrmse, ssim
 from ..utils.misc import add_phase
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def cine_problem(args, device: torch.device):
@@ -75,6 +71,16 @@ def cine_problem(args, device: torch.device):
     lin_tfm_b = lin_tfm if B == 1 else lin_tfm.replace(
         base=lin_tfm.base.replace(mask=lin_tfm.base.mask.repeat(B, 1, 1, 1)))
     return x_true, lin_tfm, measurement, zf, measurement_b, lin_tfm_b
+
+
+def temporal_score_fn(model_T, sigmas_T, task_name_T: str, win_size: int):
+    """The temporal prior's score on the sampler's (B', T, win^2) tubes:
+    a 1-D net's through make_score_fn, a 3-D net's (Diffusion3D) through
+    make_tube_score_fn_3d, which raises ValueError where win_size^2 is not
+    the net's config.data.channels (the JAX scripts' :126-127)."""
+    if task_name_T == "Diffusion3D":
+        return make_tube_score_fn_3d(model_T, sigmas_T, win_size)
+    return make_score_fn(model_T, sigmas_T)
 
 
 def cine_metrics(recons: torch.Tensor, x_true: torch.Tensor):
@@ -128,10 +134,6 @@ def main(argv=None):
                         "config's sampling.n_steps_each)")
     args = p.parse_args(argv)
     use_T = "diffusion1d" in args.mode_T
-    if use_T and args.task_name_T == "Diffusion3D":
-        raise NotImplementedError("--task_name_T Diffusion3D (NCSN3DShallow "
-                                  "on pixel tubes) is not ported yet "
-                                  "(ROADMAP: Slice C)")
     device = resolve_device(args.device)   # no card: raise before any work
 
     config_S = apply_overrides(load_config(args.ds_name, "real-imag"),
@@ -149,7 +151,8 @@ def main(argv=None):
     if use_T:
         model_T, _ = reload_model(config_T, args.task_name_T,
                                   args.ckpt_dir_T)
-        score_T = make_score_fn(model_T.to(device).eval(), sigmas_T)
+        score_T = temporal_score_fn(model_T.to(device).eval(), sigmas_T,
+                                    args.task_name_T, args.win_size)
 
     cfg = ALDConfig(
         n_steps_each=args.num_steps_each or config_S.sampling.n_steps_each,
@@ -157,7 +160,7 @@ def main(argv=None):
     check_ladder_stability(sigmas_S, cfg.n_steps_each, cfg.step_lr)
     proximal = get_proximal(args.proximal_type)(lin_tfm=lin_tfm_b)
 
-    _sync(device)
+    synchronize(device)
     t_run = time.perf_counter()
     recons = ald_2d_time(
         make_score_fn(model_S, sigmas_S), score_T, sigmas_S, sigmas_T,
@@ -165,7 +168,7 @@ def main(argv=None):
         lr_scaled=args.lr_scaled, mode_T=args.mode_T, lamda_T=args.lamda_T,
         if_random_shift=args.if_random_shift, win_size=args.win_size,
         num_frames=args.num_frames, device=device)
-    _sync(device)
+    synchronize(device)
     sampler_s = time.perf_counter() - t_run
     levels = len(setup_2d_time_ladders(sigmas_S, sigmas_T, args.mode_T)[0])
     chain_steps = levels * cfg.n_steps_each * args.num_samples

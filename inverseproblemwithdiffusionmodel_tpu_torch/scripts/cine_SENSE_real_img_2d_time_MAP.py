@@ -13,8 +13,8 @@ defaults and --beta1 / --beta2. The JAX script draws a strip of
 --num_plot_times frames with matplotlib (utils/visualizations, not ported
 yet: ROADMAP Slice H); this one saves the strip's frame indices and
 magnitudes in temporal_grid.npz of the run's directory and says that the
-PNG is not drawn. --task_name_T Diffusion3D raises NotImplementedError
-(ROADMAP: Slice C).
+PNG is not drawn. --task_name_T Diffusion3D takes the temporal score of a
+3-D net (NCSN3DShallow) on the pixel tubes.
 """
 from __future__ import annotations
 
@@ -25,12 +25,13 @@ import time
 import numpy as np
 
 from ._common import apply_overrides, add_common_args, save_artifacts, reload_model
-from .cine_SENSE_real_img_2d_time import _sync, cine_metrics, cine_problem
+from .cine_SENSE_real_img_2d_time import (cine_metrics, cine_problem,
+                                          temporal_score_fn)
 from ..config import load_config
 from ..models.registry import make_score_fn
 from ..samplers.map_opt import MAPConfig, map_optimizer_2d_time
 from ..samplers.sigmas import get_sigmas
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, synchronize
 
 
 def main(argv=None):
@@ -72,10 +73,6 @@ def main(argv=None):
     p.add_argument("--data_root", default=None)
     args = p.parse_args(argv)
     use_T = args.mode_T == "diffusion1d"
-    if use_T and args.task_name_T == "Diffusion3D":
-        raise NotImplementedError("--task_name_T Diffusion3D (NCSN3DShallow "
-                                  "on pixel tubes) is not ported yet "
-                                  "(ROADMAP: Slice C)")
     device = resolve_device(args.device)   # no card: raise before any work
 
     config_S = apply_overrides(load_config(args.ds_name, "real-imag"),
@@ -94,7 +91,8 @@ def main(argv=None):
     if use_T:
         model_T, _ = reload_model(config_T, args.task_name_T,
                                   args.ckpt_dir_T)
-        score_T = make_score_fn(model_T.to(device).eval(), sigmas_T)
+        score_T = temporal_score_fn(model_T.to(device).eval(), sigmas_T,
+                                    args.task_name_T, args.win_size)
 
     # cine configs carry no MAP section (the reference's cine127.yml has
     # none either); fall back to MAPConfig's defaults
@@ -104,7 +102,7 @@ def main(argv=None):
         lr=args.lr or (map_cfg.lr if map_cfg else 1e-3),
         b1=args.beta1 if args.beta1 is not None else 0.5,
         b2=args.beta2 if args.beta2 is not None else 0.5)
-    _sync(device)
+    synchronize(device)
     t_run = time.perf_counter()
     recon = map_optimizer_2d_time(
         make_score_fn(model_S, sigmas_S), score_T, measurement_b, lin_tfm_b,
@@ -113,7 +111,7 @@ def main(argv=None):
         temporal_step_weight=args.temporal_step_weight, mode_T=args.mode_T,
         if_random_shift=args.if_random_shift, win_size=args.win_size,
         num_frames=T, seed=args.seed, device=device)
-    _sync(device)
+    synchronize(device)
     run_s = time.perf_counter() - t_run
     print(f"MAP 2D+time: {cfg.n_iters} Adam iterations in {run_s:.4f} s, "
           f"{cfg.n_iters / run_s:.2f} iterations/s (set-up apart); wall "

@@ -1,5 +1,11 @@
-"""Train a discrete NCSN score model (2-D, or 1-D on pixel tubes) on the
-GPU unless --device says otherwise, e.g. the deployed ACDC prior:
+"""Train a discrete NCSN score model (2-D, 1-D on pixel tubes, or 3-D on
+pixel-window volumes) on the GPU unless --device says otherwise, e.g. the
+README quick start's MNIST prior:
+
+  python -m inverseproblemwithdiffusionmodel_tpu_torch.scripts.train_ncsn \\
+      --ds_name MNIST --task_name Diffusion
+
+the deployed ACDC prior:
 
   python -m inverseproblemwithdiffusionmodel_tpu_torch.scripts.train_ncsn \\
       --ds_name ACDC --task_name Diffusion --mode real-imag
@@ -10,6 +16,13 @@ or the cine temporal prior on 8 x 8 pixel tubes of 24 frames:
       --ds_name CINE127_1D --task_name Diffusion1D --mode real-imag \\
       --flatten_type temporal
 
+or its 3-D form (NCSN3DShallow on the (N, 8, 8, 24, 1) volumes of the same
+tubes):
+
+  python -m inverseproblemwithdiffusionmodel_tpu_torch.scripts.train_ncsn \\
+      --ds_name CINE127_1D --task_name Diffusion3D --mode real-imag \\
+      --flatten_type temporal
+
 Port of inverseproblemwithdiffusionmodel_tpu/scripts/train_ncsn.py: config
 -> data.load_data -> models.registry.load_model -> training.
 make_score_train_step / make_score_eval_step -> training.fit, with the
@@ -17,8 +30,7 @@ same flags plus --device. The run writes `desc.txt`, `metrics.jsonl` and
 checkpoints under `<log_dir>/<ds_name>_<task_name>_<mode>/ckpts`, which
 `serve_recon --ckpt_dir` (and `--ckpt_dir_T` for a temporal prior) serves
 from. The stop is `training.n_iters` (or 2 steps with --train_mode debug).
-Not ported: --use_mesh (ROADMAP: Slice E) and --task_name Diffusion3D
-(ROADMAP: Slice C); each raises. The native C++ batcher is not ported, so
+Not ported: --use_mesh (ROADMAP: Slice E), which raises. The native C++ batcher is not ported, so
 --no_native_loader and --num_workers change nothing.
 """
 from __future__ import annotations
@@ -26,6 +38,7 @@ from __future__ import annotations
 import argparse
 import os
 
+import numpy as np
 import torch
 
 from ._common import apply_overrides
@@ -90,14 +103,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def to3d(tubes: np.ndarray) -> np.ndarray:
+    """(N, T, k^2) pixel tubes -> (N, k, k, T, 1) volumes, the 3-D net's
+    channel-last layout (the JAX script's `to3d`)."""
+    N, T, KK = tubes.shape
+    win = int(np.sqrt(KK))
+    return tubes.transpose(0, 2, 1).reshape(N, win, win, T)[..., None]
+
+
 def main(argv=None) -> TrainState:
     args = parse_args(argv)
     if args.use_mesh:
         raise NotImplementedError("--use_mesh: data-parallel training is not "
                                   "ported yet (ROADMAP: Slice E)")
-    if args.task_name == "Diffusion3D":
-        raise NotImplementedError("--task_name Diffusion3D is not ported yet "
-                                  "(ROADMAP: Slice C)")
     device = resolve_device(args.device)     # no card: raise before work
     config = apply_overrides(load_config(args.ds_name, args.mode),
                              args.override)
@@ -115,8 +133,14 @@ def main(argv=None) -> TrainState:
         kw["root_dir"] = args.data_root
     if "1D" not in args.ds_name and args.task_name != "Diffusion1D":
         kw.pop("flatten_type")
+    if args.ds_name == "SanityCheck1D":
+        # synthetic signals shaped to the model config
+        kw = {"num_channels": config.data.channels,
+              "num_features": config.data.image_size}
     train_data = load_data(args.ds_name, "train", **kw).data
     val_data = load_data(args.ds_name, "val", **kw).data
+    if args.task_name == "Diffusion3D":
+        train_data, val_data = to3d(train_data), to3d(val_data)
 
     module, _ = load_model(config, args.task_name)
     module.to(device)

@@ -1,16 +1,17 @@
-"""Weights for the port's NCSN++, NCSNv2 family and seg UNet: converted
-from a Flax parameter tree, or drawn from a seed.
+"""Weights for the port's NCSN++, NCSNv2 family, 3-D nets, UNET1D and seg
+UNet: converted from a Flax parameter tree, or drawn from a seed.
 
 `flax_to_torch_ncsnpp` (NCSN++ and DDPM++), `flax_to_torch_ddpm`,
-`flax_to_torch_ncsnv2` and `flax_to_torch_unet` map the JAX package's
-parameters onto the port's state dict, name by name (the port keeps the
-Flax module names):
+`flax_to_torch_ncsnv2`, `flax_to_torch_ncsn3d`, `flax_to_torch_unet1d`
+and `flax_to_torch_unet` map the JAX package's parameters onto the port's
+state dict, name by name (the port keeps the Flax module names):
 
-- conv kernels (kh, kw, I, O) -> weight (O, I, kh, kw), no flip; the
-  1-D nets' kernels (k, I, O) -> weight (O, I, k);
-- transposed-conv kernels (kh, kw, I, O) -> weight (I, O, kh, kw), no
-  flip: the JAX layer flips the kernel itself, as torch's
-  conv_transpose2d does;
+- conv kernels (*k, I, O) -> weight (O, I, *k), no flip, at every rank:
+  (kh, kw, I, O) -> (O, I, kh, kw), the 1-D nets' (k, I, O) -> (O, I,
+  k), the 3-D nets' (kx, ky, kt, I, O) -> (O, I, kx, ky, kt) (the
+  temporal down convolution's (1, 1, 4, I, O) among them);
+- transposed-conv kernels (*k, I, O) -> weight (I, O, *k), no flip: the
+  JAX layer flips the kernel itself, as torch's conv_transpose does;
 - Dense kernels (in, out) -> Linear weight (out, in);
 - GroupNorm scale / bias -> weight / bias;
 - NIN W / b, the Fourier W, the fused resamplers' Conv2d_0_weight
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..models import layers, layerspp, normalization, unet
+from ..models import layers, layerspp, ncsn3d, normalization, unet
 from ..models.registry import (build_seg_unet, create_model, get_model,
                                get_network)
 
@@ -43,12 +44,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
 def _convert_leaf(path: str, value: np.ndarray, transposed=frozenset()):
     module, dot, leaf = path.rpartition(".")
     weight = f"{module}{dot}weight"
-    if leaf == "kernel" and value.ndim == 4:
+    if leaf == "kernel" and value.ndim >= 3:
+        n = value.ndim
+        spatial = tuple(range(n - 2))
         if module in transposed:
-            return weight, value.transpose(2, 3, 0, 1)
-        return weight, value.transpose(3, 2, 0, 1)
-    if leaf == "kernel" and value.ndim == 3:
-        return weight, value.transpose(2, 1, 0)
+            return weight, value.transpose((n - 2, n - 1) + spatial)
+        return weight, value.transpose((n - 1, n - 2) + spatial)
     if leaf == "kernel" and value.ndim == 2:
         return weight, value.T
     if leaf == "scale":
@@ -75,7 +76,7 @@ def _checked(params: Mapping[str, Any], build, what: str
         model = build()
     expected = model.state_dict()
     transposed = {name for name, module in model.named_modules()
-                  if isinstance(module, nn.ConvTranspose2d)}
+                  if isinstance(module, layers.ConvTranspose)}
     state = flax_to_torch(params, transposed)
     for name, value in state.items():
         if name not in expected:
@@ -125,6 +126,28 @@ def flax_to_torch_ncsnv2(params: Mapping[str, Any], config,
     return _checked(params, lambda: get_model(name)(config), name)
 
 
+def flax_to_torch_ncsn3d(params: Mapping[str, Any], config,
+                         name: str = "ncsn3d_shallow"
+                         ) -> Dict[str, torch.Tensor]:
+    """State dict for a 3-D net, the registry's `name`: "ncsn3d_shallow"
+    (NCSN3DShallow, the Diffusion3D task's) or "ncsn3d" (NCSN3D), from the
+    JAX package's params tree of numpy arrays. The temporal up
+    convolution's kernel (1, 1, 4, I, O), which the JAX layer flips, goes
+    to torch's unflipped (I, O, 1, 1, 4). Raises if a name or shape does
+    not match."""
+    if name not in ("ncsn3d", "ncsn3d_shallow"):
+        raise ValueError(f"flax_to_torch_ncsn3d: {name!r} is not a 3-D net")
+    return _checked(params, lambda: get_model(name)(config), name)
+
+
+def flax_to_torch_unet1d(params: Mapping[str, Any], config
+                         ) -> Dict[str, torch.Tensor]:
+    """State dict for UNET1D (the registry's "unet1d") from the JAX
+    package's params tree of numpy arrays (its UNet under `UNet_0`).
+    Raises if a name or shape does not match."""
+    return _checked(params, lambda: get_model("unet1d")(config), "unet1d")
+
+
 def flax_to_torch_unet(params: Mapping[str, Any], general_config=None
                        ) -> Dict[str, torch.Tensor]:
     """State dict for `build_seg_unet(general_config)` from the JAX
@@ -149,10 +172,12 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
     convolution weights and biases U(+-std_scale / sqrt(fan_in)) (torch's
     default), InstanceNorm++ and VarianceNorm alpha and gamma N(1, 0.02),
     beta 0.
-    Seg UNet: convolution and transposed-convolution weights and biases
-    U(+-std_scale / sqrt(fan_in)), fan_in = I kh kw for a convolution and
-    O kh kw for a transposed one (torch's default, the JAX init's bounds);
-    the PReLU slopes 0.25.
+    Seg UNet and UNET1D: convolution and transposed-convolution weights and
+    biases U(+-std_scale / sqrt(fan_in)), fan_in = I prod(k) for a
+    convolution and O prod(k) for a transposed one (torch's default, the
+    JAX init's bounds); the PReLU slopes 0.25. The 3-D nets as the NCSNv2
+    family, the temporal down and up convolutions as a convolution and a
+    transposed one.
     The draws happen on the CPU, so a seed gives the same weights whatever
     device the model is on.
     """
@@ -168,9 +193,10 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
 
     with torch.no_grad():
         for name, module in model.named_modules():
-            if isinstance(module, (layers.Conv, layers.ConvTranspose)):
-                # weight[0]: (I, kh, kw) of a conv, (O, kh, kw) of a
-                # transposed one
+            if isinstance(module, (layers.Conv, layers.ConvTranspose,
+                                   ncsn3d.TemporalDownConv)):
+                # weight[0]: (I, *k) of a conv, (O, *k) of a transposed
+                # one
                 bound = std_scale / math.sqrt(module.weight[0].numel())
                 uniform(module.weight, bound)
                 if module.bias is not None:

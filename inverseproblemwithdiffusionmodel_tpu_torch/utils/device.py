@@ -22,6 +22,13 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on `device` (nothing to wait for on the
+    CPU), so that a host clock around it times the work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def gaussian_noise(seed: int, device) -> Noise:
     """`noise(shape)`: standard normal float32 draws on `device` from a
     torch.Generator there, seeded with `seed`."""

@@ -310,9 +310,9 @@ def test_converter_maps_1d_kernels_and_load_model_builds_them():
         lambda: jnp.zeros((1, 24, 64))).shape
     assert net(nchw(x.numpy()), torch.ones(1)).shape == (1, 64, 24)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model(full, "Diffusion3D")
+        load_model(full, "Clf")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("unet1d")(full)
+        get_model("ncsn")(full)
 
 
 # -- tubes, FiniteDiff, ladders: exact -------------------------------------

@@ -1,8 +1,9 @@
 """The port's complex 2D+time cine reconstruction against the JAX
 package's: ald_2d_time in all five temporal modes fed JAX's noise and
 shifts, the complex form against the port's pair form, and the three cine
-scripts (flags, main on the CPU, the chain-tiled mask, the unported
-Diffusion3D). The 2D+time MAP is in tests/test_torch_map_2d_time.py.
+scripts (flags, main on the CPU, the chain-tiled mask, the refusal of a
+dataset that is not ported). The 2D+time MAP is in
+tests/test_torch_map_2d_time.py.
 
 Geometry of tests/test_torch_cine.py (its fixture and draws): 16 px, a
 spatial NCSNv2 of ngf 8, an NCSN1D of ngf 8 on 2 x 2 tubes, T = 3 frames,
@@ -250,7 +251,10 @@ def test_cine_problem_tiles_the_mask_over_the_chains():
 @pytest.mark.parametrize("name", ["cine_SENSE_real_img_2d_time",
                                   "cine_SENSE_real_img_2d_time_MAP"])
 def test_diffusion3d_is_not_ported(tmp_path, name):
-    with pytest.raises(NotImplementedError, match="Slice C"):
+    """Diffusion3D is ported now (tests/test_torch_diffusion3d.py); a
+    dataset config that is not, CIFAR10, still raises before any work."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         SCRIPTS[name].main(["--device", "cpu", "--save_dir", str(tmp_path),
-                            "--task_name_T", "Diffusion3D"])
+                            "--task_name_T", "Diffusion3D", "--ds_name_T",
+                            "CIFAR10"])
     assert not list(tmp_path.iterdir())

@@ -101,6 +101,10 @@ def test_importing_the_port_loads_no_jax_module():
         "acdc_MAP, acdc_MAP_keep_center, acdc_SENSE_MAP, acdc_SENSE_TV, "
         "cine_SENSE_real_img_2d_time, cine_SENSE_real_img_2d_time_MAP, "
         "cine_inv_sampling_keep_center_prox_real_imag\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.models import "
+        "ncsn3d\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.scripts import "
+        "unconditioned_sampling\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -123,13 +127,18 @@ RECON_SCRIPTS = ["acdc_SENSE_real_img",
                  "acdc_MAP", "acdc_MAP_keep_center", "acdc_SENSE_MAP",
                  "acdc_SENSE_TV", "cine_SENSE_real_img_2d_time",
                  "cine_SENSE_real_img_2d_time_MAP",
-                 "cine_inv_sampling_keep_center_prox_real_imag"]
+                 "cine_inv_sampling_keep_center_prox_real_imag",
+                 "unconditioned_sampling"]
 
 
 @pytest.mark.parametrize("script", ["pc_sampling", "profile_forward",
                                     "profile_forward --step --bf16",
                                     "serve_recon", "seg_grad_precision",
-                                    "train_ncsn"] + RECON_SCRIPTS)
+                                    "train_ncsn",
+                                    "train_ncsn --task_name Diffusion3D",
+                                    "unconditioned_sampling --task_name "
+                                    "Diffusion3D --ds_name CINE127_1D"]
+                         + RECON_SCRIPTS)
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path, script):
     script, *flags = script.split()
     module = importlib.import_module(

@@ -434,7 +434,10 @@ def test_load_model_builds_the_ported_tasks():
     temporal, _ = load_model(load_config("CINE127_1D", "real-imag",
                                          **{"model.ngf": 4}), "Diffusion1D")
     assert type(temporal).__name__ == "NCSNv2" and temporal.ndim == 1
-    for task in ("Diffusion3D", "Clf"):
+    volumes, _ = load_model(load_config("CINE127_1D", "real-imag",
+                                        **{"model.ngf": 4}), "Diffusion3D")
+    assert type(volumes).__name__ == "NCSN3DShallow"
+    for task in ("Clf",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             load_model(cfg, task)
     with pytest.raises(ValueError, match="unknown task"):

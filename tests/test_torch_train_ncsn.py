@@ -658,7 +658,7 @@ def test_load_data_equals_jax_on_the_synthetic_stand_ins(tmp_path, name,
 
 def test_load_data_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        datasets.load_data("MNIST")
+        datasets.load_data("CIFAR10")
 
 
 def test_port_configs_keep_the_yaml_training_recipes():
@@ -733,5 +733,5 @@ def test_train_ncsn_temporal_prior_with_every_option(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_ncsn.main(["--ds_name", "ACDC", "--use_mesh"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_ncsn.main(["--ds_name", "ACDC", "--task_name", "Diffusion3D"])
+        train_ncsn.main(["--ds_name", "CIFAR10", "--device", "cpu"])
     assert not os.path.exists("runs/ACDC_Diffusion_real-valued")
