@@ -214,6 +214,21 @@ phases, each printing one line with its own seconds:
    ratio, each net's device ms by CUDA events around its calls;
    cine_SENSE_real_img_2d_time_MAP.main with Diffusion3D (1 chain, 10 of
    200 iterations): iterations/s.
+17. guided: the guidance nets' training and the guided samplers at full
+   width (weights from seed 0), torch's defaults: scripts.train_clf.main
+   --ds_name MNIST (ResNetClf, the synthetic digits, the config's batch
+   512) and scripts.train_seg.main --ds_name ACDC (the general config's
+   UNet, 64-1024 channels, the synthetic 256 px slices, batch 8), 5 steps
+   each: s/step, images/s, peaks; one step of each card vs CPU (float32
+   mode; the seg UNet's gradient also in float64, since its float32
+   gradient loses digits in the instance norms on any device); the seven
+   samplers of samplers/ald_variants on MNIST's NCSNv2Deepest (32 px, ngf
+   128) and the ResNetClf at 8 chains, the ladder cut from 232 to 20
+   levels x 5 steps: finite outputs, evaluations/s, the score net's and
+   the classifier gradient's shares by CUDA events; one level of each
+   card vs CPU, the same noise, float32 mode; mnist_inv_clf_sampling
+   (--lamda 0.01) and mnist_inv_clf_prox_sampling at 8 samples on the cut
+   ladder and mnist_MAP (200 of 15000 iterations) through timed_cli.
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -223,9 +238,9 @@ The sampling and training runs themselves use torch's defaults, as a
 user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
 sense, map_tv, serve, cine, cine_complex, train_ncsn, each train_bf16
-run, each sample_vp run, quickstart_3d) and read just after it. Any
-failure raises and exits non-zero. Phases 9 to 16 print their numbers as
-one JSON line before `total`. The last
+run, each sample_vp run, quickstart_3d, guided) and read just after it.
+Any failure raises and exits non-zero. Phases 9 to 17 print their numbers
+as one JSON line before `total`. The last
 lines are nvidia-smi's name and power limit, a JSON line of per-kernel
 numbers, and
 `{"ok": true, "device": {...}}`. In the JSON line `ms`, `plain_ms` and
@@ -238,6 +253,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import math
@@ -324,6 +340,27 @@ QS_CHAINS = 4              # the cine CLIs: as the cine_complex phase
 # 960 s (the 3-D temporal net took 5.2 s of a 5.6 s level step)
 QS_CINE_LEVELS = 4
 QS_MAP_ITERS = 10          # the cine MAP CLI with Diffusion3D: of the 200
+# Guided sampling and the guidance nets' training: train_clf, train_seg,
+# samplers/ald_variants and the MNIST guided CLIs, at full width
+GUIDED_SAMPLES = 8         # the samplers' and the CLIs' chains
+GUIDED_LEVELS = 20         # the 50 -> 0.01 ladder cut from 232 levels to 20
+GUIDED_TRAIN_STEPS = 5     # train_clf at the config's 512, train_seg at 8
+GUIDED_INTERPOLATIONS = 4  # ald_interpolation: 2 rows x 4 chains
+GUIDED_MAP_ITERS = 200     # mnist_MAP: of the config's 15000 Adam iterations
+# ald_inverse_clf's data gradient is not normalized: x moves by step_size x
+# lamda x (A^H y - A^H A x), and the cut ladder's first step is step_lr
+# (50 / 0.01)^2 = 155, so lamda 1 (the CLI's default) multiplies the kept
+# rows' error by -154 a step and the chains overflow; 0.01 keeps the
+# factor at -0.55 (in JAX as in the port)
+GUIDED_LAMDA = 0.01
+# The level held card vs CPU: level 8 of the cut ladder, sigma 1.33, its
+# step 0.11, run alone as a one-level ladder at that step
+GUIDED_CHECK_LEVEL = 8
+GUIDED_CHECK_CHAINS = 2
+GUIDED_VARIANTS = ("inpainting", "interpolation", "cls_conditioned",
+                   "inverse_problem", "inverse_problem_proj", "inverse_clf",
+                   "inverse_clf_proximal")
+GUIDED_CLF = ("cls_conditioned", "inverse_clf", "inverse_clf_proximal")
 # Discrete score training through scripts.train_ncsn on the loaders'
 # synthetic stand-ins (24 + 6 ACDC slices at 256 px; 12 + 4 cine videos
 # as 8 x 8 tubes of 24 frames): run name -> (its flags, steps)
@@ -1719,14 +1756,15 @@ def report_cine(cine: dict, t: float) -> None:
 
 
 @contextlib.contextmanager
-def timed_fit(train_ncsn, rec: dict, watch: str):
-    """Wrap the `fit` that scripts.train_ncsn calls, and
-    Checkpointer.save: every step and eval step is timed between CUDA
-    synchronizations; after the first step its peak memory is kept and the
-    peak reset, so the run's peak is the steady one; each checkpoint save
-    is timed apart. `watch` (a parameter's name) is copied before the run
-    and after each step, for the EMA and accumulation checks; rec["hook"],
-    where set, sees each (state, batch)."""
+def timed_fit(train_ncsn, rec: dict, watch: str, steps=None):
+    """Wrap the `fit` that a training script (scripts.train_ncsn,
+    train_clf, train_seg) calls, and Checkpointer.save: every step and
+    eval step is timed between CUDA synchronizations; after the first step
+    its peak memory is kept and the peak reset, so the run's peak is the
+    steady one; each checkpoint save is timed apart. `watch` (a
+    parameter's name) is copied before the run and after each step, for
+    the EMA and accumulation checks; rec["hook"], where set, sees each
+    (state, batch). `steps` stops the run after that many steps."""
     from inverseproblemwithdiffusionmodel_tpu_torch.training import (
         checkpoint)
     inner_fit, inner_save = train_ncsn.fit, checkpoint.Checkpointer.save
@@ -1766,9 +1804,11 @@ def timed_fit(train_ncsn, rec: dict, watch: str):
             rec["eval_s"].append(time.perf_counter() - t_eval)
             return loss
 
+        if steps is not None:
+            cfg = dataclasses.replace(cfg, max_steps=steps)
         return inner_fit(state, timed_step, train_iter_fn, cfg,
-                         eval_step=timed_eval, val_iter_fn=val_iter_fn,
-                         **kwargs)
+                         eval_step=timed_eval if eval_step else None,
+                         val_iter_fn=val_iter_fn, **kwargs)
 
     train_ncsn.fit, checkpoint.Checkpointer.save = fit, save
     try:
@@ -3660,6 +3700,424 @@ def report_quickstart_3d(qs: dict, t: float) -> None:
         f"K1/K2/K4 launch")
 
 
+def guidance_step_card_vs_cpu(kind: str, gen: torch.Generator,
+                              device="cuda") -> dict:
+    """One train step of a guidance net (weights from seed 0) on the card
+    and on the CPU in the float32 mode, the same batch and injected draws:
+    "clf" the ResNetClf on MNIST-size images (32 px, batch 8), "seg" the
+    general config's UNet on ACDC-size slices (256 px, batch 2, the input
+    perturbed at one shared ladder sigma). The loss's difference, gated at
+    TRAIN_LOSS_REL, the gradients' rel L2 and the CPU's seconds. The
+    classifier's gradient is gated at MODEL_REL_L2. The seg UNet's float32
+    gradient loses digits in its instance norms' backward on any device
+    (the CPU's reads about 3e-4 from float64), so, as the serve phase holds
+    its guidance gradient: its float64 gradient (the step's loss on a
+    float64 copy) card vs CPU at SEG_F64_REL_L2, and each float32 step's
+    gradient against the CPU's float64 one at SEG_F32_REL_L2."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.losses.guidance import (
+        seg_loss_with_perturbation)
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        build_clf, build_seg_unet, make_seg_fn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        get_sigmas)
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        TrainState, get_optimizer, make_clf_train_step, make_seg_train_step)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    if kind == "clf":
+        cfg, size, batch = load_config("MNIST"), 32, 8
+        model = seeded_weights(build_clf(), 0)
+        sigmas = get_sigmas(cfg)
+        y = torch.randint(0, 10, (batch,), generator=gen)
+        draws = {"labels": torch.randint(0, len(sigmas), (batch,),
+                                         generator=gen)}
+        make = lambda m: make_clf_train_step(m, sigmas)
+    else:
+        cfg, size, batch = load_config("ACDC"), 256, 2
+        model = seeded_weights(build_seg_unet(), 0)
+        sigmas = get_sigmas(cfg)
+        y = (torch.rand(batch, size, size, generator=gen) > 0.8).long()
+        shared = torch.randint(0, len(sigmas), (1,), generator=gen)
+        draws = {"labels": shared.expand(batch)}
+        make = lambda m: make_seg_train_step(m, sigmas, perturb=True)
+    x = torch.rand(batch, size, size, 1, generator=gen)
+    draws["noise"] = torch.randn(batch, size, size, 1, generator=gen)
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    flat = lambda m: torch.cat([p.grad.detach().reshape(-1).cpu().double()
+                                for p in m.parameters()])
+    out, f64, cpu_s = {}, {}, 0.0
+    for dev in (device, "cpu"):
+        model.load_state_dict(w0)
+        model.to(dev)
+        state = TrainState.create(model, get_optimizer(cfg), ema_decay=None)
+        step = make(model)
+        t_dev = time.perf_counter()
+        with float32_exact():
+            state, loss = step(state, (x.to(dev), y.to(dev)), **{
+                k: v.to(dev) for k, v in draws.items()})
+        if dev == "cpu":
+            cpu_s = time.perf_counter() - t_dev
+        out[dev] = (float(loss), flat(model))
+        del state, step
+        if kind == "seg":
+            m64 = copy.deepcopy(model)     # at w0: the step moved model
+            m64.load_state_dict(w0)
+            m64.double()
+            loss64, _ = seg_loss_with_perturbation(
+                make_seg_fn(m64), x.to(dev, torch.float64), y.to(dev),
+                sigmas.to(dev, torch.float64), perturb=True,
+                **{k: v.to(dev) if k == "labels" else v.to(dev, torch.float64)
+                   for k, v in draws.items()})
+            loss64.backward()
+            f64[dev] = flat(m64)
+            del m64, loss64
+    (card_loss, card_g), (cpu_loss, cpu_g) = out[device], out["cpu"]
+    c = dict(loss=abs(card_loss - cpu_loss) / abs(cpu_loss),
+             grads=rel_l2(card_g, cpu_g), cpu_s=cpu_s, batch=batch,
+             size=size)
+    ok = c["loss"] <= TRAIN_LOSS_REL
+    if kind == "clf":
+        ok = ok and c["grads"] <= MODEL_REL_L2
+    else:
+        c.update(f64_grads=rel_l2(f64[device], f64["cpu"]),
+                 card_f32_vs_f64=rel_l2(card_g, f64["cpu"]),
+                 cpu_f32_vs_f64=rel_l2(cpu_g, f64["cpu"]),
+                 sigma=float(sigmas[shared]))
+        ok = ok and (c["f64_grads"] <= SEG_F64_REL_L2
+                     and c["card_f32_vs_f64"] <= SEG_F32_REL_L2
+                     and c["cpu_f32_vs_f64"] <= SEG_F32_REL_L2)
+    if not ok:
+        raise AssertionError(f"{kind} train step card vs CPU: {c}")
+    del model
+    torch.cuda.empty_cache()
+    return c
+
+
+def guided_problem(chains: int, device) -> dict:
+    """The MNIST guided problem at full width: the test digit 0 of the
+    loader (its synthetic stand-in here), SkipLines keeping every 2nd row
+    (the CLIs' default) applied to the image, the measurement repeated
+    over `chains`, target class 3 (the CLIs' default) and the L2Penalty
+    proximal (CG 8), on `device`."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.data import load_data
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators import (
+        L2Penalty, SkipLines)
+    from inverseproblemwithdiffusionmodel_tpu_torch.parallel import (
+        repeat_measurement)
+    with warnings_quiet():
+        img = torch.as_tensor(load_data("MNIST", "test", size=32).data[:1])
+    op = SkipLines(num_skip_lines=2, height=32)
+    y = repeat_measurement(op(img.to(torch.complex64)), chains)
+    return dict(img=img.to(device), op=op, y=y.to(device),
+                cls=torch.full((chains,), 3, device=device),
+                prox=L2Penalty(lin_tfm=op))
+
+
+def run_variant(name: str, score, clf_fn, sigmas, prob: dict, config,
+                x_init: torch.Tensor, device, noise=None,
+                clf_start_time=0.0, lr_scaled=5.0):
+    """One of the seven ald_variants samplers on the guided problem, from
+    `x_init` where the sampler takes a start (ald_interpolation spawns
+    GUIDED_INTERPOLATIONS chains from each of its rows); lr_scaled 5.0 and
+    clf_start_time 0.0 are mnist_inv_clf_prox_sampling's defaults."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers import (
+        ald_variants as av)
+    y, op, cls = prob["y"], prob["op"], prob["cls"]
+    kw = dict(config=config, noise=noise, device=device)
+    if name == "inpainting":
+        refer = prob["img"].expand(y.shape[0], -1, -1, -1)
+        return av.ald_inpainting(score, sigmas, refer,
+                                 av.half_mask(refer.shape), x_init=x_init,
+                                 **kw)
+    if name == "interpolation":
+        rows = x_init[:x_init.shape[0] // GUIDED_INTERPOLATIONS]
+        return av.ald_interpolation(score, sigmas, rows,
+                                    GUIDED_INTERPOLATIONS, **kw)
+    if name == "cls_conditioned":
+        return av.ald_cls_conditioned(score, clf_fn, cls, sigmas,
+                                      tuple(x_init.shape), x_init=x_init,
+                                      **kw)
+    if name == "inverse_problem":
+        return av.ald_inverse_problem(score, sigmas, y, op, 1.0,
+                                      x_init=x_init, **kw)
+    if name == "inverse_problem_proj":
+        return av.ald_inverse_problem_proj(score, sigmas, y, op, 1.0,
+                                           x_init=x_init, **kw)
+    if name == "inverse_clf":
+        return av.ald_inverse_clf(score, clf_fn, cls, sigmas, y, op,
+                                  GUIDED_LAMDA, **kw)
+    return av.ald_inverse_clf_proximal(
+        score, clf_fn, cls, sigmas, y, op, prob["prox"],
+        lr_scaled=lr_scaled, clf_start_time=clf_start_time, **kw)
+
+
+def guided_phase(fk, fl, device="cuda") -> dict:
+    """Classifier and segmentation training and the guided samplers at full
+    width, weights from seed 0, torch's defaults unless said.
+    train_clf.main --ds_name MNIST (ResNetClf, the synthetic digits, the
+    config's batch 512) and train_seg.main --ds_name ACDC (the general
+    config's UNet, channels 64-1024, on the synthetic 256 px slices, batch
+    8: the config's 64 exceeds the stand-in's 24 slices),
+    GUIDED_TRAIN_STEPS steps each: s/step, images/s, peak; one step of
+    each card vs CPU (float32 mode; the seg UNet also in float64). The
+    seven ald_variants samplers on
+    MNIST's NCSNv2Deepest (32 px, ngf 128) and the ResNetClf,
+    GUIDED_SAMPLES chains over GUIDED_LEVELS of the 232 levels x 5 steps:
+    finite outputs, evaluations/s between CUDA synchronizations, the score
+    net's and the classifier gradient's shares of the sampler's time by
+    CUDA events; one level of each card vs CPU, fed the same noise, float32
+    mode. The CLIs mnist_inv_clf_sampling and mnist_inv_clf_prox_sampling
+    (the ladder cut alike, 8 samples) and mnist_MAP (GUIDED_MAP_ITERS of
+    the config's 15000 iterations) through timed_cli. Launches none of K1,
+    K2 or K4."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import registry
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers import (
+        ald_variants)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
+        ALDConfig)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        get_sigmas)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        mnist_MAP, mnist_inv_clf_prox_sampling as prox_cli,
+        mnist_inv_clf_sampling as clf_cli, train_clf, train_seg)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    numbers = {"nvidia_smi": nvidia_smi()}
+    gen = torch.Generator().manual_seed(15)
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+
+    # Training the guidance nets
+    root = tempfile.mkdtemp(prefix="chip_smoke_guided_")
+    try:
+        data_root = os.path.join(root, "no_data")
+        os.makedirs(data_root)
+        for name, script, flags, batch, watch in (
+                ("train_clf", train_clf, ["--ds_name", "MNIST"],
+                 load_config("MNIST").training.clf_batch_size,
+                 "resnet.fc.bias"),
+                ("train_seg", train_seg, ["--ds_name", "ACDC",
+                                          "--batch_size", "8"], 8,
+                 "up_3.bias")):
+            rec = {}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t_run = time.perf_counter()
+            with timed_fit(script, rec, watch, GUIDED_TRAIN_STEPS), \
+                    warnings_quiet():
+                state = script.main(flags + [
+                    "--device", device, "--log_dir", os.path.join(root, name),
+                    "--data_root", data_root, "--seed", "0"])
+            torch.cuda.synchronize()
+            s_step = float(np.mean(rec["step_s"][1:]))
+            numbers[name] = dict(
+                net=type(state.model).__name__, batch=batch,
+                steps=state.step, s_per_step=s_step,
+                images_per_s=batch / s_step, first_step_s=rec["step_s"][0],
+                first_step_peak=rec["first_peak"],
+                steady_peak=torch.cuda.max_memory_allocated(),
+                wall_s=time.perf_counter() - t_run, losses=rec["losses"],
+                params=sum(p.numel() for p in state.model.parameters()))
+            if not (state.step == GUIDED_TRAIN_STEPS and state.ema is None
+                    and np.isfinite(rec["losses"]).all()
+                    and not torch.equal(rec["w0"], rec["history"][-1])):
+                raise AssertionError(f"{name}: step {state.step}, losses "
+                                     f"{rec['losses']}")
+            del state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    numbers["steps_card_vs_cpu"] = {
+        kind: guidance_step_card_vs_cpu(kind, gen, device)
+        for kind in ("clf", "seg")}
+
+    # The seven samplers at full width
+    cfg = load_config("MNIST")
+    model, _ = registry.load_model(cfg, "Diffusion", seed=0)
+    clf, _ = registry.load_model(cfg, "Clf", seed=0)
+    model = model.to(device).eval()
+    clf = clf.to(device).eval().requires_grad_(False)
+    sigmas = get_sigmas(cfg.replace(**{"model.num_classes": GUIDED_LEVELS}))
+    n_steps = cfg.sampling.n_steps_each
+    config = ALDConfig(n_steps_each=n_steps, step_lr=cfg.sampling.step_lr)
+    prob = guided_problem(GUIDED_SAMPLES, device)
+    x_init = torch.rand(GUIDED_SAMPLES, 32, 32, 1, generator=gen).to(device)
+    samplers = {}
+    for name in GUIDED_VARIANTS:
+        score_ev, clf_ev = [], []
+        score = event_timed(registry.make_score_fn(model, sigmas), score_ev)
+        clf_fn = registry.make_clf_fn(clf)
+        inner_grad = ald_variants.compute_clf_grad
+
+        def timed_grad(fn, x, cls):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner_grad(fn, x, cls)
+            end.record()
+            clf_ev.append((start, end))
+            return out
+
+        ald_variants.compute_clf_grad = timed_grad
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t_run = time.perf_counter()
+            out = run_variant(name, score, clf_fn, sigmas, prob, config,
+                              x_init, device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t_run
+        finally:
+            ald_variants.compute_clf_grad = inner_grad
+        if not (out.shape[0] == GUIDED_SAMPLES and torch.isfinite(
+                torch.view_as_real(out) if out.is_complex() else out).all()):
+            raise AssertionError(f"{name}: shape {tuple(out.shape)} or not "
+                                 f"finite")
+        evals = len(score_ev)
+        ms = 1e3 * seconds
+        r = dict(evals=evals, seconds=seconds, evals_per_s=evals / seconds,
+                 inner_step_ms=ms / (GUIDED_LEVELS * n_steps),
+                 score_share=sum(a.elapsed_time(b) for a, b in score_ev) / ms,
+                 peak=torch.cuda.max_memory_allocated(),
+                 abs_max=float(out.abs().max()))
+        if clf_ev:
+            clf_ms = sum(a.elapsed_time(b) for a, b in clf_ev)
+            r.update(clf_grad_calls=len(clf_ev), clf_grad_share=clf_ms / ms,
+                     clf_grad_ms_per_inner_step=clf_ms / len(clf_ev))
+        elif name in GUIDED_CLF:
+            raise AssertionError(f"{name}: no classifier gradient")
+        samplers[name] = r
+        del out
+    numbers["samplers"] = samplers
+
+    # One level of each sampler card vs CPU, the same noise, float32 mode:
+    # level k alone, a one-level ladder at level k's step (the proximal's
+    # alpha, step_lr x lr_scaled, kept at the run's; the guidance
+    # constant, since a one-level ramp is 0)
+    k = GUIDED_CHECK_LEVEL
+    level = sigmas[k:k + 1]
+    check_cfg = ALDConfig(n_steps_each=n_steps, denoise=False,
+                          step_lr=float(config.step_lr * (
+                              sigmas[k] / sigmas[-1]) ** 2))
+    x0 = torch.rand(GUIDED_CHECK_CHAINS, 32, 32, 1, generator=gen)
+    checks, cpu_s = {}, 0.0
+    for name in GUIDED_VARIANTS:
+        outs = {}
+        for dev in (device, "cpu"):
+            model.to(dev)
+            clf.to(dev)
+            noise_gen = torch.Generator().manual_seed(16)
+            t_dev = time.perf_counter()
+            with float32_exact():
+                x_chk = (x0[:1].repeat(GUIDED_INTERPOLATIONS, 1, 1, 1)
+                         if name == "interpolation" else x0)
+                out = run_variant(
+                    name, registry.make_score_fn(model, level),
+                    registry.make_clf_fn(clf), level,
+                    guided_problem(x_chk.shape[0], dev), check_cfg,
+                    x_chk.to(dev), dev, clf_start_time=None,
+                    lr_scaled=5.0 * config.step_lr / check_cfg.step_lr,
+                    noise=lambda s: torch.randn(tuple(s),
+                                                generator=noise_gen).to(dev))
+            if dev == "cpu":
+                cpu_s += time.perf_counter() - t_dev
+            outs[dev] = out.cpu()
+        card, cpu = outs[device], outs["cpu"]
+        if card.is_complex():
+            card, cpu = torch.view_as_real(card), torch.view_as_real(cpu)
+        checks[name] = rel_l2(card, cpu)
+    model.to(device)
+    clf.to(device)
+    numbers["level_card_vs_cpu"] = dict(
+        level=k, sigma=float(sigmas[k]), step=check_cfg.step_lr,
+        rel_l2=checks, cpu_s=cpu_s)
+    if not all(v <= MODEL_REL_L2 for v in checks.values()):
+        raise AssertionError(f"ald_variants one level card vs CPU: {checks}")
+    del model, clf
+    torch.cuda.empty_cache()
+
+    # The MNIST CLIs
+    common = ["--seed", "0", "--device", str(device)]
+    for name, script, sampler, flags in (
+            ("mnist_inv_clf_sampling", clf_cli, "ald_inverse_clf", [
+                "--num_samples", str(GUIDED_SAMPLES), "--lamda",
+                str(GUIDED_LAMDA), "--override",
+                f"model.num_classes={GUIDED_LEVELS}"]),
+            ("mnist_inv_clf_prox_sampling", prox_cli,
+             "ald_inverse_clf_proximal", [
+                 "--num_samples", str(GUIDED_SAMPLES), "--override",
+                 f"recons.num_classes={GUIDED_LEVELS}"]),
+            ("mnist_MAP", mnist_MAP, "map_optimizer", [
+                "--n_iters", str(GUIDED_MAP_ITERS)])):
+        r = timed_cli(script, common + flags, name=sampler,
+                      metrics=name != "mnist_MAP")
+        recons = r.pop("recons")
+        del r["call"]
+        rows = GUIDED_SAMPLES if name != "mnist_MAP" else 1
+        if not (recons.shape == (rows, 32, 32, 1)
+                and np.isfinite(recons).all()):
+            raise AssertionError(f"{name}: {recons.shape}, finite "
+                                 f"{np.isfinite(recons).all()}")
+        if name == "mnist_MAP":
+            r["iters_per_s"] = GUIDED_MAP_ITERS / r["sampler_s"]
+        else:
+            r["evals_per_s"] = (GUIDED_LEVELS * n_steps + 1) / r["sampler_s"]
+        numbers[name] = r
+    no_kernel_launches(fk, fl, "the guided phase")
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def report_guided(gd: dict, t: float) -> None:
+    smi = gd["nvidia_smi"]
+    for name in ("train_clf", "train_seg"):
+        r = gd[name]
+        print(f"    {name}: {r['net']} ({r['params']} params), batch "
+              f"{r['batch']}, {r['steps']} steps: {r['s_per_step']:.4f} "
+              f"s/step (first {r['first_step_s']:.2f} s excluded), "
+              f"{r['images_per_s']:.2f} images/s; peak first step "
+              f"{r['first_step_peak']} bytes, steady {r['steady_peak']}; "
+              f"wall {r['wall_s']:.2f} s; losses "
+              f"{[round(v, 4) for v in r['losses']]} ({smi})", flush=True)
+    for name, r in gd["samplers"].items():
+        extra = (f", classifier gradient {r['clf_grad_share']:.3f} of the "
+                 f"sampler ({r['clf_grad_ms_per_inner_step']:.2f} ms a call)"
+                 if "clf_grad_share" in r else "")
+        print(f"    ald_{name}: {r['evals']} evaluations, "
+              f"{r['evals_per_s']:.2f}/s, an inner step "
+              f"{r['inner_step_ms']:.2f} ms, score net "
+              f"{r['score_share']:.3f} of the sampler{extra}; peak "
+              f"{r['peak']} bytes, max |x| {r['abs_max']:.4g}", flush=True)
+    lc = gd["level_card_vs_cpu"]
+    steps = gd["steps_card_vs_cpu"]
+    say("guided", t, f"train_clf MNIST (ResNetClf) batch "
+        f"{gd['train_clf']['batch']} {gd['train_clf']['s_per_step']:.4f} "
+        f"s/step ({gd['train_clf']['images_per_s']:.2f} images/s), "
+        f"train_seg ACDC 256 px (UNet 64-1024) batch "
+        f"{gd['train_seg']['batch']} {gd['train_seg']['s_per_step']:.4f} "
+        f"s/step ({gd['train_seg']['images_per_s']:.2f} images/s), "
+        f"{smi}; steps card vs CPU (float32 mode) "
+        f"{json.dumps(steps)} (clf <= {MODEL_REL_L2}; seg float64 <= "
+        f"{SEG_F64_REL_L2}, float32 vs float64 <= {SEG_F32_REL_L2}); "
+        f"ald_variants at "
+        f"{GUIDED_SAMPLES} samples, {GUIDED_LEVELS} of 232 levels x 5: "
+        f"evaluations/s " + json.dumps(
+            {n: round(r["evals_per_s"], 2)
+             for n, r in gd["samplers"].items()}) + f"; one level (sigma "
+        f"{lc['sigma']:.4g}) card vs CPU {json.dumps(lc['rel_l2'])} (<= "
+        f"{MODEL_REL_L2}); CLIs: mnist_inv_clf_sampling "
+        f"{gd['mnist_inv_clf_sampling']['evals_per_s']:.2f} evaluations/s, "
+        f"mnist_inv_clf_prox_sampling "
+        f"{gd['mnist_inv_clf_prox_sampling']['evals_per_s']:.2f}, mnist_MAP "
+        f"({GUIDED_MAP_ITERS} of 15000) "
+        f"{gd['mnist_MAP']['iters_per_s']:.2f} iterations/s; no K1/K2/K4 "
+        f"launch")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4239,11 +4697,18 @@ def main() -> None:
     qs = quickstart_3d_phase(fk, fl)
     launches["quickstart_3d"] = {}
     report_quickstart_3d(qs, t)
+
+    # 17. guided --------------------------------------------------------------
+    t = time.perf_counter()
+    gd = guided_phase(fk, fl)
+    launches["guided"] = {}
+    report_guided(gd, t)
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "sense": sn,
                       "map_tv": mt, "serve": srv, "cine": cine,
                       "cine_complex": cc, "train_ncsn": tn,
                       "train_bf16": tb, "sample_vp": sv,
-                      "quickstart_3d": qs}, default=str), flush=True)
+                      "quickstart_3d": qs, "guided": gd}, default=str),
+          flush=True)
 
     kernels = []
     for name in FIR_TAGS + [f"{n}.bf16" for n in FIR_TAGS] + FLR_TAGS:

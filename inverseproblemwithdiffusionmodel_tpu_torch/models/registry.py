@@ -1,12 +1,13 @@
 """Model registry, construction and the score-function adapter.
 
 Port of `create_model`, `get_network`, `build_seg_unet`,
-`TASK_NAME_TO_MODEL_CTOR`, `load_model` and `make_score_fn` from
-inverseproblemwithdiffusionmodel_tpu/models/registry.py. Ported: NCSN++,
-DDPM, the NCSNv2 family (with the size-suffixed aliases), its 1-D members
-(the cine temporal prior, task "Diffusion1D") and UNET1D, the 3-D nets
-(NCSN3D, and NCSN3DShallow for task "Diffusion3D") and the seg UNet;
-`make_seg_fn` is the seg UNet's counterpart of `make_score_fn`,
+`build_clf`, `TASK_NAME_TO_MODEL_CTOR`, `load_model` and `make_score_fn`
+from inverseproblemwithdiffusionmodel_tpu/models/registry.py. Ported:
+NCSN++, DDPM, the NCSNv2 family (with the size-suffixed aliases), its 1-D
+members (the cine temporal prior, task "Diffusion1D") and UNET1D, the 3-D
+nets (NCSN3D, and NCSN3DShallow for task "Diffusion3D"), the seg UNet and
+the ResNet-18 classifier (task "Clf"); `make_seg_fn` and `make_clf_fn` are
+the guidance nets' counterparts of `make_score_fn`,
 `make_tube_score_fn_3d` its form for a 3-D net on pixel tubes, and
 `continuous_model_fn` the network as the continuous stack's score function
 calls it.
@@ -20,6 +21,7 @@ import torch
 
 from ..config import load_general_config
 from ..samplers.sigmas import sigma_ladder
+from .classifier import ResNetClf
 from .ddpm import DDPM
 from .ncsn1d import NCSN1D, NCSN1DDeeper, NCSN1DDeepest, UNET1D
 from .ncsn3d import NCSN3D, NCSN3DShallow, tube_window
@@ -77,18 +79,21 @@ def build_seg_unet(general_config=None) -> UNet:
                 ndim=seg.spatial_dims)
 
 
-def _not_ported(task: str, slice_: str):
-    def ctor(config):
-        raise NotImplementedError(f"task {task!r} is not ported yet "
-                                  f"(ROADMAP: {slice_})")
-    return ctor
+def build_clf(general_config=None, in_channels: Optional[int] = None
+              ) -> ResNetClf:
+    """The ResNet-18 classifier of general_config's `Clf` section (its
+    num_cls head); `in_channels` defaults to Clf.in_channels."""
+    return ResNetClf(general_config or load_general_config(),
+                     in_channels=in_channels)
 
 
 TASK_NAME_TO_MODEL_CTOR = {
     "Diffusion": lambda config: NCSNv2Deepest(config),
     "Diffusion1D": NCSN1D,
     "Diffusion3D": NCSN3DShallow,
-    "Clf": _not_ported("Clf", "Slice E"),
+    # the JAX package initializes the classifier on the dataset's channels
+    "Clf": lambda config: build_clf(
+        in_channels=None if config is None else config.data.channels),
     "Seg": lambda config: build_seg_unet(),
 }
 
@@ -105,7 +110,7 @@ def example_input(config, task_name: str) -> torch.Tensor:
         win = tube_window(config)
         return torch.zeros(1, win, win, data.image_size,
                            data.get("channels_3d", 1))
-    if task_name in ("Diffusion", "Seg"):
+    if task_name in ("Diffusion", "Seg", "Clf"):
         s = data.image_size
         return torch.zeros(1, s, s, data.channels)
     raise NotImplementedError(f"no ported model for task {task_name!r}")
@@ -135,6 +140,19 @@ def make_seg_fn(model: torch.nn.Module
         return model(to_nchw(x)).movedim(1, -1)
 
     return seg_fn
+
+
+def make_clf_fn(model: torch.nn.Module
+                ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Adapter `x -> logits` for the classifier on channel-last tensors, as
+    the guidance gradient calls it (samplers/ald.compute_clf_grad): x (B,
+    H, W, C) in, logits (B, num_cls) out, the net on contiguous NCHW in
+    between. Runs in the model's dtype and on its device."""
+
+    def clf_fn(x: torch.Tensor) -> torch.Tensor:
+        return model(to_nchw(x))
+
+    return clf_fn
 
 
 def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,

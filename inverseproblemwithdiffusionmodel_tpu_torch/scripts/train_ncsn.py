@@ -30,8 +30,9 @@ same flags plus --device. The run writes `desc.txt`, `metrics.jsonl` and
 checkpoints under `<log_dir>/<ds_name>_<task_name>_<mode>/ckpts`, which
 `serve_recon --ckpt_dir` (and `--ckpt_dir_T` for a temporal prior) serves
 from. The stop is `training.n_iters` (or 2 steps with --train_mode debug).
-Not ported: --use_mesh (ROADMAP: Slice E), which raises. The native C++ batcher is not ported, so
---no_native_loader and --num_workers change nothing.
+Not ported: --use_mesh (ROADMAP: Slice P), which raises. The native C++
+batcher is not ported, so --no_native_loader and --num_workers change
+nothing.
 """
 from __future__ import annotations
 
@@ -115,7 +116,7 @@ def main(argv=None) -> TrainState:
     args = parse_args(argv)
     if args.use_mesh:
         raise NotImplementedError("--use_mesh: data-parallel training is not "
-                                  "ported yet (ROADMAP: Slice E)")
+                                  "ported yet (ROADMAP: Slice P)")
     device = resolve_device(args.device)     # no card: raise before work
     config = apply_overrides(load_config(args.ds_name, args.mode),
                              args.override)

@@ -1,11 +1,12 @@
-"""The DSM train steps (discrete and continuous) and the discrete eval
-step.
+"""The DSM train steps (discrete and continuous), the guidance nets'
+train steps (classifier and segmentation) and the discrete eval step.
 
 Port of `make_score_train_step` (:60), `make_continuous_score_train_step`
-(:136), `make_score_eval_step` (:256) and `_mixed_precision_apply` (:43)
-from inverseproblemwithdiffusionmodel_tpu/training/train.py, on one
-device. PyTorch runs eagerly, so a step has no `jax.jit` counterpart; a
-CUDA graph of it is later work.
+(:136), `make_clf_train_step` (:185), `make_seg_train_step` (:216),
+`make_score_eval_step` (:256) and `_mixed_precision_apply` (:43) from
+inverseproblemwithdiffusionmodel_tpu/training/train.py, on one device.
+PyTorch runs eagerly, so a step has no `jax.jit` counterpart; a CUDA
+graph of it is later work.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .state import TrainState
 from ..losses.dsm import anneal_dsm_score_estimation, continuous_dsm_loss
+from ..losses.guidance import (clf_loss_with_perturbation,
+                               seg_loss_with_perturbation)
 from ..models.registry import to_nchw
 from ..sde.sampling import get_score_fn
 from ..utils.misc import collate_batch, filter_batch, stack_parts
@@ -27,9 +30,10 @@ TrainStep = Callable[..., Tuple[TrainState, torch.Tensor]]
 
 def _mixed_precision_apply(model: nn.Module, compute_dtype=None,
                            nchw: bool = True
-                           ) -> Callable[[torch.Tensor, torch.Tensor],
-                                         torch.Tensor]:
-    """`net(x, cond)` on channel-last x, output channel-last float32: for
+                           ) -> Callable[..., torch.Tensor]:
+    """`net(x, cond)` on channel-last x, output channel-last float32 (the
+    guidance nets take no cond: `net(x)`, the classifier's (B, K) logits
+    come back as they are): for
     an NCHW net of the NCSNv2 family (`nchw`) x goes in as to_nchw(x) and
     the output comes back channel-last; NCSN++ and DDPM (nchw=False) take
     channel-last x as it is. With `compute_dtype` (bf16) it is the JAX
@@ -45,16 +49,19 @@ def _mixed_precision_apply(model: nn.Module, compute_dtype=None,
     np.sqrt(2.0) skip rescale, a float32 time embedding), so its bf16
     NCSN++ runs in float32 after the first residual block (PERF.md)."""
 
-    def apply(x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def apply(x: torch.Tensor, cond: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
         h = to_nchw(x) if nchw else x
         if compute_dtype is None:
-            out = model(h, cond)
+            out = model(h) if cond is None else model(h, cond)
         else:
             params = {k: p.to(compute_dtype)
                       for k, p in model.named_parameters()}
-            if cond.is_floating_point():
-                cond = cond.to(compute_dtype)
-            out = functional_call(model, params, (h.to(compute_dtype), cond))
+            args = (h.to(compute_dtype),)
+            if cond is not None:
+                args += (cond.to(compute_dtype) if cond.is_floating_point()
+                         else cond,)
+            out = functional_call(model, params, args)
         return (out.movedim(1, -1) if nchw else out).float()
 
     return apply
@@ -121,7 +128,7 @@ def make_score_train_step(
     if mesh is not None or tp:
         raise NotImplementedError("a device mesh (data- or tensor-parallel "
                                   "training) is not ported yet (ROADMAP: "
-                                  "Slice E)")
+                                  "Slice P)")
     device = next(model.parameters()).device
     sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
     net = _mixed_precision_apply(model, compute_dtype)
@@ -208,7 +215,7 @@ def make_continuous_score_train_step(
     """
     if mesh is not None:
         raise NotImplementedError("a device mesh (data-parallel training) is "
-                                  "not ported yet (ROADMAP: Slice E)")
+                                  "not ported yet (ROADMAP: Slice P)")
     score_fn = get_score_fn(sde, _mixed_precision_apply(
         model, compute_dtype, nchw=False), continuous=continuous)
 
@@ -230,3 +237,104 @@ def make_continuous_score_train_step(
         return state.apply_gradients(), loss.detach()
 
     return step
+
+
+def _guidance_step(model: nn.Module, loss_fn) -> TrainStep:
+    """The train step of a guidance net around `loss_fn(X, y, generator,
+    draws) -> loss`: the batch (X, y), arrays or tensors, moves to the
+    model's device; one backward and the optimizer update. `draws` are the
+    step's keyword arguments, the injected draws."""
+
+    def step(state: TrainState, batch, generator: Optional[
+            torch.Generator] = None, **draws):
+        device = _device_of(model, state)
+        X, y = (torch.as_tensor(v, device=device) for v in batch)
+        model.train()
+        state.optimizer.zero_grad()
+        loss = loss_fn(X, y, generator, draws)
+        loss.backward()
+        return state.apply_gradients(), loss.detach()
+
+    return step
+
+
+def make_clf_train_step(model: nn.Module, sigmas, mesh=None,
+                        compute_dtype: Optional[torch.dtype] = None,
+                        data_mode: str = "real-valued") -> TrainStep:
+    """Noise-robust classifier step (reference: helpers/pl_helpers.py:
+    190-246, ncsn/losses/clf_loss.py): cross-entropy of the classifier on
+    X perturbed at a random sigma of the ladder per sample.
+
+    Returns `step(state, batch, generator=None, *, labels=None,
+    noise=None) -> (state, loss)`; batch = (X, y), X (B, H, W, C) images
+    and y (B,) classes. X is collated for `data_mode` first, as TrainClf
+    does (pl_helpers.py:212): single-tensor modes only (a Re/Im pair has
+    no single class target; JAX asserts it, here it raises ValueError).
+    The draws, in order: the noise labels, then the noise; each comes from
+    `generator` on the model's device unless given. compute_dtype: the net
+    on casts of the float32 master parameters (`_mixed_precision_apply`).
+    """
+    if mesh is not None:
+        raise NotImplementedError("a device mesh (data-parallel training) is "
+                                  "not ported yet (ROADMAP: Slice P)")
+    device = next(model.parameters()).device
+    sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
+    net = _mixed_precision_apply(model, compute_dtype)
+
+    def loss_fn(X, y, generator, draws):
+        X = collate_batch(X, data_mode, generator)
+        if isinstance(X, list):
+            raise ValueError(f"clf training needs a single-tensor data_mode, "
+                             f"not {data_mode!r}")
+        loss, _ = clf_loss_with_perturbation(net, X, y, sigmas, generator,
+                                             **draws)
+        return loss
+
+    return _guidance_step(model, loss_fn)
+
+
+def make_seg_train_step(model: nn.Module, sigmas, perturb: bool = False,
+                        mesh=None,
+                        compute_dtype: Optional[torch.dtype] = None,
+                        if_centering: bool = False,
+                        data_mode: str = "real-valued") -> TrainStep:
+    """Segmentation (DiceCE) step (reference: helpers/pl_helpers.py:
+    264-352, ncsn/losses/seg_loss.py).
+
+    Returns `step(state, batch, generator=None, *, phi=None, patch=None,
+    labels=None, noise=None) -> (state, loss)`; batch = (X, y), X (B, H,
+    W, C) images and y (B, H, W) int masks. if_centering maps X to 2 X - 1
+    (train_seg.py:26), then X is collated for `data_mode`; the Re/Im modes
+    average the two parts' losses under the shared mask (pl_helpers.py:
+    290-296). The draws, in order: the collation's (phi or the phase patch),
+    then with `perturb` the shared noise label and the noise, per part in
+    the Re/Im modes (`labels` and `noise` then take a (Re, Im) pair). Each
+    comes from `generator` on the model's device unless given."""
+    if mesh is not None:
+        raise NotImplementedError("a device mesh (data-parallel training) is "
+                                  "not ported yet (ROADMAP: Slice P)")
+    device = next(model.parameters()).device
+    sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
+    net = _mixed_precision_apply(model, compute_dtype)
+
+    def loss_fn(X, y, generator, draws):
+        if if_centering:
+            X = 2.0 * X - 1.0
+        parts = collate_batch(X, data_mode, generator,
+                              phi=draws.pop("phi", None),
+                              patch=draws.pop("patch", None))
+        if not isinstance(parts, list):
+            loss, _ = seg_loss_with_perturbation(net, parts, y, sigmas,
+                                                 generator, perturb=perturb,
+                                                 **draws)
+            return loss
+        losses = []
+        for i, part in enumerate(parts):
+            mine = {k: v[i] for k, v in draws.items() if v is not None}
+            loss, _ = seg_loss_with_perturbation(net, part, y, sigmas,
+                                                 generator, perturb=perturb,
+                                                 **mine)
+            losses.append(loss)
+        return 0.5 * (losses[0] + losses[1])
+
+    return _guidance_step(model, loss_fn)

@@ -1,10 +1,12 @@
-"""Weights for the port's NCSN++, NCSNv2 family, 3-D nets, UNET1D and seg
-UNet: converted from a Flax parameter tree, or drawn from a seed.
+"""Weights for the port's NCSN++, NCSNv2 family, 3-D nets, UNET1D, seg
+UNet and classifier: converted from a Flax parameter tree, or drawn from a
+seed.
 
 `flax_to_torch_ncsnpp` (NCSN++ and DDPM++), `flax_to_torch_ddpm`,
-`flax_to_torch_ncsnv2`, `flax_to_torch_ncsn3d`, `flax_to_torch_unet1d`
-and `flax_to_torch_unet` map the JAX package's parameters onto the port's
-state dict, name by name (the port keeps the Flax module names):
+`flax_to_torch_ncsnv2`, `flax_to_torch_ncsn3d`, `flax_to_torch_unet1d`,
+`flax_to_torch_unet` and `flax_to_torch_clf` map the JAX package's
+parameters onto the port's state dict, name by name (the port keeps the
+Flax module names):
 
 - conv kernels (*k, I, O) -> weight (O, I, *k), no flip, at every rank:
   (kh, kw, I, O) -> (O, I, kh, kw), the 1-D nets' (k, I, O) -> (O, I,
@@ -28,8 +30,8 @@ import torch
 import torch.nn as nn
 
 from ..models import layers, layerspp, ncsn3d, normalization, unet
-from ..models.registry import (build_seg_unet, create_model, get_model,
-                               get_network)
+from ..models.registry import (build_clf, build_seg_unet, create_model,
+                               get_model, get_network)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -157,6 +159,19 @@ def flax_to_torch_unet(params: Mapping[str, Any], general_config=None
                     "seg UNet")
 
 
+def flax_to_torch_clf(params: Mapping[str, Any], general_config=None
+                      ) -> Dict[str, torch.Tensor]:
+    """State dict for `build_clf(general_config, in_channels)` (ResNetClf,
+    in_channels those of the tree's pre_conv kernel) from the JAX
+    package's classifier params tree of numpy arrays (the tree under
+    "params"): the convolution kernels (kh, kw, I, O) -> (O, I, kh, kw),
+    the GroupNorm scale / bias -> weight / bias, the fc Dense kernel
+    transposed. Raises if a name or shape does not match."""
+    in_channels = int(np.shape(params["pre_conv"]["kernel"])[2])
+    return _checked(params, lambda: build_clf(general_config, in_channels),
+                    "ResNetClf")
+
+
 def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
                    ) -> nn.Module:
     """Draw every parameter of `model` from a torch.Generator seeded with
@@ -178,6 +193,9 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
     JAX init's bounds); the PReLU slopes 0.25. The 3-D nets as the NCSNv2
     family, the temporal down and up convolutions as a convolution and a
     transposed one.
+    ResNetClf: convolution weights and the pre-conv's bias U(+-std_scale /
+    sqrt(fan_in)), the GroupNorm weights 1 + 0.1 z and biases 0.1 z, the
+    fc head normal at fan-in scale.
     The draws happen on the CPU, so a seed gives the same weights whatever
     device the model is on.
     """

@@ -309,10 +309,11 @@ def test_converter_maps_1d_kernels_and_load_model_builds_them():
     assert x.shape == (1, 24, 64) == jax.eval_shape(
         lambda: jnp.zeros((1, 24, 64))).shape
     assert net(nchw(x.numpy()), torch.ones(1)).shape == (1, 64, 24)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_model(full, "Clf")
+    # a model that is still unported is refused, naming the ROADMAP
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model("ncsn")(full)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model("ncsnv2_512")
 
 
 # -- tubes, FiniteDiff, ladders: exact -------------------------------------

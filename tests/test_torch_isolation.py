@@ -105,6 +105,16 @@ def test_importing_the_port_loads_no_jax_module():
         "ncsn3d\n"
         "from inverseproblemwithdiffusionmodel_tpu_torch.scripts import "
         "unconditioned_sampling\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.models import "
+        "classifier\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.losses import "
+        "guidance\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.samplers import "
+        "ald_variants\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.scripts import "
+        "train_clf, train_seg, mnist_inv_clf_sampling, "
+        "mnist_inv_clf_prox_sampling, mnist_MAP, generate_train_ncsn, "
+        "generate_train_seg\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -128,7 +138,8 @@ RECON_SCRIPTS = ["acdc_SENSE_real_img",
                  "acdc_SENSE_TV", "cine_SENSE_real_img_2d_time",
                  "cine_SENSE_real_img_2d_time_MAP",
                  "cine_inv_sampling_keep_center_prox_real_imag",
-                 "unconditioned_sampling"]
+                 "unconditioned_sampling", "mnist_inv_clf_sampling",
+                 "mnist_inv_clf_prox_sampling", "mnist_MAP"]
 
 
 @pytest.mark.parametrize("script", ["pc_sampling", "profile_forward",
@@ -136,6 +147,7 @@ RECON_SCRIPTS = ["acdc_SENSE_real_img",
                                     "serve_recon", "seg_grad_precision",
                                     "train_ncsn",
                                     "train_ncsn --task_name Diffusion3D",
+                                    "train_clf", "train_seg",
                                     "unconditioned_sampling --task_name "
                                     "Diffusion3D --ds_name CINE127_1D"]
                          + RECON_SCRIPTS)
@@ -148,6 +160,8 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path, script):
     argv = flags + {
         "pc_sampling": save_dir,
         "train_ncsn": ["--ds_name", "ACDC", "--log_dir", str(tmp_path)],
+        "train_clf": ["--log_dir", str(tmp_path)],
+        "train_seg": ["--log_dir", str(tmp_path)],
         **{name: save_dir for name in RECON_SCRIPTS},
     }.get(script, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):

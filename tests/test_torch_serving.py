@@ -437,9 +437,10 @@ def test_load_model_builds_the_ported_tasks():
     volumes, _ = load_model(load_config("CINE127_1D", "real-imag",
                                         **{"model.ngf": 4}), "Diffusion3D")
     assert type(volumes).__name__ == "NCSN3DShallow"
-    for task in ("Clf",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_model(cfg, task)
+    clf, params = load_model(cfg, "Clf")
+    assert params is None and type(clf).__name__ == "ResNetClf"
+    assert clf.pre_conv.in_channels == cfg.data.channels
+    assert clf.resnet.fc.out_features == 10
     with pytest.raises(ValueError, match="unknown task"):
         load_model(cfg, "Denoise")
 
