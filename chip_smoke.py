@@ -113,23 +113,24 @@ phases, each printing one line with its own seconds:
    at and near A^H y; the forms after 200 iterations within the bounds of
    tests/test_torch_map_long.py, which a doubled-weight control must
    break; a tiny MAP direction card vs CPU.
-11. serve: the serving entry point at the recon geometry, for f32 and
-   bf16: scripts.serve_recon.build_engine (weights from seed 0), the
-   engine's warm-up, 3 requests over HTTP on 127.0.0.1 (npz in and out:
-   the default operator; a new R = 8 mask with lr_scaled 3.0; new coil
-   maps) and one in-process request: shapes, finite values, headers,
-   /healthz's request count, one input signature, chain-steps/s per
-   request, warm-up seconds, peak memory; the f32 engine against
-   make_stepped_pair_reconstructor on the same problem and seed in the
-   float32 mode; a guided bf16 engine (the full-width seg UNet, seed 0) on
-   a disk label, one request over HTTP and one in-process; card against
+11. serve: the serving entry point at the recon geometry (the ladder cut
+   to 4 levels), for f32 and bf16: scripts.serve_recon.build_engine
+   (weights from seed 0), the engine's warm-up, 3 requests over HTTP on
+   127.0.0.1 (npz in and out: the default operator; a new R = 8 mask with
+   lr_scaled 3.0; new coil maps) and one in-process request: shapes,
+   finite values, headers, /healthz's request count, one input signature,
+   chain-steps/s per request, warm-up seconds, peak memory; the f32
+   engine against make_stepped_pair_reconstructor on the same problem and
+   seed in the float32 mode; a guided bf16 engine (the full-width seg
+   UNet, seed 0) on a disk label, one request over HTTP and one
+   in-process; card against
    CPU on one chain: a guided inner step at the last level (float32
    mode), the guidance gradient in float64, and the card's float32
    gradient against the float64 one.
 12. cine: the 2D+time serving path at README's cine geometry (CINE127,
    128 px, T = 24, 4 coils, per-frame R = 8 masks; spatial NCSNv2Deepest
    and temporal NCSN1D on 8 x 8 pixel tubes, ngf 128 each, seed 0; 4
-   chains, the ladder cut to 8 of 1000 levels), for f32 and bf16:
+   chains, the ladder cut to 2 of 1000 levels), for f32 and bf16:
    scripts.serve_recon.build_engine --workload cine, its warm-up, 3
    requests over HTTP (default operator; new per-frame masks with
    lr_scaled 3.0; new coil maps) and one in-process with lamda_T 0.5:
@@ -144,14 +145,14 @@ phases, each printing one line with its own seconds:
 12b. cine_complex: the complex 2D+time CLIs at the cine geometry (CINE127
    128 px, T = 24, 4 coils, R = 8; both nets ngf 128, seed 0), torch's
    defaults: cine_SENSE_real_img_2d_time.main (4 chains, diffusion1d,
-   lr_scaled 5.0, CG 8 on cuFFT, 8 of the 1000 levels): chain-steps/s of
+   lr_scaled 5.0, CG 8 on cuFFT, 4 of the 1000 levels): chain-steps/s of
    ald_2d_time alone, wall s, peak memory, NRMSE / SSIM (finite), and the
    ratio to Stepped2DTimePairReconstructor on the same problem and seed;
    in the float32 mode on one chain the complex form against the pair form
-   level by level, gated after levels 0 and 7 at 1e-4; the modes tv, none
+   level by level, gated after levels 0 and 3 at 1e-4; the modes tv, none
    and tv-only at 2 levels (finite); cine_SENSE_real_img_2d_time_MAP.main
    (1 chain, 20 of the 200 iterations): iterations/s, peak memory;
-   cine_inv_sampling_keep_center_prox_real_imag.main (4 chains, 8 levels):
+   cine_inv_sampling_keep_center_prox_real_imag.main (4 chains, 4 levels):
    chain-steps/s.
 13. train_ncsn: discrete score training through scripts.train_ncsn.main
    on the loaders' synthetic stand-ins (train_ncsn_phase): ACDC
@@ -192,8 +193,8 @@ phases, each printing one line with its own seconds:
 16. quickstart_3d: the README quick start's pair and the 3-D temporal
    prior at full width (weights from seed 0), torch's defaults:
    scripts.unconditioned_sampling.main --ds_name MNIST (NCSNv2Deepest 32
-   px, ngf 128; 8 samples over the config's whole ladder, 232 levels x 5
-   steps and the denoise): the sampler's network evaluations/s (the set-up
+   px, ngf 128; 8 samples, the ladder cut from 232 to 58 levels x 5 steps,
+   and the denoise): the sampler's network evaluations/s (the set-up
    apart), wall s, peak, finite (8, 32, 32, 1) samples;
    scripts.train_ncsn.main --ds_name MNIST (synthetic digits, the config's
    batch 128, 5 steps): s/step, images/s, peak; --task_name Diffusion3D on
@@ -209,7 +210,7 @@ phases, each printing one line with its own seconds:
    unconditioned_sampling --task_name Diffusion3D and Diffusion1D on
    CINE127_1D, 8 samples, the 400-level ladder cut to 20;
    cine_SENSE_real_img_2d_time.main --task_name_T Diffusion3D and the same
-   call with Diffusion1D at the cine_complex geometry (4 chains, 4 of 1000
+   call with Diffusion1D at the cine_complex geometry (4 chains, 2 of 1000
    levels, CG 8 on cuFFT): chain-steps/s of the sampler alone, their
    ratio, each net's device ms by CUDA events around its calls;
    cine_SENSE_real_img_2d_time_MAP.main with Diffusion3D (1 chain, 10 of
@@ -229,6 +230,22 @@ phases, each printing one line with its own seconds:
    card vs CPU, the same noise, float32 mode; mnist_inv_clf_sampling
    (--lamda 0.01) and mnist_inv_clf_prox_sampling at 8 samples on the cut
    ladder and mnist_MAP (200 of 15000 iterations) through timed_cli.
+18. natural: NCSN v1, the probability-flow ODE sampler and the
+   natural-image discrete configs at full width (natural_phase): K1 / K2
+   at the 12 calls of one vp/cifar10_ncsnpp_continuous forward at the
+   ODE's batch of 16 against their plain versions, timed;
+   pc_sampling.main --method ode on that leaf (16 samples, seeded
+   weights): finite samples, the printed nfe (sde.N, as JAX), the score
+   evaluations by a counting wrapper, odeint's accepted / rejected steps,
+   K1 / K2 launches per evaluation, the sampler's evaluations/s, peak; a
+   tiny NCSN++ ODEs card vs CPU (VP and VE leaves, the same steps);
+   pc_sampling.main on ve/ncsn/cifar10 (NCSN v1, 16 samples, 10 levels x
+   100 ALD steps); the v1 forward card vs CPU; training.fit with the
+   continuous step on discrete labels at the leaf's batch 128 (5 steps)
+   and one step card vs CPU; train_ncsn.main --ds_name CELEBA (64 px, the
+   config's batch 128, 5 steps on the synthetic stand-in);
+   unconditioned_sampling.main --ds_name CIFAR10 (8 chains, 20 of 232
+   levels). Only the ODE path launches K1 / K2 (checked).
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -238,15 +255,18 @@ The sampling and training runs themselves use torch's defaults, as a
 user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
 sense, map_tv, serve, cine, cine_complex, train_ncsn, each train_bf16
-run, each sample_vp run, quickstart_3d, guided) and read just after it.
-Any failure raises and exits non-zero. Phases 9 to 17 print their numbers
+run, each sample_vp run, quickstart_3d, guided, and each path of natural)
+and read just after it.
+Any failure raises and exits non-zero. Phases 9 to 18 print their numbers
 as one JSON line before `total`. The last
 lines are nvidia-smi's name and power limit, a JSON line of per-kernel
 numbers, and
 `{"ok": true, "device": {...}}`. In the JSON line `ms`, `plain_ms` and
 `library_ms` are device-only; `ms_with_host` is the kernel with the host's
 gaps; K1's and K2's entries (float32 and bf16) add their batch-8 forward
-sums, and the float32 ones the host's µs per launch.
+sums, and the float32 ones the host's µs per launch and their sums at the
+CIFAR-10 VP shapes (a step at batch 128, a forward at 16, the ODE path's
+forward at 16).
 """
 from __future__ import annotations
 
@@ -293,6 +313,8 @@ ACDC_CHAINS = 16           # the net runs at batch 32: Re and Im interleaved
 ACDC_COILS = 4
 ACDC_R = 8
 ACDC_LEVELS = 8            # of the config's 2311
+SERVE_LEVELS = 4           # the serving phase's: cut from 8 to keep the
+                           # smoke within its time with `natural`
 ACDC_CG_ITERS = 4
 ACDC_LR_SCALED = 5.0
 ACDC_REPS = 3              # timed runs after one warm-up; the fastest counts
@@ -307,7 +329,10 @@ ADJOINT_REL = 1e-5         # <A x, y> vs <x, A^H y>, sums in complex128
 # The cine (2D+time) serving path: README's 128 px, T = 24, 4 coils, R = 8
 CINE_FRAMES = 24
 CINE_CHAINS = 4            # the CineEngineSpec default; serve_recon's is 16
-CINE_LEVELS = 8            # of the config's 1000
+CINE_LEVELS = 4            # of the config's 1000 (cine_complex; 8 before
+                           # PR 16, cut to keep the smoke within its time)
+CINE_SERVE_LEVELS = 2      # the cine serving phase's: cut from 8 to keep
+                           # the smoke within its time with `natural`
 CINE_WIN = 8               # 8 x 8 pixel tubes: the temporal net's 64 channels
 CINE_LAMDA_T = 0.5         # the in-process request's temporal weight
 CINE_CHECK_LEVEL = 1       # the first level with a temporal step
@@ -325,20 +350,22 @@ MAP_DIR_REL_L2 = 1e-5      # first ascent directions: the forms, card vs CPU
 MAP_LONG_REL = 3e-2        # rel L2 of two forms' iterates
 MAP_LONG_FAR_SHARE = 0.25  # share of elements more than 5 lr apart
 CINE_COMPLEX_CHAINS = 4    # the 2D+time CLI and the single-frame CLI
-CINE_COMPLEX_GATES = (0, 7)  # complex vs pair form gated after these levels
+CINE_COMPLEX_GATES = (0, 3)  # complex vs pair form gated after these levels
 CINE_F32_CHAINS = 1        # the float32-mode comparison: of the CLI's 4
 CINE_MODE_LEVELS = 2       # the tv, none and tv-only runs
 CINE_MAP_ITERS = 20        # cine_SENSE_real_img_2d_time_MAP: of the 200
 # The README quick start (MNIST) and the 3-D temporal prior
 QS_SAMPLES = 8             # unconditioned_sampling's chains (the net's batch)
+QS_MNIST_LEVELS = 58       # of the MNIST ladder's 232 (whole before PR 16,
+                           # cut to keep the smoke within its time)
 QS_TRAIN_STEPS = 5         # train_ncsn --ds_name MNIST at the config's 128
 QS_3D_TRAIN_STEPS = 5      # train_ncsn Diffusion3D at the config's batch 90
 QS_3D_LEVELS = 20          # unconditioned 1-D / 3-D runs: of the 400 levels
 QS_CHAINS = 4              # the cine CLIs: as the cine_complex phase
-# The cine CLIs with Diffusion3D and Diffusion1D: 4 of the 1000 levels (3
-# with a temporal step), cut from cine_complex's 8 to keep the smoke near
-# 960 s (the 3-D temporal net took 5.2 s of a 5.6 s level step)
-QS_CINE_LEVELS = 4
+# The cine CLIs with Diffusion3D and Diffusion1D: 2 of the 1000 levels (1
+# with a temporal step), cut to keep the smoke within its time (the 3-D
+# temporal net took 5.2 s of a 5.6 s level step; 4 levels before PR 16)
+QS_CINE_LEVELS = 2
 QS_MAP_ITERS = 10          # the cine MAP CLI with Diffusion3D: of the 200
 # Guided sampling and the guidance nets' training: train_clf, train_seg,
 # samplers/ald_variants and the MNIST guided CLIs, at full width
@@ -401,6 +428,27 @@ VP_CKPT_NUM_SCALES = 10
 VP_SAMPLE_LEAVES = ["vp/cifar10_ncsnpp_continuous",
                     "vp/cifar10_ddpmpp_continuous", "vp/ddpm/cifar10",
                     "subvp/cifar10_ncsnpp_continuous", "ve/ncsnv2/cifar10"]
+# NCSN v1, the probability-flow ODE sampler and the natural-image configs
+NATURAL_ODE_CONFIG = VP_CONFIG   # NCSN++ with FIR: K1 and K2 every forward
+NATURAL_SAMPLES = 16             # the ODE's and NCSN v1's samples
+# Card vs CPU, tiny NCSN++ ODEs in the float32 mode, samples within
+# ODE_REL_L2. The adaptive steps feed float32 rounding back into the
+# solve, and a step can be accepted on one device and rejected on the
+# other, so the gate sits well above the spread of such runs (PERF.md).
+# On the VP leaf the drift grows as 1 / std near t = eps, where the std
+# loses three digits to cancellation, and the last step overshoots to
+# t < 0, where the std is NaN: at the sampler's rtol 1e-5 a 1e-7
+# perturbation of the score moves the solve by about 1e-2 (the control),
+# so that run is reported beside its control and the VP gate runs at
+# ODE_VP_CHECK_TOL
+ODE_VE_CONFIG = "ve/cifar10_ncsnpp_continuous"
+ODE_REL_L2 = 1e-3
+ODE_VP_CHECK_TOL = 1e-6
+NATURAL_V1_CONFIG = "ve/ncsn/cifar10"
+NATURAL_V1_STEPS = 5             # training.fit at the leaf's batch 128
+NATURAL_TRAIN_STEPS = 5          # train_ncsn --ds_name CELEBA at 128
+NATURAL_UNCOND_SAMPLES = 8
+NATURAL_UNCOND_LEVELS = 20       # of CIFAR10's 232
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, float32 outside tensor cores
 PALLAS = "inverseproblemwithdiffusionmodel_tpu/ops/pallas_kernels.py"
@@ -882,12 +930,12 @@ def ncsnv2_phase(fk, fl, device="cuda") -> dict:
     return numbers
 
 
-def acdc_problem(cfg, device):
+def acdc_problem(cfg, device, levels: int = ACDC_LEVELS):
     """bench.py's reconstruction problem (bench.py:85-97, 232-272): the
     pair SENSE with 4 real exponential coil maps and one R = 8
     variable-density line mask (seed 0), the measurement of 16 chains of
     uniform magnitude and normal phase (a torch.Generator seeded 0), the CG
-    proximal on the normal kernel, and the ladder cut to 8 levels."""
+    proximal on the normal kernel, and the ladder cut to `levels` (8)."""
     from inverseproblemwithdiffusionmodel_tpu_torch.operators.fourier import (
         MASK_PRESETS, _exp_sens_map)
     from inverseproblemwithdiffusionmodel_tpu_torch.operators.masks import (
@@ -913,7 +961,7 @@ def acdc_problem(cfg, device):
     proximal = PairL2Penalty.with_normal_kernel(lin_tfm,
                                                 num_iters=ACDC_CG_ITERS)
     sigmas = sigma_ladder(cfg.model.sigma_begin, cfg.model.sigma_end,
-                          ACDC_LEVELS, "geometric")
+                          levels, "geometric")
     return lin_tfm, proximal, sigmas, yr, yi
 
 
@@ -1047,7 +1095,8 @@ def serve_argv(dtype: str) -> list:
     drawn from seed 0 (no --ckpt_dir)."""
     return ["--ds_name", "ACDC", "--R", str(ACDC_R), "--num_sens",
             str(ACDC_COILS), "--synth_sens", "--chains", str(ACDC_CHAINS),
-            "--levels", str(ACDC_LEVELS), "--lr_scaled", str(ACDC_LR_SCALED),
+            "--levels", str(SERVE_LEVELS), "--lr_scaled",
+            str(ACDC_LR_SCALED),
             "--prox_iters", str(ACDC_CG_ITERS), "--dtype", dtype, "--mode",
             "steps", "--seed", "0", "--device", "cuda"]
 
@@ -1122,7 +1171,8 @@ def serve_requests(eng, requests, chain_steps: int) -> dict:
 
 
 def serve_phase(fk, fl, device="cuda") -> dict:
-    """The serving entry point at acdc_problem's geometry: for f32 and bf16
+    """The serving entry point at acdc_problem's geometry, the ladder cut
+    to SERVE_LEVELS: for f32 and bf16
     in turn, scripts.serve_recon.build_engine (weights from seed 0), its
     warm-up, 3 requests over HTTP on 127.0.0.1 (the default operator, seed
     0; a new R = 8 mask, seed 1, lr_scaled 3.0; new coil maps, seed 2) and
@@ -1159,7 +1209,8 @@ def serve_phase(fk, fl, device="cuda") -> dict:
         float32_exact)
     cfg = load_config("ACDC", "real-imag")
     size = cfg.data.image_size
-    lin_tfm, proximal, sigmas, yr, yi = acdc_problem(cfg, device)
+    lin_tfm, proximal, sigmas, yr, yi = acdc_problem(cfg, device,
+                                                     SERVE_LEVELS)
     # the single-copy measurement of chain 0, as a client sends it
     y_re, y_im = (v[:, 0].cpu().numpy() for v in (yr, yi))
     mask1 = generate_mask(1, size, seed=1, **MASK_PRESETS[ACDC_R])
@@ -1171,7 +1222,7 @@ def serve_phase(fk, fl, device="cuda") -> dict:
                                               mask=mask1)),
                 ("seed=2", dict(y_re=y_re, y_im=y_im, sens_re=maps))]
     n_steps = cfg.sampling.n_steps_each
-    chain_steps = ACDC_LEVELS * n_steps * ACDC_CHAINS
+    chain_steps = SERVE_LEVELS * n_steps * ACDC_CHAINS
     numbers = dict(chain_steps=chain_steps)
     fk.LAUNCHES.clear()
     fl.LAUNCHES.clear()
@@ -1280,7 +1331,7 @@ def serve_phase(fk, fl, device="cuda") -> dict:
     draws = [torch.randn((1,) + tuple(yr.shape[2:]), generator=gen)
              for _ in range(2)]
     label1 = torch.from_numpy(label)[None]
-    last = ACDC_LEVELS - 1
+    last = SERVE_LEVELS - 1
     steps = []
     with float32_exact():
         for dev, net, seg in ((device, model, seg_dev),
@@ -1334,7 +1385,8 @@ def cine_argv(dtype: str) -> list:
             "CINE127_1D", "--mode_T", "diffusion1d", "--frames",
             str(CINE_FRAMES), "--win_size", str(CINE_WIN), "--R", "8",
             "--num_sens", "4", "--synth_sens", "--chains", str(CINE_CHAINS),
-            "--levels", str(CINE_LEVELS), "--dtype", dtype, "--mode", "steps",
+            "--levels", str(CINE_SERVE_LEVELS), "--dtype", dtype, "--mode",
+            "steps",
             "--seed", "0", "--device", "cuda"]
 
 
@@ -1458,7 +1510,7 @@ def profile_cine_level(eng, y_re, y_im, device) -> dict:
 def cine_phase(fk, fl, device="cuda") -> dict:
     """The cine serving path at README's geometry (CINE127 frames, 128 px,
     T = 24, 4 coils, per-frame R = 8 masks; spatial NCSNv2Deepest ngf 128,
-    temporal NCSN1D ngf 128 on 8 x 8 tubes; 4 chains, the ladder cut to 8
+    temporal NCSN1D ngf 128 on 8 x 8 tubes; 4 chains, the ladder cut to 2
     of 1000 levels): for f32 and bf16 in turn, scripts.serve_recon.
     build_engine --workload cine (weights from seed 0), its warm-up, 3
     requests over HTTP on 127.0.0.1 (the default operator, seed 0; new
@@ -1499,11 +1551,12 @@ def cine_phase(fk, fl, device="cuda") -> dict:
                                               mask=mask1)),
                 ("seed=2", dict(y_re=y_re, y_im=y_im, sens_re=maps2))]
     n_steps = cfg.sampling.n_steps_each
-    chain_steps = CINE_LEVELS * n_steps * CINE_CHAINS
+    chain_steps = CINE_SERVE_LEVELS * n_steps * CINE_CHAINS
     numbers = dict(chain_steps=chain_steps, frames=T, chains=CINE_CHAINS,
-                   levels=CINE_LEVELS,
+                   levels=CINE_SERVE_LEVELS,
                    reduced=f"chains {CINE_CHAINS} (serve_recon's default "
-                           f"16), {CINE_LEVELS} of the config's 1000 levels")
+                           f"16), {CINE_SERVE_LEVELS} of the config's 1000 "
+                           f"levels")
     outputs = {}
     fk.LAUNCHES.clear()
     fl.LAUNCHES.clear()
@@ -3093,8 +3146,8 @@ def cine_complex_phase(fk, fl, device="cuda") -> dict:
     128 px, T = 24, 4 coils, per-frame R = 8; CINE127 NCSNv2Deepest and
     CINE127_1D NCSN1D, ngf 128 each, weights from seed 0), torch's
     defaults: cine_SENSE_real_img_2d_time.main (4 chains, diffusion1d,
-    lr_scaled 5.0, L2Penalty CG 8, the recons ladder cut to 8 of 1000
-    levels): chain-steps/s of ald_2d_time alone, wall s, peak memory,
+    lr_scaled 5.0, L2Penalty CG 8, the recons ladder cut to CINE_LEVELS of
+    1000 levels): chain-steps/s of ald_2d_time alone, wall s, peak memory,
     NRMSE / SSIM (finite), and the pair reconstructor
     (Stepped2DTimePairReconstructor, the same score functions, pair SENSE,
     CG 8 on the normal kernel) on the same problem and seed for the ratio.
@@ -3103,8 +3156,8 @@ def cine_complex_phase(fk, fl, device="cuda") -> dict:
     The modes tv, none and tv-only at CINE_MODE_LEVELS levels: finite.
     cine_SENSE_real_img_2d_time_MAP.main (1 chain, diffusion1d,
     CINE_MAP_ITERS iterations): iterations/s, peak. The single-frame
-    cine_inv_sampling_keep_center_prox_real_imag.main (4 chains, 8 levels):
-    chain-steps/s. Launches no K1, K2 or K4."""
+    cine_inv_sampling_keep_center_prox_real_imag.main (4 chains,
+    CINE_LEVELS levels): chain-steps/s. Launches no K1, K2 or K4."""
     from inverseproblemwithdiffusionmodel_tpu_torch.operators.pair import (
         PairL2Penalty, PairSENSE)
     from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
@@ -3394,8 +3447,9 @@ def quickstart_3d_phase(fk, fl, device="cuda") -> dict:
     """The README quick start's pair and the 3-D temporal prior at full
     width, weights from seed 0, torch's defaults unless said:
     unconditioned_sampling.main --ds_name MNIST (NCSNv2Deepest at 32 px,
-    ngf 128; QS_SAMPLES chains over the config's whole ladder, 232 levels
-    x 5 steps and the denoise): the sampler's network evaluations/s (the
+    ngf 128; QS_SAMPLES chains over the 50 -> 0.01 ladder cut from 232 to
+    QS_MNIST_LEVELS levels x 5 steps, and the denoise): the sampler's
+    network evaluations/s (the
     set-up apart), wall s, peak, finite (8, 32, 32, 1) samples.
     train_ncsn.main --ds_name MNIST (the synthetic digits, the config's
     batch 128, QS_TRAIN_STEPS steps): s/step, images/s, peak; one step at
@@ -3441,7 +3495,8 @@ def quickstart_3d_phase(fk, fl, device="cuda") -> dict:
 
     # The quick start: sample, then train
     r = timed_cli(uncond, common + ["--ds_name", "MNIST", "--num_samples",
-                                    str(QS_SAMPLES)],
+                                    str(QS_SAMPLES), "--override",
+                                    f"model.num_classes={QS_MNIST_LEVELS}"],
                   name="ald_unconditional_sampler", metrics=False)
     samples = r.pop("recons")
     del r["call"]
@@ -3449,7 +3504,7 @@ def quickstart_3d_phase(fk, fl, device="cuda") -> dict:
     if not (samples.shape == (QS_SAMPLES, s, s, 1)
             and np.isfinite(samples).all()):
         raise AssertionError(f"MNIST samples: {samples.shape}")
-    r["evals"] = (cfg_m.model.num_classes * cfg_m.sampling.n_steps_each
+    r["evals"] = (QS_MNIST_LEVELS * cfg_m.sampling.n_steps_each
                   + int(cfg_m.sampling.denoise))
     r["evals_per_s"] = r["evals"] / r["sampler_s"]
     numbers["mnist_sample"] = r
@@ -3674,8 +3729,9 @@ def report_quickstart_3d(qs: dict, t: float) -> None:
               f"temporal step, {c['temporal_levels']} such levels), peak "
               f"{c['peak']} bytes", flush=True)
     say("quickstart_3d", t, f"unconditioned_sampling --ds_name MNIST "
-        f"(NCSNv2Deepest 32 px, ngf 128, seed 0; {QS_SAMPLES} samples, the "
-        f"whole 232 x 5 ladder): {ms['evals_per_s']:.2f} evaluations/s; "
+        f"(NCSNv2Deepest 32 px, ngf 128, seed 0; {QS_SAMPLES} samples, "
+        f"{QS_MNIST_LEVELS} of 232 levels x 5 steps): "
+        f"{ms['evals_per_s']:.2f} evaluations/s; "
         f"train_ncsn MNIST batch {tr['batch']} {tr['s_per_step']:.4f} s/step "
         f"({tr['images_per_s']:.2f} images/s); Diffusion3D (NCSN3DShallow, "
         f"ngf 128, 8x8 tubes of 24 frames) batch {tr3['batch']} "
@@ -4118,6 +4174,443 @@ def report_guided(gd: dict, t: float) -> None:
         f"launch")
 
 
+def tiny_ode_card_vs_cpu(cfg, gate, tol: float, gen, device="cuda"
+                         ) -> dict:
+    """The probability-flow ODE sampler (denoise on, rtol = atol = `tol`)
+    on a tiny NCSN++ of the leaf `cfg` (nf 16, FIR, 16 px, 2 samples,
+    weights from seed 1) from one x_init, on the card and on the CPU in the
+    float32 mode: both evaluation counts, the card's rejected steps, the
+    samples' rel L2, gated at `gate` (None: reported only); where the
+    counts part, the first step the two decide differently and both error
+    ratios there. Where it is not gated, a control: the CPU solve again
+    with its score perturbed by 1e-7 of itself, how far float32 rounding
+    alone moves this solve."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
+        make_sde)
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import (
+        create_model)
+    from inverseproblemwithdiffusionmodel_tpu_torch.sde import (
+        get_ode_sampler, get_score_fn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    tiny = cfg.replace(**{"data.image_size": 16, "model.nf": 16,
+                          "model.ch_mult": (1, 2, 2),
+                          "model.num_res_blocks": 1,
+                          "model.attn_resolutions": (8,)})
+    sde = make_sde(tiny)
+    shape = (2, 16, 16, 3)
+    x_init = sde.prior_sampling(
+        lambda s: torch.randn(tuple(s), generator=gen), shape)
+    net = seeded_weights(create_model(tiny), seed=1).eval()
+    runs = {}
+    for dev in (device, "cpu") + (() if gate else ("control",)):
+        net.to("cpu" if dev == "control" else dev)
+        score = get_score_fn(sde, net)
+        if dev == "control":
+            noise = torch.Generator().manual_seed(5)
+            plain = score
+            score = lambda x, t: plain(x, t) * (1 + 1e-7 * torch.randn(
+                x.shape, generator=noise))
+        st = {}
+        with torch.no_grad(), float32_exact():
+            x, _ = get_ode_sampler(sde, shape, denoise=True, rtol=tol,
+                                   atol=tol, device="cpu"
+                                   if dev == "control" else dev)(
+                score, x_init=x_init.to("cpu" if dev == "control" else dev),
+                stats=st)
+        runs[str(dev)] = (x.cpu(), st)
+    (card, c_st), (cpu, p_st) = runs[str(device)], runs["cpu"]
+    check = dict(card_nfe=c_st["nfe"], cpu_nfe=p_st["nfe"],
+                 rejected=c_st["rejected"], rel_l2=rel_l2(card, cpu),
+                 gate=gate)
+    if "control" in runs:
+        check["cpu_perturbed_rel_l2"] = rel_l2(runs["control"][0], cpu)
+    if not (torch.isfinite(card).all() and torch.isfinite(cpu).all()):
+        raise AssertionError(f"tiny ODE {cfg.training.sde}: not finite")
+    if c_st["nfe"] != p_st["nfe"]:
+        part = next(i for i, (a, b) in enumerate(zip(
+            c_st["ratios"] + [None], p_st["ratios"] + [None]))
+            if a is None or b is None or (a <= 1) != (b <= 1))
+        check.update(parted_at_step=part, ratios_there=[
+            r[part] if part < len(r) else None
+            for r in (c_st["ratios"], p_st["ratios"])])
+    if gate is not None and not check["rel_l2"] <= check["gate"]:
+        raise AssertionError(f"tiny ODE card vs CPU, {cfg.training.sde}: "
+                             f"{check}")
+    return check
+
+
+def natural_phase(fk, fl, device="cuda") -> dict:
+    """NCSN v1, the probability-flow ODE sampler and the natural-image
+    discrete configs at full width, weights from seeds, torch's defaults
+    unless said.
+
+    The ODE path: K1 and K2 at every shape one forward of NATURAL_ODE_CONFIG
+    gives them at the path's batch (its NATURAL_SAMPLES samples), held to
+    their plain versions (KERNEL_RTOL, float32 mode) and timed as the
+    kernels phase times them; then pc_sampling.main --method ode on that
+    config: finite samples, the nfe it prints (sde.N, as the JAX sampler
+    returns), the true score evaluations (a counting wrapper on the score
+    function) and accepted / rejected steps (odeint's counts), K1 / K2
+    launches equal to the per-forward count times (evaluations + the
+    first forward), the sampler's evaluations/s alone, wall s, peak. A
+    tiny NCSN++ ODE (nf 16, FIR, 16 px, 2 samples) from one x_init on the
+    card and on the CPU, float32 mode (tiny_ode_card_vs_cpu): the VP leaf
+    at the sampler's rtol 1e-5 (reported beside the control), and at
+    ODE_VP_CHECK_TOL, and a VE leaf at 1e-5, each gated at ODE_REL_L2.
+
+    NCSN v1 (NATURAL_V1_CONFIG, ngf 128, 32 px): pc_sampling.main at
+    NATURAL_SAMPLES samples over the leaf's whole 10 levels x 100 ALD
+    steps; the forward at batch 2 card vs CPU (float32 mode); training.fit
+    with make_continuous_score_train_step(continuous=False) at the leaf's
+    batch 128 for NATURAL_V1_STEPS steps on seeded images, and one step at
+    batch 2 card vs CPU (float32 mode: loss and gradients at
+    MODEL_REL_L2). The natural-image discrete configs: train_ncsn.main
+    --ds_name CELEBA (64 px, the Diffusion task's NCSNv2Deepest, 3
+    channels, the config's batch 128, NATURAL_TRAIN_STEPS steps on the
+    synthetic_rgb stand-in of an empty --data_root) and
+    unconditioned_sampling.main --ds_name CIFAR10 (NATURAL_UNCOND_SAMPLES
+    chains, the 232-level ladder cut to NATURAL_UNCOND_LEVELS x 5 steps).
+    These launch none of K1, K2 or K4 (checked)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
+        get_continuous_config, make_sde)
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import (
+        create_model)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        pc_sampling, train_ncsn, unconditioned_sampling as uncond)
+    from inverseproblemwithdiffusionmodel_tpu_torch.sde import sampling
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        FitConfig, TrainState, batch_iterator, fit, get_optimizer,
+        make_continuous_score_train_step)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    out = {}
+    gen = torch.Generator().manual_seed(13)
+    dev_flag = [] if device == "cuda" else ["--device", str(device)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_natural_")
+    try:
+        # -- the ODE path: its kernels, then the sampler --------------------
+        cfg = get_continuous_config(NATURAL_ODE_CONFIG)
+        k = tuple(cfg.model.fir_kernel)
+        rows = {}
+        with float32_exact():
+            for name, C, R in fir_shapes(cfg):
+                rows.setdefault(name, []).append(kernel_numbers(
+                    name, C, R, k, fk, gen, NATURAL_SAMPLES))
+        out["ode_kernels"] = summarize(
+            rows, f"one {NATURAL_ODE_CONFIG} forward at batch "
+                  f"{NATURAL_SAMPLES} (the ODE path)")
+        out["ode_kernel_calls"] = {name: len(rs) for name, rs in rows.items()}
+        fwd, _ = fir_counts(cfg)
+        stats, evals = {}, [0]
+        real_odeint, real_score = sampling.odeint, pc_sampling.get_score_fn
+
+        def odeint_counted(*args, **kwargs):
+            return real_odeint(*args, **dict(kwargs, stats=stats))
+
+        def score_counted(*args, **kwargs):
+            score = real_score(*args, **kwargs)
+
+            def counted(x, t):
+                evals[0] += 1
+                return score(x, t)
+            return counted
+
+        sampling.odeint, pc_sampling.get_score_fn = (odeint_counted,
+                                                     score_counted)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            fk.LAUNCHES.clear()
+            fl.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            sampler_s = []
+            with timed_sampler(pc_sampling, sampler_s):
+                samples, nfe, _ = run_pc_sampling(pc_sampling, [
+                    "--config", NATURAL_ODE_CONFIG, "--method", "ode",
+                    "--num_samples", str(NATURAL_SAMPLES), "--seed", "0",
+                    "--save_dir", os.path.join(root, "ode")] + dev_flag)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            launches = dict(fk.LAUNCHES)
+        finally:
+            sampling.odeint, pc_sampling.get_score_fn = real_odeint, \
+                real_score
+        denoise = int(cfg.sampling.noise_removal)
+        expect = {name: n * (evals[0] + 1) for name, n in fwd.items()}
+        size, ch = cfg.data.image_size, cfg.data.num_channels
+        if samples.shape != (NATURAL_SAMPLES, size, size, ch) or \
+                not np.isfinite(samples).all():
+            raise AssertionError(f"ODE samples {samples.shape}, finite "
+                                 f"{np.isfinite(samples).all()}")
+        if nfe != cfg.model.num_scales or \
+                evals[0] != stats["nfe"] + denoise or \
+                stats["nfe"] != 2 + 6 * stats["steps"]:
+            raise AssertionError(f"ODE counts: printed nfe {nfe}, score "
+                                 f"evaluations {evals[0]}, odeint {stats}")
+        if launches != expect or sum(fl.LAUNCHES.values()):
+            raise AssertionError(f"the ODE path launched {launches}, "
+                                 f"expected {expect}")
+        out["ode"] = dict(
+            printed_nfe=nfe, evals=evals[0], odeint_nfe=stats["nfe"],
+            steps=stats["steps"], accepted=stats["accepted"],
+            rejected=stats["rejected"], host_reads=stats["steps"],
+            sampler_s=sampler_s[0], evals_per_s=evals[0] / sampler_s[0],
+            wall_s=wall, setup_s=wall - sampler_s[0],
+            peak=torch.cuda.max_memory_allocated(), launches=launches,
+            launches_per_eval={n: v / (evals[0] + 1)
+                               for n, v in launches.items()})
+
+        # where an evaluation's time goes: the net's forward at the path's
+        # batch on the card and on the host (enqueue), and the integrator's
+        # own ms per attempted step on a linear field of the same state
+        net = seeded_weights(create_model(cfg), seed=0).to(device).eval()
+        xs = torch.randn((NATURAL_SAMPLES, size, size, ch), generator=gen
+                         ).to(device)
+        ts = torch.full((NATURAL_SAMPLES,), 0.5 * 999, device=device)
+        with torch.no_grad():
+            fwd_ms, fwd_host_ms = cuda_ms(lambda: net(xs, ts), reps=10,
+                                          host=True)
+        del net
+        lin = {}
+        torch.cuda.synchronize()
+        t_lin = time.perf_counter()
+        real_odeint(lambda y, s_: -y, xs, torch.tensor([0.0, 1.0]),
+                    rtol=1e-5, atol=1e-5, stats=lin)
+        torch.cuda.synchronize()
+        out["ode"].update(
+            forward_device_ms=fwd_ms, forward_host_ms=fwd_host_ms,
+            integrator_ms_per_step=1e3 * (time.perf_counter() - t_lin)
+            / lin["steps"])
+
+        out["ode_tiny_card_vs_cpu"] = {
+            f"{leaf} rtol {tol:g}": tiny_ode_card_vs_cpu(
+                get_continuous_config(leaf), gate, tol, gen, device)
+            for leaf, gate, tol in (
+                (NATURAL_ODE_CONFIG, None, 1e-5),
+                (NATURAL_ODE_CONFIG, ODE_REL_L2, ODE_VP_CHECK_TOL),
+                (ODE_VE_CONFIG, ODE_REL_L2, 1e-5))}
+
+        # -- NCSN v1: sampling, the forward, training -------------------------
+        v1 = get_continuous_config(NATURAL_V1_CONFIG)
+        s = v1.sampling
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fk.LAUNCHES.clear()
+        fl.LAUNCHES.clear()
+        sampler_s = []
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        with timed_sampler(pc_sampling, sampler_s):
+            samples, nfe, _ = run_pc_sampling(pc_sampling, [
+                "--config", NATURAL_V1_CONFIG, "--num_samples",
+                str(NATURAL_SAMPLES), "--seed", "0", "--save_dir",
+                os.path.join(root, "v1")] + dev_flag)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        no_kernel_launches(fk, fl, "NCSN v1 sampling")
+        v1_evals = v1.model.num_scales * s.n_steps_each
+        if samples.shape != (NATURAL_SAMPLES, 32, 32, 3) or \
+                not np.isfinite(samples).all() or \
+                nfe != v1.model.num_scales * (s.n_steps_each + 1):
+            raise AssertionError(f"NCSN v1 samples {samples.shape}, finite "
+                                 f"{np.isfinite(samples).all()}, nfe {nfe}")
+        out["v1_sample"] = dict(printed_nfe=nfe, evals=v1_evals,
+                                sampler_s=sampler_s[0],
+                                evals_per_s=v1_evals / sampler_s[0],
+                                wall_s=wall, setup_s=wall - sampler_s[0],
+                                peak=torch.cuda.max_memory_allocated())
+
+        model = seeded_weights(create_model(v1), seed=0).eval()
+        out["v1_params"] = sum(p.numel() for p in model.parameters())
+        xs = torch.rand(NATURAL_SAMPLES, 3, 32, 32, generator=gen).to(device)
+        ys = torch.zeros(NATURAL_SAMPLES, dtype=torch.long, device=device)
+        with torch.no_grad():
+            model.to(device)
+            out["v1_sample"]["forward_device_ms"], \
+                out["v1_sample"]["forward_host_ms"] = cuda_ms(
+                    lambda: model(xs, ys), reps=10, host=True)
+        model.cpu()
+        out["v1_forward_card_vs_cpu"] = forward_card_vs_cpu(
+            model, torch.rand(2, 3, 32, 32, generator=gen),
+            torch.tensor([0, v1.model.num_classes - 1]), device)
+        if not out["v1_forward_card_vs_cpu"] <= MODEL_REL_L2:
+            raise AssertionError(f"NCSN v1 forward card vs CPU: rel L2 "
+                                 f"{out['v1_forward_card_vs_cpu']}")
+
+        sde = make_sde(v1)
+        w0 = {n: v.detach().cpu().clone()
+              for n, v in model.state_dict().items()}
+        model.to(device).train()
+        state = TrainState.create(model, get_optimizer(v1),
+                                  ema_decay=v1.model.ema_rate)
+        step = make_continuous_score_train_step(
+            model, sde, continuous=False,
+            reduce_mean=v1.training.reduce_mean)
+        B = v1.training.batch_size
+        data = np.random.RandomState(0).rand(
+            B * NATURAL_V1_STEPS, 32, 32, 3).astype(np.float32)
+        seconds, losses = [], []
+
+        def recorded_step(state, batch, generator):
+            torch.cuda.synchronize()
+            t_step = time.perf_counter()
+            state, loss = step(state, batch, generator)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t_step)
+            losses.append(float(loss))
+            return state, loss
+
+        fk.LAUNCHES.clear()
+        fl.LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats()
+        state = fit(state, recorded_step, batch_iterator(data, B, seed=0),
+                    FitConfig(n_epochs=1, max_steps=NATURAL_V1_STEPS,
+                              log_every=1, seed=0,
+                              log_dir=os.path.join(root, "v1_train")))
+        torch.cuda.synchronize()
+        no_kernel_launches(fk, fl, "NCSN v1 training")
+        if state.step != NATURAL_V1_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"NCSN v1 training: step {state.step}, "
+                                 f"losses {losses}")
+        s_step = float(np.mean(seconds[1:]))
+        out["v1_train"] = dict(batch=B, steps=state.step, losses=losses,
+                               s_per_step=s_step, images_per_s=B / s_step,
+                               first_step_s=seconds[0],
+                               peak=torch.cuda.max_memory_allocated())
+        del state, step, model
+        torch.cuda.empty_cache()
+
+        x1 = torch.rand(2, 32, 32, 3, generator=gen)
+        t1 = torch.rand(2, generator=gen) * (sde.T - 1e-5) + 1e-5
+        z1 = torch.randn(2, 32, 32, 3, generator=gen)
+        results = []
+        with float32_exact():
+            for dev in (device, "cpu"):
+                net = create_model(v1)
+                net.load_state_dict(w0)
+                net.to(dev)
+                st = TrainState.create(net, get_optimizer(v1),
+                                       ema_decay=None)
+                stp = make_continuous_score_train_step(
+                    net, sde, continuous=False,
+                    reduce_mean=v1.training.reduce_mean)
+                _, loss = stp(st, x1, t=t1.to(dev), z=z1.to(dev))
+                results.append((loss.item(), torch.cat([
+                    p.grad.reshape(-1).cpu() for p in net.parameters()
+                    if p.grad is not None])))
+                del net, st, stp
+        (loss_card, g_card), (loss_cpu, g_cpu) = results
+        step_check = dict(loss_rel=abs(loss_card - loss_cpu) / abs(loss_cpu),
+                          grad_rel_l2=rel_l2(g_card, g_cpu))
+        if not (step_check["loss_rel"] <= MODEL_REL_L2
+                and step_check["grad_rel_l2"] <= MODEL_REL_L2):
+            raise AssertionError(f"NCSN v1 train step card vs CPU: "
+                                 f"{step_check}")
+        out["v1_step_card_vs_cpu"] = step_check
+
+        # -- the natural-image discrete configs -------------------------------
+        data_root = os.path.join(root, "no_data")
+        os.makedirs(data_root)
+        celeba = load_config("CELEBA")
+        rec = {}
+        fk.LAUNCHES.clear()
+        fl.LAUNCHES.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        with timed_fit(train_ncsn, rec, "end_conv.bias"), warnings_quiet():
+            state = train_ncsn.main([
+                "--ds_name", "CELEBA", "--device", str(device), "--log_dir",
+                os.path.join(root, "celeba"), "--data_root", data_root,
+                "--seed", "0", "--override",
+                f"training.n_iters={NATURAL_TRAIN_STEPS}"])
+        torch.cuda.synchronize()
+        no_kernel_launches(fk, fl, "train_ncsn CELEBA")
+        if state.step != NATURAL_TRAIN_STEPS or \
+                not np.isfinite(rec["losses"]).all():
+            raise AssertionError(f"CELEBA training: step {state.step}, "
+                                 f"losses {rec['losses']}")
+        s_step = float(np.mean(rec["step_s"][1:]))
+        B = celeba.training.batch_size
+        out["celeba_train"] = dict(
+            net=type(state.model).__name__, batch=B, steps=state.step,
+            image_size=celeba.data.image_size, s_per_step=s_step,
+            images_per_s=B / s_step, first_step_s=rec["step_s"][0],
+            first_step_peak=rec["first_peak"],
+            steady_peak=torch.cuda.max_memory_allocated(),
+            wall_s=time.perf_counter() - t_run, losses=rec["losses"],
+            params=sum(p.numel() for p in state.model.parameters()))
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    cifar = load_config("CIFAR10")
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    r = timed_cli(uncond, [
+        "--seed", "0", "--device", str(device), "--ds_name", "CIFAR10",
+        "--num_samples", str(NATURAL_UNCOND_SAMPLES), "--override",
+        f"model.num_classes={NATURAL_UNCOND_LEVELS}"],
+        name="ald_unconditional_sampler", metrics=False)
+    no_kernel_launches(fk, fl, "unconditioned_sampling CIFAR10")
+    samples = r.pop("recons")
+    del r["call"]
+    if samples.shape != (NATURAL_UNCOND_SAMPLES, 32, 32, 3) or \
+            not np.isfinite(samples).all():
+        raise AssertionError(f"CIFAR10 samples {samples.shape}")
+    r["evals"] = (NATURAL_UNCOND_LEVELS * cifar.sampling.n_steps_each
+                  + int(cifar.sampling.denoise))
+    r["evals_per_s"] = r["evals"] / r["sampler_s"]
+    out["cifar10_sample"] = r
+    return out
+
+
+def report_natural(nt: dict, t: float) -> None:
+    ode, tiny = nt["ode"], nt["ode_tiny_card_vs_cpu"]
+    v1s, v1t = nt["v1_sample"], nt["v1_train"]
+    ce, cs = nt["celeba_train"], nt["cifar10_sample"]
+    say("natural", t, f"ODE: pc_sampling --method ode {NATURAL_ODE_CONFIG} "
+        f"(full width, seeded), {NATURAL_SAMPLES} samples: printed nfe "
+        f"{ode['printed_nfe']} (sde.N), {ode['evals']} score evaluations, "
+        f"{ode['steps']} steps ({ode['accepted']} accepted, "
+        f"{ode['rejected']} rejected; one host read each), "
+        f"{ode['evals_per_s']:.2f} evaluations/s (sampler "
+        f"{ode['sampler_s']:.2f} s, wall {ode['wall_s']:.2f} s), peak "
+        f"{ode['peak']} bytes, launches {ode['launches']} (per evaluation "
+        f"{ode['launches_per_eval']}); a forward at batch "
+        f"{NATURAL_SAMPLES} {ode['forward_device_ms']:.2f} ms on the card, "
+        f"{ode['forward_host_ms']:.2f} ms to enqueue; the integrator alone "
+        f"{ode['integrator_ms_per_step']:.2f} ms a step; K1/K2 at every "
+        f"call of a forward "
+        f"{nt['ode_kernel_calls']} within {KERNEL_RTOL} rtol (max_abs_err "
+        f"{ {n: s['err'] for n, s in nt['ode_kernels'].items()} }); tiny "
+        f"ODE card vs CPU {json.dumps(tiny)}. NCSN v1 "
+        f"({nt['v1_params']} params): {NATURAL_V1_CONFIG} sampling "
+        f"{v1s['evals']} evaluations at {v1s['evals_per_s']:.2f}/s, peak "
+        f"{v1s['peak']}, a forward at batch {NATURAL_SAMPLES} "
+        f"{v1s['forward_device_ms']:.2f} ms on the card, "
+        f"{v1s['forward_host_ms']:.2f} ms to enqueue; forward card vs CPU "
+        f"{nt['v1_forward_card_vs_cpu']:.3g}; training batch {v1t['batch']} "
+        f"{v1t['s_per_step']:.4f} s/step ({v1t['images_per_s']:.2f} "
+        f"images/s), peak {v1t['peak']}, losses "
+        f"{[round(v, 2) for v in v1t['losses']]}; step card vs CPU "
+        f"{json.dumps(nt['v1_step_card_vs_cpu'])}. train_ncsn CELEBA "
+        f"({ce['net']}, {ce['image_size']} px, batch {ce['batch']}) "
+        f"{ce['s_per_step']:.4f} s/step ({ce['images_per_s']:.2f} images/s),"
+        f" peaks {ce['first_step_peak']} / {ce['steady_peak']}; "
+        f"unconditioned_sampling CIFAR10 ({NATURAL_UNCOND_SAMPLES} chains, "
+        f"{NATURAL_UNCOND_LEVELS} levels) {cs['evals_per_s']:.2f} "
+        f"evaluations/s, peak {cs['peak']}; no K1/K2/K4 launch but the ODE "
+        f"path's")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4284,6 +4777,14 @@ def main() -> None:
         f"{len(FLR_SHAPES)} shapes in float32 (rtol {KERNEL_RTOL}) and bf16 "
         f"(1 bf16 ulp of the largest |value|; elements that differ at all "
         f"{json.dumps(flr_diff)}); launches {launches['flr_op']}")
+
+    # 18. natural (run here, before any profiler session: PERF.md §7) ------
+    t = time.perf_counter()
+    nt = natural_phase(fk, fl)
+    launches["natural ode"] = nt["ode"]["launches"]
+    for path in ("v1_sample", "v1_train", "celeba_train", "cifar10_sample"):
+        launches[f"natural {path}"] = {}
+    report_natural(nt, t)
 
     # 4. model ----------------------------------------------------------------
     t = time.perf_counter()
@@ -4614,7 +5115,8 @@ def main() -> None:
                   f"npz encoding {r['npz_encode_s']:.4f} s"
                   if "normal_kernel_s" in r else ""), flush=True)
     say("serve", t, f"serve_recon.build_engine + serving.server at the recon "
-        f"geometry, 3 requests over HTTP per engine (default operator; new "
+        f"geometry ({SERVE_LEVELS} of 2311 levels), 3 requests over HTTP per "
+        f"engine (default operator; new "
         f"R = {ACDC_R} mask, lr_scaled 3.0; new coil maps) and one "
         f"in-process: f32 "
         f"{srv['f32']['in_process']['chain_steps_per_s']:.2f} chain-steps/s "
@@ -4703,13 +5205,16 @@ def main() -> None:
     gd = guided_phase(fk, fl)
     launches["guided"] = {}
     report_guided(gd, t)
+
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "sense": sn,
                       "map_tv": mt, "serve": srv, "cine": cine,
                       "cine_complex": cc, "train_ncsn": tn,
                       "train_bf16": tb, "sample_vp": sv,
-                      "quickstart_3d": qs, "guided": gd}, default=str),
-          flush=True)
+                      "quickstart_3d": qs, "guided": gd, "natural": nt},
+                     default=str), flush=True)
 
+    for name, row in nt["ode_kernels"].items():
+        summary[name]["err"] = max(summary[name]["err"], row["err"])
     kernels = []
     for name in FIR_TAGS + [f"{n}.bf16" for n in FIR_TAGS] + FLR_TAGS:
         s = summary[name]
@@ -4730,7 +5235,9 @@ def main() -> None:
                 key: s8[key] for key in ("ms", "ms_with_host", "plain_ms",
                                          "library_ms", "bound_ms")}
         for key, table in ((f"vp_batch{VP_TRAIN_BATCH}", summary_vp),
-                           (f"vp_batch{VP_SAMPLES}", summary_vp16)):
+                           (f"vp_batch{VP_SAMPLES}", summary_vp16),
+                           (f"ode_batch{NATURAL_SAMPLES}",
+                            nt["ode_kernels"])):
             if name in table:
                 kernels[-1][key] = {k: table[name][k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "err")}

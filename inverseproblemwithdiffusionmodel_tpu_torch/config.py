@@ -64,16 +64,14 @@ def load_config(ds_name: str, mode: str = "real-valued", **overrides: Any
     """A dataset config, as the JAX package's `load_config` reads it from
     its YAML file. mode == "complex" sets two input channels (real and
     imaginary stacked). Extra keyword args are dotted-key overrides, e.g.
-    ``**{"model.ngf": 32}``. Ported: ACDC, CINE127, CINE127_1D, CINE64,
-    CINE64_1D, MNIST and SanityCheck1D (configs_discrete.DATASETS); others
-    raise."""
+    ``**{"model.ngf": 32}``. The fourteen dataset names of the JAX
+    package (configs_discrete.DATASETS); another name raises KeyError."""
     from .configs_discrete import DATASETS
     if mode not in DATA_MODES:
         raise ValueError(f"unknown data mode {mode!r}; one of {DATA_MODES}")
     if ds_name not in DATASETS:
-        raise NotImplementedError(
-            f"dataset config {ds_name!r} is not ported yet (ROADMAP: Slice "
-            f"E); ported: {sorted(DATASETS)}")
+        raise KeyError(f"unknown dataset {ds_name!r}; one of "
+                       f"{sorted(DATASETS)}")
     config = Config(copy.deepcopy(DATASETS[ds_name]))
     if mode == "complex":
         config.data.channels = 2

@@ -1,18 +1,21 @@
-"""Dataset loaders of the discrete training path: MNIST (IDX files),
-ACDC .npz slices, the CINE .mat volumes (frames or pixel tubes) and the
-synthetic SanityCheck1D signals.
+"""Dataset loaders: MNIST (IDX files), CIFAR-10 (pickle batches), image
+folders (CelebA, LSUN, FFHQ), ACDC .npz slices, the CINE .mat volumes
+(frames or pixel tubes) and the synthetic SanityCheck1D signals.
 
 A copy of the numpy code of inverseproblemwithdiffusionmodel_tpu/data/
 datasets.py (`ArrayDataset`, `REGISTERED_DATA_ROOT_DIR`, `_read_idx`,
-`synthetic_digits` and `load_mnist` :84-131, `synthetic_cine` and
+`synthetic_digits` and `load_mnist` :84-131, `load_cifar10` :138,
+`synthetic_rgb` :166, `load_image_folder` :187, `synthetic_cine` and
 `load_cine` :243-366, `load_tissue_data`, `synthetic_acdc_slice` and
-`load_acdc` :392-456, `load_sanity_check_1d` :460, `load_data` :523-575;
-reference: helpers/load_data.py:55-298); the port imports nothing of the
-JAX package. Roots come from the IPDM_DATA_ROOT environment variable or
-arguments. Where the files are absent a loader warns and falls back to a
-seeded synthetic stand-in of the same shapes; `data_provenance()` says
-which datasets this process loaded through `load_data` and from which
-source. CIFAR-10 and the image folders are not ported (ROADMAP: Slice E).
+`load_acdc` :392-456, `load_sanity_check_1d` :460, the provenance wrappers
+and `load_data` :523-586; reference: helpers/load_data.py:55-298); the
+port imports nothing of the JAX package. Roots come from the
+IPDM_DATA_ROOT environment variable or arguments. Where the files are
+absent a loader warns and falls back to a seeded synthetic stand-in of the
+same shapes; `data_provenance()` says which datasets this process loaded
+(through `load_data` or a loader called directly) and from which source.
+Pillow is imported only where an image folder holds images, as in the
+JAX package: the stand-ins need none.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import glob
 import os
 import warnings
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -31,11 +34,17 @@ DATA_ROOT = os.environ.get("IPDM_DATA_ROOT", os.path.expanduser("~/data"))
 
 REGISTERED_DATA_ROOT_DIR = {
     "MNIST": os.path.join(DATA_ROOT, "mnist"),
+    "CIFAR10": os.path.join(DATA_ROOT, "cifar10"),
     "CINE64": os.path.join(DATA_ROOT, "cine_64"),
     "CINE64_1D": os.path.join(DATA_ROOT, "cine_64"),
     "CINE127": os.path.join(DATA_ROOT, "cine_127"),
     "CINE127_1D": os.path.join(DATA_ROOT, "cine_127"),
     "ACDC": os.path.join(DATA_ROOT, "ACDC_slices"),
+    "CELEBA": os.path.join(DATA_ROOT, "celeba"),
+    "BEDROOM": os.path.join(DATA_ROOT, "lsun", "bedroom"),
+    "CHURCH": os.path.join(DATA_ROOT, "lsun", "church_outdoor"),
+    "TOWER": os.path.join(DATA_ROOT, "lsun", "tower"),
+    "FFHQ": os.path.join(DATA_ROOT, "ffhq"),
 }
 
 
@@ -72,7 +81,7 @@ def _warn_synthetic(name: str, root: str):
 
 
 # ---------------------------------------------------------------------------
-# MNIST (reference: load_data.py:95-108)
+# MNIST, CIFAR10 and image folders (reference: load_data.py:95-122)
 # ---------------------------------------------------------------------------
 
 def _read_idx(path: str) -> np.ndarray:
@@ -130,6 +139,104 @@ def load_mnist(root_dir: Optional[str] = None, mode: str = "train",
     if size != xs.shape[1]:
         xs = np.stack([T.resize(x[None], (size, size))[0] for x in xs])
     return ArrayDataset(xs[..., None], ys)
+
+
+def load_cifar10(root_dir: Optional[str] = None, mode: str = "train",
+                 **_) -> ArrayDataset:
+    """CIFAR-10 (reference: load_data.py:110-122): the python-pickle
+    batches under <root>/cifar-10-batches-py if present (data_batch_1..5
+    for train, test_batch otherwise), else 2048 / 256 seeded uniform
+    stand-ins; (N, 32, 32, 3) float32 in [0, 1] and int64 labels."""
+    assert mode in ("train", "val", "test")
+    root = root_dir or REGISTERED_DATA_ROOT_DIR["CIFAR10"]
+    batch_dir = os.path.join(root, "cifar-10-batches-py")
+    if not os.path.isdir(batch_dir):
+        _warn_synthetic("CIFAR10", root)
+        rng = np.random.RandomState(0 if mode == "train" else 1)
+        n = 2048 if mode == "train" else 256
+        xs = rng.rand(n, 32, 32, 3).astype(np.float32)
+        ys = rng.randint(0, 10, n)
+        return ArrayDataset(xs, ys)
+    import pickle
+    names = [f"data_batch_{i}" for i in range(1, 6)] if mode == "train" \
+        else ["test_batch"]
+    data, labels = [], []
+    for nm in names:
+        with open(os.path.join(batch_dir, nm), "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        data.append(d[b"data"])
+        labels.extend(d[b"labels"])
+    xs = np.concatenate(data).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return ArrayDataset(xs.astype(np.float32) / 255.0,
+                        np.asarray(labels, np.int64))
+
+
+def synthetic_rgb(n: int, size: int, seed: int = 0) -> np.ndarray:
+    """Smooth RGB stand-ins (N, size, size, 3) in [0, 1] for the
+    natural-image recipes (CelebA, LSUN, FFHQ): six Gaussian blobs of
+    random colour per image, normalized to a maximum of 1."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    out = np.empty((n, size, size, 3), np.float32)
+    for i in range(n):
+        img = np.zeros((size, size, 3), np.float32)
+        for _ in range(6):
+            cx, cy = rng.rand(2)
+            sx, sy = 0.08 + 0.3 * rng.rand(2)
+            blob = np.exp(-((xx - cx) ** 2 / (2 * sx ** 2)
+                            + (yy - cy) ** 2 / (2 * sy ** 2)))
+            img += blob[..., None] * rng.rand(3)
+        img /= max(img.max(), 1e-6)
+        out[i] = img
+    return out
+
+
+def load_image_folder(root_dir: str, mode: str = "train", size: int = 64,
+                      name: str = "images", **_) -> ArrayDataset:
+    """A natural-image folder (CelebA, LSUN categories, FFHQ): every png /
+    jpg / jpeg / webp file under root_dir, sorted by path, center-cropped
+    to a square and resized bilinearly to (size, size) RGB in [0, 1]. The
+    last tenth (at least 2 files, leaving train one) is held out, its
+    first half val and its second half test. An empty or absent folder
+    gives `synthetic_rgb` stand-ins (2048 train, 256 otherwise); Pillow is
+    imported only to read files."""
+    assert mode in ("train", "val", "test")
+    exts = (".png", ".jpg", ".jpeg", ".webp")
+    files: List[str] = []
+    if os.path.isdir(root_dir):
+        for dirpath, _dirs, names in os.walk(root_dir):
+            files.extend(os.path.join(dirpath, f) for f in names
+                         if f.lower().endswith(exts))
+    files.sort()
+    if not files:
+        _warn_synthetic(name, root_dir)
+        n = 2048 if mode == "train" else 256
+        return ArrayDataset(
+            synthetic_rgb(n, size, seed=0 if mode == "train" else 1))
+    n_hold = min(max(2, len(files) // 10), max(len(files) - 1, 0))
+    if n_hold == 0:     # a single file serves every split, with a warning
+        _warn_synthetic(name + " (single file; no held-out split)", root_dir)
+    elif mode == "train":
+        files = files[:-n_hold]
+    else:
+        hold = files[-n_hold:]
+        if len(hold) < 2:
+            files = hold    # val and test share the one held-out file
+        else:
+            half = len(hold) // 2
+            files = hold[:half] if mode == "val" else hold[half:]
+    from PIL import Image
+    xs = np.empty((len(files), size, size, 3), np.float32)
+    for i, path in enumerate(files):
+        with Image.open(path) as im:
+            im = im.convert("RGB")
+            w, h = im.size
+            s = min(w, h)
+            im = im.crop(((w - s) // 2, (h - s) // 2,
+                          (w + s) // 2, (h + s) // 2))
+            im = im.resize((size, size), Image.BILINEAR)
+            xs[i] = np.asarray(im, np.float32) / 255.0
+    return ArrayDataset(xs)
 
 
 # ---------------------------------------------------------------------------
@@ -386,7 +493,61 @@ def _load_data(ds_name: str, mode: str = "train", **kwargs) -> ArrayDataset:
         kwargs.setdefault("seed", 0 if train else 10)
         kwargs.setdefault("num_samples", 1000 if train else 300)
         return load_sanity_check_1d(**kwargs)
-    raise NotImplementedError(
-        f"dataset {ds_name!r} is not ported yet (ROADMAP: Slice E); ported: "
-        f"MNIST, ACDC, CINE64, CINE127, CINE64_1D, CINE127_1D, "
-        f"SanityCheck1D")
+    if ds_name in ("CIFAR10", "NCSN_ORIGINAL"):
+        # NCSN_ORIGINAL is NCSN v1's CIFAR-10 recipe (its config's
+        # data.dataset); the JAX package's load_data has no branch for it
+        return load_cifar10(mode=mode, **kwargs)
+    if ds_name in ("CELEBA", "BEDROOM", "CHURCH", "TOWER", "FFHQ"):
+        root = kwargs.pop("root_dir", REGISTERED_DATA_ROOT_DIR[ds_name])
+        kwargs.setdefault("size", {"CELEBA": 64, "BEDROOM": 128,
+                                   "CHURCH": 64, "TOWER": 128,
+                                   "FFHQ": 256}[ds_name])
+        return load_image_folder(root, mode=mode, name=ds_name, **kwargs)
+    raise KeyError(f"unknown dataset {ds_name!r}")
+
+
+def _wrap_provenance(fn, name: str):
+    """A loader that records its own `<name>/<mode>` provenance when called
+    directly (scripts call load_cine etc. without load_data)."""
+    import functools
+    import inspect
+
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        prev = _SYNTH_FLAG["v"]
+        _SYNTH_FLAG["v"] = False
+        ds = fn(*args, **kwargs)
+        # bind positionally too: every loader takes root_dir first, so a
+        # bare positional "test" is the root, not the mode
+        try:
+            bound = sig.bind_partial(*args, **kwargs).arguments
+        except TypeError:
+            bound = kwargs
+        param = sig.parameters.get("mode")
+        default = ("train" if param is None
+                   or param.default is inspect.Parameter.empty
+                   else param.default)
+        mode = bound.get("mode", default)
+        _PROVENANCE[f"{name}/{mode}"] = {
+            "source": "synthetic" if _SYNTH_FLAG["v"] else "real",
+            "num_items": len(ds)}
+        _SYNTH_FLAG["v"] = _SYNTH_FLAG["v"] or prev
+        return ds
+
+    return wrapper
+
+
+def reset_provenance() -> None:
+    """Clear the provenance map (a long-lived process, at the start of a
+    run, so that saved artifacts name only that run's datasets)."""
+    _PROVENANCE.clear()
+    _SYNTH_FLAG["v"] = False
+
+
+load_mnist = _wrap_provenance(load_mnist, "MNIST")
+load_cifar10 = _wrap_provenance(load_cifar10, "CIFAR10")
+load_cine = _wrap_provenance(load_cine, "CINE")
+load_acdc = _wrap_provenance(load_acdc, "ACDC")
+load_image_folder = _wrap_provenance(load_image_folder, "images")

@@ -4,7 +4,8 @@ or NCDHW.
 Port of inverseproblemwithdiffusionmodel_tpu/models/layers.py: `get_act`,
 `centered_input`, `Conv` (dilation, `pre_pad`), `conv1x1` / `conv3x3`,
 `ConvTranspose`, the pools and `nearest_up_2x`, CRP / RCU / MSF /
-RefineBlock, ConvMeanPool and ResidualBlock (reference:
+RefineBlock, ConvMeanPool, MeanPoolConv, UpsampleConv, ResidualBlock and
+ConditionalResidualBlock (reference:
 ncsn/models/layers.py, layers1d.py, layers3d.py). As in the JAX package
 every block takes `ndim`, the number of spatial axes: 2 for images, 1 for
 the temporal prior's pixel tubes, 3 for the 2D+time volumes of
@@ -286,6 +287,35 @@ class ConvMeanPool(nn.Module):
         return mean_pool_2x(self.Conv_0(x))
 
 
+class MeanPoolConv(nn.Module):
+    """A 2x mean pool, then a conv (reference: layers.py:315-326)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: int = 3, use_bias: bool = True, ndim: int = 2):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, features, kernel_size,
+                           padding=kernel_size // 2, use_bias=use_bias,
+                           ndim=ndim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Conv_0(mean_pool_2x(x))
+
+
+class UpsampleConv(nn.Module):
+    """A 2x nearest-neighbour upsample, then a conv (reference:
+    layers.py:329-341)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: int = 3, use_bias: bool = True, ndim: int = 2):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, features, kernel_size,
+                           padding=kernel_size // 2, use_bias=use_bias,
+                           ndim=ndim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Conv_0(nearest_up_2x(x))
+
+
 class ResidualBlock(_FlaxNamed):
     """Pre-activation residual block (reference: layers.py:401-456).
 
@@ -341,4 +371,28 @@ class ResidualBlock(_FlaxNamed):
         conv1, conv2, shortcut = self.convs
         out = conv1(self.act(self.norm1(x)))
         out = conv2(self.act(self.norm2(out)))
+        return (x if shortcut is None else shortcut(x)) + out
+
+
+class ConditionalResidualBlock(ResidualBlock):
+    """The class-conditional residual block of NCSN v1 (reference:
+    layers.py:344-398): ResidualBlock's convolutions, with norms
+    `normalization(width, num_classes)` called as norm(x, y) on the integer
+    labels y (B,)."""
+
+    def __init__(self, input_dim: int, output_dim: int, normalization,
+                 num_classes: int, act: Callable,
+                 resample: Optional[str] = None,
+                 dilation: Optional[int] = None,
+                 adjust_padding: bool = False, ndim: int = 2):
+        super().__init__(
+            input_dim, output_dim,
+            functools.partial(normalization, num_classes=num_classes), act,
+            resample=resample, dilation=dilation,
+            adjust_padding=adjust_padding, ndim=ndim)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        conv1, conv2, shortcut = self.convs
+        out = conv1(self.act(self.norm1(x, y)))
+        out = conv2(self.act(self.norm2(out, y)))
         return (x if shortcut is None else shortcut(x)) + out

@@ -187,10 +187,14 @@ class NCSNpp(nn.Module):
             used_sigmas = time_cond
             temb = self.fourier_proj(torch.log(used_sigmas))
         else:
-            # an index past the ladder (t * 999 on a ladder cut below 1000
-            # scales) takes its last sigma, as JAX's clamped gather does
-            used_sigmas = self.sigmas[time_cond.long().clamp(
-                max=len(self.sigmas) - 1)]
+            # as JAX's gather: a negative index counts from the end (the
+            # ODE sampler's last step overshoots to t < 0), and an index
+            # past the ladder (t * 999 on a ladder cut below 1000 scales)
+            # is clamped into it
+            n = len(self.sigmas)
+            idx = time_cond.long()
+            used_sigmas = self.sigmas[torch.where(idx < 0, idx + n, idx)
+                                      .clamp(0, n - 1)]
             # The sinusoids are computed in float32 and then take x's dtype,
             # so a bf16 net runs in bf16 throughout (see
             # training/train._mixed_precision_apply).

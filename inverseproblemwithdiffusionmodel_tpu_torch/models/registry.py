@@ -1,9 +1,11 @@
 """Model registry, construction and the score-function adapter.
 
 Port of `create_model`, `get_network`, `build_seg_unet`,
-`build_clf`, `TASK_NAME_TO_MODEL_CTOR`, `load_model` and `make_score_fn`
-from inverseproblemwithdiffusionmodel_tpu/models/registry.py. Ported:
-NCSN++, DDPM, the NCSNv2 family (with the size-suffixed aliases), its 1-D
+`build_clf`, `TASK_NAME_TO_MODEL_CTOR`, `load_model`, `make_score_fn`,
+`make_apply_fn`, `module_takes_train` and `get_model_fn` from
+inverseproblemwithdiffusionmodel_tpu/models/registry.py: the whole
+registry. Registered: NCSN++, DDPM, NCSN v1 (`ncsn`, `ncsn_deeper`), the
+NCSNv2 family (with the size-suffixed aliases), its 1-D
 members (the cine temporal prior, task "Diffusion1D") and UNET1D, the 3-D
 nets (NCSN3D, and NCSN3DShallow for task "Diffusion3D"), the seg UNet and
 the ResNet-18 classifier (task "Clf"); `make_seg_fn` and `make_clf_fn` are
@@ -25,12 +27,13 @@ from .classifier import ResNetClf
 from .ddpm import DDPM
 from .ncsn1d import NCSN1D, NCSN1DDeeper, NCSN1DDeepest, UNET1D
 from .ncsn3d import NCSN3D, NCSN3DShallow, tube_window
+from .ncsn import NCSN, NCSNdeeper, _NCSNFamily
 from .ncsnpp import NCSNpp
 from .ncsnv2 import NCSNv2, NCSNv2Deeper, NCSNv2Deepest, _NCSNv2Family
 from .unet import UNet
 
 _MODELS = {
-    "ncsnpp": NCSNpp, "ddpm": DDPM,
+    "ncsnpp": NCSNpp, "ddpm": DDPM, "ncsn": NCSN, "ncsn_deeper": NCSNdeeper,
     "ncsnv2": NCSNv2, "ncsnv2_deeper": NCSNv2Deeper,
     "ncsnv2_deepest": NCSNv2Deepest,
     "ncsn1d": NCSN1D, "ncsn1d_deeper": NCSN1DDeeper,
@@ -46,8 +49,7 @@ _MODELS = {
 def get_model(name: str):
     if name not in _MODELS:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP: Queue 1); ported: "
-            f"{sorted(_MODELS)}")
+            f"unknown model {name!r}; registered: {sorted(_MODELS)}")
     return _MODELS[name]
 
 
@@ -209,17 +211,60 @@ def make_tube_score_fn_3d(model: torch.nn.Module, sigmas, win: int
     return make_score_fn(model, sigmas)
 
 
+def make_apply_fn(model: torch.nn.Module
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Plain forward `x -> model(x)` (the clf / seg nets), in the model's
+    own layout; `make_clf_fn` / `make_seg_fn` adapt channel-last x."""
+
+    def apply_fn(x: torch.Tensor) -> torch.Tensor:
+        return model(x)
+
+    return apply_fn
+
+
+def module_takes_train(model: torch.nn.Module) -> bool:
+    """Whether the net's output depends on train / eval mode: it holds a
+    dropout layer (NCSN++, DDPM), as the JAX nets whose __call__ takes a
+    `train` flag. The NCSN families and ScoreNet have none."""
+    return any(isinstance(m, torch.nn.Dropout) for m in model.modules())
+
+
+def get_model_fn(model: torch.nn.Module, train: bool = False
+                 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Raw forward `(x, cond) -> model(x, cond)` with the model in train
+    mode (`train`) or eval mode (reference: models/utils.py:97). In train
+    mode the dropout of NCSN++ and DDPM draws from torch's generator at
+    every call (the JAX form draws one mask from its dropout_key); nets
+    without dropout give the same output in both modes."""
+
+    def model_fn(x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        model.train(train)
+        return model(x, cond)
+
+    return model_fn
+
+
+def takes_nchw(model: torch.nn.Module) -> bool:
+    """Whether the net takes NCHW x: the NCSN v1 and NCSNv2 families
+    (NCSN++, DDPM and ScoreNet take channel-last x)."""
+    return isinstance(model, (_NCSNv2Family, _NCSNFamily))
+
+
 def continuous_model_fn(model: torch.nn.Module, config
                         ) -> Callable[[torch.Tensor, torch.Tensor],
                                       torch.Tensor]:
     """The network as the continuous stack's score function calls it,
     `(x, cond) -> output` on channel-last x. NCSN++ and DDPM take that
-    as they are. An NCSNv2-family net (the ve/ncsnv2/* leaves, discrete
-    VE, cond the descending-ladder index) takes NCHW x and sigma values:
+    as they are. An NCSN v1 net (the ve/ncsn/* leaves, discrete VE, cond
+    the descending-ladder index) takes NCHW x and the integer index, as in
+    the JAX package. An NCSNv2-family net (the ve/ncsnv2/* leaves) takes
+    NCHW x and sigma values:
     it runs through make_score_fn on the config's geometric ladder
     sigma_max -> sigma_min of num_scales, so it sees sigmas[cond]. (The
     JAX package hands such a net the integer index itself, which the net
     divides its output by: index 0, at t = T, makes every sample NaN.)"""
+    if isinstance(model, _NCSNFamily):
+        return lambda x, cond: model(to_nchw(x), cond.long()).movedim(1, -1)
     if not isinstance(model, _NCSNv2Family):
         return model
     m = config.model

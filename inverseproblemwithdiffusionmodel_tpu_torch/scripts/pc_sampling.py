@@ -1,10 +1,13 @@
-"""Continuous-stack prior sampling: a leaf's net (NCSN++, DDPM++, DDPM or
-NCSNv2) with its VE, VP or subVP SDE and the PC sampler, on the GPU unless
---device says otherwise, e.g.:
+"""Continuous-stack prior sampling: a leaf's net (NCSN++, DDPM++, DDPM,
+NCSN v1 or NCSNv2) with its VE, VP or subVP SDE and the PC sampler, or the
+probability-flow ODE sampler with --method ode, on the GPU unless --device
+says otherwise, e.g.:
 
   python -m inverseproblemwithdiffusionmodel_tpu_torch.scripts.pc_sampling \\
       --config ve/ffhq_256_ncsnpp_continuous --num_samples 2 \\
       --override model.num_scales=100
+  python -m inverseproblemwithdiffusionmodel_tpu_torch.scripts.pc_sampling \\
+      --config vp/cifar10_ncsnpp_continuous --method ode --num_samples 16
 
 Port of inverseproblemwithdiffusionmodel_tpu/scripts/pc_sampling.py. With
 --ckpt_dir (a training/checkpoint.Checkpointer directory, `<log_dir>/ckpts`
@@ -27,9 +30,11 @@ from ..utils.convert import seeded_weights
 
 def first_cond(config) -> torch.Tensor:
     """The conditioning of the net's first forward, as the JAX main
-    initializes its net with: 0. for a positional embedding (a ladder
-    index, or t * 999), else 1. (a sigma, or a DDPM label). The NCSN v1
-    nets, which take integer labels there, are not ported."""
+    initializes its net with: the integer label 0 for NCSN v1, 0. for a
+    positional embedding (a ladder index, or t * 999), else 1. (a sigma,
+    or a DDPM label)."""
+    if config.model.name in ("ncsn", "ncsn_deeper"):
+        return torch.zeros(1, dtype=torch.int32)
     if config.model.get("embedding_type") == "positional":
         return torch.zeros(1)
     return torch.ones(1)

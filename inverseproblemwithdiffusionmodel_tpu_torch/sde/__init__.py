@@ -1,8 +1,9 @@
 """Continuous-time SDE stack: the VP, subVP and VE SDEs and the
-predictor-corrector sampler."""
+predictor-corrector and probability-flow ODE samplers."""
 from .sde_lib import SDE, ReverseSDE, VESDE, VPSDE, get_ddpm_params, subVPSDE
 from .sampling import (AncestralSamplingPredictor, AnnealedLangevinDynamics,
-                       EulerMaruyamaPredictor, get_corrector, get_pc_sampler,
+                       EulerMaruyamaPredictor, get_corrector,
+                       get_ode_sampler, get_pc_sampler,
                        get_predictor, get_sampling_fn, get_score_fn,
                        LangevinCorrector, NoneCorrector, NonePredictor,
                        ReverseDiffusionPredictor, vanilla_pc_sampler)

@@ -1,10 +1,12 @@
-"""Predictor-corrector sampling for the continuous SDE stack.
+"""Predictor-corrector and probability-flow ODE sampling for the
+continuous SDE stack.
 
-Port of the PC half of inverseproblemwithdiffusionmodel_tpu/sde/sampling.py:
+Port of inverseproblemwithdiffusionmodel_tpu/sde/sampling.py:
 `get_score_fn` (VP, subVP and VE), the Euler-Maruyama, reverse-diffusion,
 ancestral and none predictors, the Langevin, annealed-Langevin (`ald`) and
-none correctors, `get_pc_sampler`, `vanilla_pc_sampler` and
-`get_sampling_fn` (pc; the ODE sampler is not ported).
+none correctors, `get_pc_sampler`, `vanilla_pc_sampler`,
+`get_ode_sampler` (on sde/odeint.py, the JAX package's adaptive
+Dormand-Prince) and `get_sampling_fn` (pc and ode).
 
 Randomness comes from a noise source, a callable `(shape) -> tensor` of
 standard normal draws. The sampler draws from a seeded `torch.Generator` on
@@ -22,6 +24,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from .odeint import odeint
 from .sde_lib import SDE, VESDE, VPSDE, ReverseSDE, Noise, ScoreFn, \
     _expand, linspace_f32, subVPSDE
 from ..utils.device import gaussian_noise
@@ -273,9 +276,60 @@ def vanilla_pc_sampler(score_fn: ScoreFn, sde: SDE, shape, seed: int = 0,
                                                 noise=noise)
 
 
+def get_ode_sampler(
+    sde: SDE,
+    shape: Tuple[int, ...],
+    denoise: bool = False,
+    rtol: float = 1e-5,
+    atol: float = 1e-5,
+    eps: float = 1e-3,
+    inverse_scaler: Callable[[torch.Tensor], torch.Tensor] = lambda x: x,
+    device="cuda",
+):
+    """Build `sampler(score_fn, seed=0, noise=None, x_init=None,
+    stats=None) -> (x, sde.N)`: the probability-flow ODE integrated in s
+    from 0 to T - eps along t = T - s (odeint, rtol / atol), from a prior
+    draw or `x_init`; `denoise` then takes the reverse-diffusion
+    predictor's mean at t = eps. Like the JAX sampler it returns sde.N as
+    its count, not the evaluations it made; `stats` (a dict) receives
+    odeint's counts. Call it under torch.no_grad()."""
+    device = torch.device(device)
+
+    def sampler(score_fn: ScoreFn, seed: int = 0,
+                noise: Optional[Noise] = None,
+                x_init: Optional[torch.Tensor] = None,
+                stats: Optional[dict] = None):
+        if noise is None:
+            noise = gaussian_noise(seed, device)
+        x = sde.prior_sampling(noise, shape) if x_init is None else x_init
+        rsde = sde.reverse(score_fn, probability_flow=True)
+
+        def ode_func(x, s):
+            vec_t = (sde.T - s).reshape(1).repeat(x.shape[0])
+            drift, _ = rsde.sde(x, vec_t)
+            return -drift
+
+        ts = torch.tensor([0.0, sde.T - eps], dtype=torch.float32,
+                          device=device)
+        x = odeint(ode_func, x, ts, rtol=rtol, atol=atol, stats=stats)[-1]
+        if denoise:
+            pred = ReverseDiffusionPredictor(sde=sde, score_fn=score_fn)
+            vec_eps = torch.full((x.shape[0],), eps, dtype=torch.float32,
+                                 device=device)
+            _, x = pred.update_fn(noise, x, vec_eps)
+        return inverse_scaler(x), sde.N
+
+    return sampler
+
+
 def get_sampling_fn(config, sde: SDE, shape, eps: float = 1e-3,
                     inverse_scaler=lambda x: x, device="cuda"):
     method = config.sampling.method.lower()
+    if method == "ode":
+        return get_ode_sampler(sde, shape,
+                               denoise=config.sampling.noise_removal,
+                               eps=eps, inverse_scaler=inverse_scaler,
+                               device=device)
     if method == "pc":
         return get_pc_sampler(
             sde, shape,
@@ -286,6 +340,4 @@ def get_sampling_fn(config, sde: SDE, shape, eps: float = 1e-3,
             probability_flow=config.sampling.probability_flow,
             denoise=config.sampling.noise_removal,
             eps=eps, inverse_scaler=inverse_scaler, device=device)
-    if method == "ode":
-        raise NotImplementedError(f"ODE sampling {_NOT_PORTED}")
     raise ValueError(f"unknown sampling method {config.sampling.method!r}")

@@ -21,7 +21,7 @@ from .state import TrainState
 from ..losses.dsm import anneal_dsm_score_estimation, continuous_dsm_loss
 from ..losses.guidance import (clf_loss_with_perturbation,
                                seg_loss_with_perturbation)
-from ..models.registry import to_nchw
+from ..models.registry import takes_nchw, to_nchw
 from ..sde.sampling import get_score_fn
 from ..utils.misc import collate_batch, filter_batch, stack_parts
 
@@ -196,8 +196,10 @@ def make_continuous_score_train_step(
     compute_dtype=None,
 ) -> TrainStep:
     """Continuous-time DSM train step against the SDE's marginal
-    (reference: helpers/pl_helpers.py:31-96 and helpers/losses.py:7-24), of
-    a net that takes channel-last x (NCSN++, DDPM).
+    (reference: helpers/pl_helpers.py:31-96 and helpers/losses.py:7-24):
+    NCSN++, DDPM and ScoreNet take channel-last x, the NCSN families NCHW
+    (`takes_nchw`); with continuous=False on a VE SDE an NCSN v1 net takes
+    the integer ladder labels, as in the JAX step.
 
     Returns `step(state, batch, generator=None, t=None, z=None, *,
     phi=None, patch=None) -> (state, loss)`. `state` is a TrainState of this `model`;
@@ -217,7 +219,8 @@ def make_continuous_score_train_step(
         raise NotImplementedError("a device mesh (data-parallel training) is "
                                   "not ported yet (ROADMAP: Slice P)")
     score_fn = get_score_fn(sde, _mixed_precision_apply(
-        model, compute_dtype, nchw=False), continuous=continuous)
+        model, compute_dtype, nchw=takes_nchw(model)),
+        continuous=continuous)
 
     def step(state: TrainState, batch, generator: Optional[
             torch.Generator] = None, t: Optional[torch.Tensor] = None,

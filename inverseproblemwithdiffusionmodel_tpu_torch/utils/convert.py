@@ -1,10 +1,11 @@
-"""Weights for the port's NCSN++, NCSNv2 family, 3-D nets, UNET1D, seg
-UNet and classifier: converted from a Flax parameter tree, or drawn from a
-seed.
+"""Weights for the port's NCSN++, NCSN v1, NCSNv2 family, 3-D nets,
+UNET1D, seg UNet, classifier and ScoreNet: converted from a Flax parameter
+tree, or drawn from a seed.
 
 `flax_to_torch_ncsnpp` (NCSN++ and DDPM++), `flax_to_torch_ddpm`,
-`flax_to_torch_ncsnv2`, `flax_to_torch_ncsn3d`, `flax_to_torch_unet1d`,
-`flax_to_torch_unet` and `flax_to_torch_clf` map the JAX package's
+`flax_to_torch_ncsn`, `flax_to_torch_ncsnv2`, `flax_to_torch_ncsn3d`,
+`flax_to_torch_unet1d`, `flax_to_torch_unet`, `flax_to_torch_clf` and
+`flax_to_torch_scorenet` map the JAX package's
 parameters onto the port's state dict, name by name (the port keeps the
 Flax module names):
 
@@ -14,11 +15,15 @@ Flax module names):
   temporal down convolution's (1, 1, 4, I, O) among them);
 - transposed-conv kernels (*k, I, O) -> weight (I, O, *k), no flip: the
   JAX layer flips the kernel itself, as torch's conv_transpose does;
+  Flax's own nn.ConvTranspose (ScoreNet) does not, so its kernel is
+  flipped as well;
 - Dense kernels (in, out) -> Linear weight (out, in);
 - GroupNorm scale / bias -> weight / bias;
 - NIN W / b, the Fourier W, the fused resamplers' Conv2d_0_weight
   (kh, kw, I, O) / Conv2d_0_bias, the InstanceNorm++ alpha / gamma /
-  beta and the PReLU alpha (a scalar) keep name and layout.
+  beta, the conditional norms' gamma_embed / alpha_embed / beta_embed
+  (num_classes, C), BatchNorm's batch_stats mean / var and the PReLU
+  alpha (a scalar) keep name and layout.
 """
 from __future__ import annotations
 
@@ -29,9 +34,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..models import layers, layerspp, ncsn3d, normalization, unet
+from ..models import (layers, layerspp, ncsn3d, normalization, simple,
+                      unet)
 from ..models.registry import (build_clf, build_seg_unet, create_model,
                                get_model, get_network)
+
+_TRANSPOSED = (layers.ConvTranspose, simple.FlaxConvTranspose)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -78,7 +86,7 @@ def _checked(params: Mapping[str, Any], build, what: str
         model = build()
     expected = model.state_dict()
     transposed = {name for name, module in model.named_modules()
-                  if isinstance(module, layers.ConvTranspose)}
+                  if isinstance(module, _TRANSPOSED)}
     state = flax_to_torch(params, transposed)
     for name, value in state.items():
         if name not in expected:
@@ -111,17 +119,65 @@ def flax_to_torch_ddpm(params: Mapping[str, Any], config
     return _checked(params, lambda: create_model(config), "ddpm")
 
 
+def _merged(params: Mapping[str, Any], extra: Optional[Mapping[str, Any]]
+            ) -> Dict[str, Any]:
+    """The params tree with a second tree (batch_stats) merged in."""
+    out = dict(params)
+    for key, value in (extra or {}).items():
+        out[key] = (_merged(out[key], value) if isinstance(value, Mapping)
+                    and key in out else value)
+    return out
+
+
+def flax_to_torch_ncsn(params: Mapping[str, Any], config,
+                       name: Optional[str] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """State dict for an NCSN v1 net (the registry's `name`, "ncsn" or
+    "ncsn_deeper", else `config.model.name`) from the JAX package's params
+    tree of numpy arrays, with every conditional norm's embeddings. (No
+    NCSN v1 net holds a BatchNorm: it has no conditional form; the
+    NCSNv2 family's converter takes batch_stats.) Raises if a name or
+    shape does not match."""
+    name = name or config.model.name
+    if name not in ("ncsn", "ncsn_deeper"):
+        raise ValueError(f"flax_to_torch_ncsn: {name!r} is not an NCSN v1 "
+                         "net")
+    return _checked(params, lambda: get_model(name)(config), name)
+
+
+def flax_to_torch_scorenet(params: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """State dict for ScoreNet from the JAX package's params tree of numpy
+    arrays; the widths, embedding size and channels come from the tree.
+    Flax's nn.ConvTranspose correlates with its kernel unflipped, torch's
+    conv_transpose with the kernel flipped, so the tconv kernels are
+    flipped. Raises if a name or shape does not match."""
+    channels = tuple(int(np.shape(params[f"conv{i}"]["kernel"])[-1])
+                     for i in range(1, 5))
+    embed_dim = int(np.shape(params["embed_dense"]["kernel"])[0])
+    in_channels = int(np.shape(params["conv1"]["kernel"])[2])
+    state = _checked(params, lambda: simple.ScoreNet(
+        lambda t: t, channels, embed_dim, in_channels), "ScoreNet")
+    for i in range(1, 5):
+        key = f"tconv{i}.weight"
+        state[key] = state[key].flip(-2, -1).contiguous()
+    return state
+
+
 def flax_to_torch_ncsnv2(params: Mapping[str, Any], config,
-                         name: Optional[str] = None
+                         name: Optional[str] = None,
+                         batch_stats: Optional[Mapping[str, Any]] = None
                          ) -> Dict[str, torch.Tensor]:
     """State dict for an NCSNv2-family model from the JAX package's params
     tree of numpy arrays (the tree under "params"). The model is the
     registry's `name` (e.g. "ncsnv2_deepest", or "ncsn1d" for the 1-D
     temporal prior), else `config.model.name`
     where the config has one, else the size dispatch of `get_network`
-    (NCSNv2Deepest at 256 px, the ACDC prior). Raises if a name or shape
-    does not match."""
+    (NCSNv2Deepest at 256 px, the ACDC prior). A BatchNorm config takes
+    the `batch_stats` tree too: its running mean and var become the
+    buffers of those names. Raises if a name or shape does not match."""
     name = name or config.model.get("name")
+    params = _merged(params, batch_stats)
     if name is None:
         return _checked(params, lambda: get_network(config),
                         "NCSNv2 family (by image size)")
@@ -183,10 +239,14 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
     std. The model's own init has init_scale 0 on the last conv of each
     block, which makes outputs near zero; these weights give outputs of
     order one.
-    NCSNv2 family (both ranks): the JAX package's init distributions,
-    convolution weights and biases U(+-std_scale / sqrt(fan_in)) (torch's
-    default), InstanceNorm++ and VarianceNorm alpha and gamma N(1, 0.02),
-    beta 0.
+    NCSNv2 family (both ranks) and NCSN v1: the JAX package's init
+    distributions, convolution weights and biases U(+-std_scale /
+    sqrt(fan_in)) (torch's default), InstanceNorm++ and VarianceNorm alpha
+    and gamma N(1, 0.02), beta 0; the conditional norms' gamma_embed and
+    alpha_embed N(1, 0.02), beta_embed 0; BatchNorm scale 1, bias 0 (its
+    running statistics are left as they are).
+    ScoreNet: convolutions as the NCSN family's, Linear layers and
+    GroupNorm as NCSN++'s.
     Seg UNet and UNET1D: convolution and transposed-convolution weights and
     biases U(+-std_scale / sqrt(fan_in)), fan_in = I prod(k) for a
     convolution and O prod(k) for a transposed one (torch's default, the
@@ -212,7 +272,8 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
     with torch.no_grad():
         for name, module in model.named_modules():
             if isinstance(module, (layers.Conv, layers.ConvTranspose,
-                                   ncsn3d.TemporalDownConv)):
+                                   ncsn3d.TemporalDownConv, simple.FlaxConv,
+                                   simple.FlaxConvTranspose)):
                 # weight[0]: (I, *k) of a conv, (O, *k) of a transposed
                 # one
                 bound = std_scale / math.sqrt(module.weight[0].numel())
@@ -227,6 +288,15 @@ def seeded_weights(model: nn.Module, seed: int, std_scale: float = 1.0
                 if isinstance(module, normalization.InstanceNormPlus):
                     draw(module.gamma, 0.02, mean=1.0)
                     module.beta.zero_()
+            elif isinstance(module, normalization._Conditional):
+                for pname, p in module.named_parameters(recurse=False):
+                    if pname == "beta_embed":
+                        p.zero_()
+                    else:
+                        draw(p, 0.02, mean=1.0)
+            elif isinstance(module, normalization._BatchStats):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
             elif isinstance(module, (nn.Conv2d, nn.Linear)):
                 fan_in = module.weight[0].numel()
                 draw(module.weight, std_scale / math.sqrt(fan_in))

@@ -251,10 +251,10 @@ def test_cine_problem_tiles_the_mask_over_the_chains():
 @pytest.mark.parametrize("name", ["cine_SENSE_real_img_2d_time",
                                   "cine_SENSE_real_img_2d_time_MAP"])
 def test_diffusion3d_is_not_ported(tmp_path, name):
-    """Diffusion3D is ported now (tests/test_torch_diffusion3d.py); a
-    dataset config that is not, CIFAR10, still raises before any work."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Diffusion3D is ported now (tests/test_torch_diffusion3d.py); an
+    unknown dataset config still raises before any work."""
+    with pytest.raises(KeyError, match="unknown dataset"):
         SCRIPTS[name].main(["--device", "cpu", "--save_dir", str(tmp_path),
                             "--task_name_T", "Diffusion3D", "--ds_name_T",
-                            "CIFAR10"])
+                            "IMAGENET"])
     assert not list(tmp_path.iterdir())

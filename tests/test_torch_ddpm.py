@@ -1,7 +1,7 @@
 """The port's DDPM and DDPM++ nets and the naive resamplers (models/) against
 the JAX package's, with the JAX parameters drawn with numpy at the shapes
 jax.eval_shape gives and converted by utils/convert.py; every continuous
-leaf but the eight ve/ncsn/* builds and runs; whole PC runs of a DDPM and
+leaf builds and runs; whole PC runs of a DDPM and
 a DDPM++ net, and of the ve/ncsnv2 leaf through the channel-last adapter,
 fed the JAX sampler's noise.
 
@@ -192,13 +192,12 @@ def test_biggan_block_without_fir_matches_jax(up, down):
     _layer(jmod, tmod, _rand(2, 8, 8, 8), (_rand(2, 12, seed=4),))
 
 
-LEAVES = [n for n in list_continuous_configs()
-          if not n.startswith("ve/ncsn/")]
+LEAVES = list_continuous_configs()
 
 
 @pytest.mark.parametrize("leaf", LEAVES)
 def test_every_leaf_builds_and_runs_a_forward(leaf):
-    # all but the eight ve/ncsn/* (NCSN v1, not ported), at the tiny
+    # all 39 leaves (the eight ve/ncsn/* on NCSN v1), at the tiny
     # override, through the score function pc_sampling builds
     cfg = get_continuous_config(leaf).replace(**TINY, **{"model.ngf": 8})
     model = seeded_weights(create_model(cfg), 0).eval()
@@ -215,7 +214,8 @@ def test_every_leaf_builds_and_runs_a_forward(leaf):
 
 
 def test_there_are_31_such_leaves():
-    assert len(LEAVES) == 31 and len(list_continuous_configs()) == 39
+    # 31 leaves before NCSN v1 was ported; all 39 now
+    assert len(LEAVES) == len(list_continuous_configs()) == 39
 
 
 @pytest.mark.parametrize("leaf", ["vp/ddpm/cifar10",

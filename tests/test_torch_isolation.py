@@ -115,6 +115,9 @@ def test_importing_the_port_loads_no_jax_module():
         "train_clf, train_seg, mnist_inv_clf_sampling, "
         "mnist_inv_clf_prox_sampling, mnist_MAP, generate_train_ncsn, "
         "generate_train_seg\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.models import "
+        "ncsn, simple\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.sde import odeint\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -142,7 +145,9 @@ RECON_SCRIPTS = ["acdc_SENSE_real_img",
                  "mnist_inv_clf_prox_sampling", "mnist_MAP"]
 
 
-@pytest.mark.parametrize("script", ["pc_sampling", "profile_forward",
+@pytest.mark.parametrize("script", ["pc_sampling", "pc_sampling --method ode",
+                                    "pc_sampling --config ve/ncsn/cifar10",
+                                    "profile_forward",
                                     "profile_forward --step --bf16",
                                     "serve_recon", "seg_grad_precision",
                                     "train_ncsn",

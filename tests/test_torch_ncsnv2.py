@@ -108,8 +108,8 @@ def test_load_config_overrides_and_refusals():
     over = {"model.ngf": 32, "data.image_size": 64}
     assert load_config("ACDC", "real-imag", **over).to_dict() == \
         jax_load_config("ACDC", "real-imag", **over).to_dict()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        load_config("CIFAR10")
+    with pytest.raises(KeyError, match="unknown dataset"):
+        load_config("IMAGENET")
     with pytest.raises(ValueError, match="data mode"):
         load_config("ACDC", "polar")
 
@@ -224,8 +224,14 @@ def test_normalization_matches(name, jcls, cls):
 
 
 def test_conditional_norms_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        normalization.get_normalization(load_config("ACDC"), conditional=True)
+    # the conditional norms are ported (tests/test_torch_ncsn.py); a name
+    # with no conditional form raises
+    assert normalization.get_normalization(
+        load_config("ACDC"), conditional=True) is \
+        normalization.ConditionalInstanceNormPlus
+    with pytest.raises(NotImplementedError, match="does not exist"):
+        normalization.get_normalization(load_config("ACDC").replace(
+            **{"model.normalization": "BatchNorm"}), conditional=True)
 
 
 def _block_cases():

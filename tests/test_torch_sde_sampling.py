@@ -186,13 +186,13 @@ def test_default_noise_is_seeded():
 
 
 def test_unported_sdes_and_methods_raise():
-    # what is still not ported raises: the ODE sampler and unknown
-    # predictor / corrector names; the VP and subVP SDEs and the
+    # unknown predictor / corrector names raise; the ODE sampler dispatches
+    # (held to JAX in test_torch_ode.py); the VP and subVP SDEs and the
     # Euler-Maruyama predictor build (held to JAX in test_torch_vp_sde.py)
     cfg = get_continuous_config("ve/ffhq_256_ncsnpp_continuous")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_sampling_fn(cfg.replace(**{"sampling.method": "ode"}),
-                        make_sde(cfg), SHAPE, device="cpu")
+    ode = get_sampling_fn(cfg.replace(**{"sampling.method": "ode"}),
+                          make_sde(cfg), SHAPE, device="cpu")
+    assert ode.__qualname__.startswith("get_ode_sampler")
     for kw in ({"predictor": "leapfrog"}, {"corrector": "hmc"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_pc_sampler(make_sde(cfg), SHAPE, device="cpu", **kw)

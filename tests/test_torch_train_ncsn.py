@@ -657,8 +657,8 @@ def test_load_data_equals_jax_on_the_synthetic_stand_ins(tmp_path, name,
 
 
 def test_load_data_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        datasets.load_data("CIFAR10")
+    with pytest.raises(KeyError, match="unknown dataset"):
+        datasets.load_data("IMAGENET")
 
 
 def test_port_configs_keep_the_yaml_training_recipes():
@@ -732,6 +732,6 @@ def test_train_ncsn_temporal_prior_with_every_option(tmp_path):
     assert "filter_th: 0.06" in desc       # the config's data.th
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_ncsn.main(["--ds_name", "ACDC", "--use_mesh"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_ncsn.main(["--ds_name", "CIFAR10", "--device", "cpu"])
+    with pytest.raises(KeyError, match="unknown dataset"):
+        train_ncsn.main(["--ds_name", "IMAGENET", "--device", "cpu"])
     assert not os.path.exists("runs/ACDC_Diffusion_real-valued")

@@ -183,10 +183,12 @@ def test_acdc_npz_slices_load_as_jax_loads_them(tmp_path):
 
 
 def test_loaders_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        datasets.load_data("CIFAR10")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_config("CIFAR10")
+    # all fourteen dataset names are ported (tests/test_torch_natural_
+    # data.py); an unknown one raises
+    with pytest.raises(KeyError, match="unknown dataset"):
+        datasets.load_data("IMAGENET")
+    with pytest.raises(KeyError, match="unknown dataset"):
+        load_config("IMAGENET")
 
 
 # -- ald_unconditional_sampler ------------------------------------------------
