@@ -240,12 +240,33 @@ phases, each printing one line with its own seconds:
    K1 / K2 launches per evaluation, the sampler's evaluations/s, peak; a
    tiny NCSN++ ODEs card vs CPU (VP and VE leaves, the same steps);
    pc_sampling.main on ve/ncsn/cifar10 (NCSN v1, 16 samples, 10 levels x
-   100 ALD steps); the v1 forward card vs CPU; training.fit with the
+   50 ALD steps, cut from the leaf's 100); the v1 forward card vs CPU; training.fit with the
    continuous step on discrete labels at the leaf's batch 128 (5 steps)
    and one step card vs CPU; train_ncsn.main --ds_name CELEBA (64 px, the
    config's batch 128, 5 steps on the synthetic stand-in);
    unconditioned_sampling.main --ds_name CIFAR10 (8 chains, 20 of 232
    levels). Only the ODE path launches K1 / K2 (checked).
+19. int8: the int8 serving mode (ops/quant.py on K5 absmax, K6
+   quantize_s8 and K7 conv_s8s8s32 of ops/csrc/int8conv.cu), run last
+   (int8_phase): K5-K7 against their plain versions bit for bit (the
+   elements that differ counted: amax, scale, codes, int32 sums, the
+   dequantized bf16 output) at every convolution geometry of one
+   full-width NCSNv2Deepest forward at batch 32 (acdc_problem's 16 chains x
+   Re/Im, 113 convolutions) and of one NCSN1D forward at the cine engine's
+   2,048 tubes, each timed device-only (graph_ms, 5 calls replayed twice)
+   beside its bound (int8 operations at 1,979 TOP/s or bytes at 3.35
+   TB/s), the plain version, cuDNN's bf16 convolution of the same shape
+   and F.unfold + torch._int_mm, summed per forward; K7 launches per
+   forward = the convolutions; the int8 score at the first and last level
+   against f32 (float32 mode; <= INT8_VS_F32) and bf16 (not equal), one
+   chain card vs CPU (the CPU side in a thread beside the card's tables),
+   the batch-32 forward in int8, bf16 and f32; then, with the launch
+   counts cleared, serve_recon.build_engine --dtype int8 at the serve
+   phase's geometry and depth (warm-up, 3 requests over HTTP, 1
+   in-process; chain-steps/s beside the serve phase's bf16 engine, peak),
+   a seg-guided int8 engine (1 request), --workload cine --dtype int8 at
+   the cine phase's (warm-up, 1 request over HTTP, 1 in-process; beside
+   the cine phase's bf16 engine): K5-K7 launched, K1, K2 and K4 not.
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -255,9 +276,9 @@ The sampling and training runs themselves use torch's defaults, as a
 user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
 sense, map_tv, serve, cine, cine_complex, train_ncsn, each train_bf16
-run, each sample_vp run, quickstart_3d, guided, and each path of natural)
-and read just after it.
-Any failure raises and exits non-zero. Phases 9 to 18 print their numbers
+run, each sample_vp run, quickstart_3d, guided, each path of natural, and
+the int8 engines) and read just after it.
+Any failure raises and exits non-zero. Phases 9 to 19 print their numbers
 as one JSON line before `total`. The last
 lines are nvidia-smi's name and power limit, a JSON line of per-kernel
 numbers, and
@@ -266,7 +287,11 @@ numbers, and
 gaps; K1's and K2's entries (float32 and bf16) add their batch-8 forward
 sums, and the float32 ones the host's µs per launch and their sums at the
 CIFAR-10 VP shapes (a step at batch 128, a forward at 16, the ODE path's
-forward at 16).
+forward at 16). K5-K7's entries are sums over one NCSNv2Deepest forward at
+batch 32 (`per`), with the NCSN1D forward's sums beside them and, for K7,
+the unfold + _int_mm yardstick; their `plain_ms` is CUDA events around
+the one checking call; their `replaces` is the JAX package's XLA op, not
+a TPU kernel.
 """
 from __future__ import annotations
 
@@ -283,6 +308,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -445,10 +471,23 @@ ODE_VE_CONFIG = "ve/cifar10_ncsnpp_continuous"
 ODE_REL_L2 = 1e-3
 ODE_VP_CHECK_TOL = 1e-6
 NATURAL_V1_CONFIG = "ve/ncsn/cifar10"
+NATURAL_V1_STEPS_EACH = 50       # ALD steps a level: of the leaf's 100, cut
+                                 # in PR 17 to keep the smoke within its time
 NATURAL_V1_STEPS = 5             # training.fit at the leaf's batch 128
 NATURAL_TRAIN_STEPS = 5          # train_ncsn --ds_name CELEBA at 128
 NATURAL_UNCOND_SAMPLES = 8
 NATURAL_UNCOND_LEVELS = 20       # of CIFAR10's 232
+# The int8 serving mode (ops/quant.py; K5-K7 of ops/csrc/int8conv.cu)
+INT8_VS_F32 = 0.15         # int8 score vs float32: the JAX test's bound
+                           # (tests/test_quant.py); also card vs CPU in
+                           # int8, whose nets part by the int8 error itself
+                           # (tests/test_torch_int8.py)
+INT8_OPS_PER_S = 1979e12   # H100 SXM data sheet, int8 tensor cores, dense
+INT8_INT_MM_MAX_BYTES = 8 * 2 ** 30   # the unfold + _int_mm yardstick's A
+INT8_TAGS = ("absmax", "quantize_s8", "conv_s8s8s32")
+QUANT = "inverseproblemwithdiffusionmodel_tpu/ops/quant.py"
+INT8_REPLACES = {"absmax": f"{QUANT}:93", "quantize_s8": f"{QUANT}:93",
+                 "conv_s8s8s32": f"{QUANT}:102"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM data sheet, float32 outside tensor cores
 PALLAS = "inverseproblemwithdiffusionmodel_tpu/ops/pallas_kernels.py"
@@ -4262,8 +4301,8 @@ def natural_phase(fk, fl, device="cuda") -> dict:
     ODE_VP_CHECK_TOL, and a VE leaf at 1e-5, each gated at ODE_REL_L2.
 
     NCSN v1 (NATURAL_V1_CONFIG, ngf 128, 32 px): pc_sampling.main at
-    NATURAL_SAMPLES samples over the leaf's whole 10 levels x 100 ALD
-    steps; the forward at batch 2 card vs CPU (float32 mode); training.fit
+    NATURAL_SAMPLES samples over the leaf's 10 levels x NATURAL_V1_STEPS_EACH
+    ALD steps (of its 100); the forward at batch 2 card vs CPU (float32 mode); training.fit
     with make_continuous_score_train_step(continuous=False) at the leaf's
     batch 128 for NATURAL_V1_STEPS steps on seeded images, and one step at
     batch 2 card vs CPU (float32 mode: loss and gradients at
@@ -4397,7 +4436,8 @@ def natural_phase(fk, fl, device="cuda") -> dict:
                 (ODE_VE_CONFIG, ODE_REL_L2, 1e-5))}
 
         # -- NCSN v1: sampling, the forward, training -------------------------
-        v1 = get_continuous_config(NATURAL_V1_CONFIG)
+        v1 = get_continuous_config(NATURAL_V1_CONFIG).replace(
+            **{"sampling.n_steps_each": NATURAL_V1_STEPS_EACH})
         s = v1.sampling
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4409,8 +4449,9 @@ def natural_phase(fk, fl, device="cuda") -> dict:
         with timed_sampler(pc_sampling, sampler_s):
             samples, nfe, _ = run_pc_sampling(pc_sampling, [
                 "--config", NATURAL_V1_CONFIG, "--num_samples",
-                str(NATURAL_SAMPLES), "--seed", "0", "--save_dir",
-                os.path.join(root, "v1")] + dev_flag)
+                str(NATURAL_SAMPLES), "--seed", "0", "--override",
+                f"sampling.n_steps_each={NATURAL_V1_STEPS_EACH}",
+                "--save_dir", os.path.join(root, "v1")] + dev_flag)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_run
         no_kernel_launches(fk, fl, "NCSN v1 sampling")
@@ -4611,6 +4652,476 @@ def report_natural(nt: dict, t: float) -> None:
         f"path's")
 
 
+# -- 19. int8: the int8 serving mode on K5-K7 --------------------------------
+
+def bound_int8(bytes_moved: float, ops: float) -> dict:
+    """bound() with the operations at the int8 tensor cores' dense rate."""
+    bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT8_OPS_PER_S
+    return dict(bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def int8_sites(net, run) -> tuple:
+    """Run `run()` once with a pre-hook on every int8 layers.Conv of
+    `net`: per distinct geometry (input shape, weight shape, padding,
+    dilation, pre-pad, rank) the first input seen, its conv and the number
+    of calls; and the number of conv calls in all."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.layers import Conv
+    sites, calls = {}, [0]
+
+    def hook(m, args):
+        x = args[0]
+        key = (tuple(x.shape), tuple(m.quant.codes.shape), m.padding,
+               m.dilation, m.pre_pad, m.ndim)
+        calls[0] += 1
+        if key in sites:
+            sites[key]["count"] += 1
+        else:
+            sites[key] = dict(conv=m, x=x, count=1)
+
+    handles = [m.register_forward_pre_hook(hook) for m in net.modules()
+               if isinstance(m, Conv) and m.quant is not None]
+    try:
+        with torch.inference_mode():
+            run()
+    finally:
+        for h in handles:
+            h.remove()
+    return sites, calls[0]
+
+
+def int_mm_fns(codes4, qw, g):
+    """The yardstick F.unfold + torch._int_mm (cuBLASLt int8) at K7's
+    geometry: (unfold and GEMM, the GEMM alone on a prepared A, its int32
+    sums (N, O, Ho, Wo)), or None where A would exceed
+    INT8_INT_MM_MAX_BYTES or the padding is not symmetric."""
+    K = g.KH * g.KW * g.Cp
+    M = g.N * g.Ho * g.Wo
+    if M * K > INT8_INT_MM_MAX_BYTES or (g.pad_h, g.pad_w) != (
+            g.pad_h_hi, g.pad_w_hi):
+        return None
+    xf = codes4.permute(0, 3, 1, 2).to(torch.bfloat16)   # codes are exact
+    o8 = -(-g.O // 8) * 8
+    b = torch.zeros(o8, K, dtype=torch.int8, device=codes4.device)
+    b[:g.O] = qw.kernel.permute(0, 3, 1, 2).reshape(g.O, K)
+    bt = b.t()
+
+    def a_of():
+        cols = F.unfold(xf, (g.KH, g.KW), dilation=g.dil,
+                        padding=(g.pad_h, g.pad_w))
+        return cols.transpose(1, 2).reshape(M, K).to(torch.int8)
+
+    a = a_of()
+    sums = torch._int_mm(a, bt)[:, :g.O].reshape(
+        g.N, g.Ho * g.Wo, g.O).permute(0, 2, 1).reshape(
+            g.N, g.O, g.Ho, g.Wo)
+    return (lambda: torch._int_mm(a_of(), bt),
+            lambda: torch._int_mm(a, bt), sums)
+
+
+def int8_site_numbers(ik, quant, site) -> dict:
+    """K5, K6 and K7 at one convolution of a forward, on its real input:
+    each against its plain version bit for bit (the elements that differ
+    counted: amax, scale, codes, int32 sums, dequantized output), timed
+    device-only (graph_ms) beside the plain version (CUDA events around
+    the checking call) and the yardsticks: max |x| by
+    torch.linalg.vector_norm (K5), cuDNN's bf16 convolution of the same
+    shape and F.unfold + torch._int_mm (K7). Device-only times are
+    graph_ms of 5 calls replayed twice (the phase times 29 geometries of
+    ms-scale calls: 20 x 5 would cost half a minute more)."""
+    m, x = site["conv"], site["x"]
+    qw = m.quant
+    g = quant.geometry(x, qw, m.padding, m.dilation, m.ndim, m.pre_pad)
+    ev = lambda: (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+
+    def events_ms(fn):
+        s, e = ev()
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        return out, s.elapsed_time(e)
+
+    amax = ik.absmax(x)
+    amax_p, k5_plain_ms = events_ms(lambda: ik.absmax_plain(x))
+    codes, sx = ik.quantize_s8(x, amax, g.Cp)
+    (codes_p, sx_p), k6_plain_ms = events_ms(
+        lambda: ik.quantize_s8_plain(x, amax_p, g.Cp))
+    codes4 = codes.reshape(g.N, g.H, g.W, g.Cp)
+    out, sums = ik.conv_s8s8s32(codes4, sx, qw.kernel, qw.scale, g, x.dtype,
+                                with_sums=True)
+    (out_p, sums_p), k7_plain_ms = events_ms(
+        lambda: ik.conv_s8s8s32_plain(codes_p.reshape(codes4.shape), sx_p,
+                                      qw.kernel, qw.scale, g, x.dtype,
+                                      with_sums=True))
+    errs = dict(k5=(amax - amax_p).abs().max().item(),
+                k6=(codes.int() - codes_p.int()).abs().max().item(),
+                k7=(out.float() - out_p.float()).abs().max().item())
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    differ = dict(
+        absmax=int((amax != amax_p).sum()), scale=int((sx != sx_p).sum()),
+        codes=int((codes != codes_p).sum()),
+        sums=int((sums != sums_p).sum()),
+        out=int((out.view(bits) != out_p.view(bits)).sum()))
+    w = m.weight
+    pad = (lambda v: F.pad(v, tuple(m.pre_pad) * m.ndim)) if m.pre_pad \
+        else (lambda v: v)
+    conv = F.conv1d if m.ndim == 1 else F.conv2d
+    cudnn = lambda: conv(pad(x), w, None, 1, m.padding, m.dilation)
+    dev_ms = lambda fn: graph_ms(fn, reps=5, replays=2)
+    int_mm = int_mm_fns(codes4, qw, g)
+    row = dict(
+        N=g.N, C=g.C, H=g.H, W=g.W, O=g.O, k=g.KW, dil=g.dil, ndim=m.ndim,
+        count=site["count"], differ=differ, err=errs,
+        k5=dict(ms=dev_ms(lambda: ik.absmax(x)), plain_ms=k5_plain_ms,
+                library_ms=dev_ms(lambda: torch.linalg.vector_norm(
+                    x, float("inf"))),
+                **bound(x.numel() * x.element_size(), x.numel())),
+        k6=dict(ms=dev_ms(lambda: ik.quantize_s8(x, amax, g.Cp)),
+                plain_ms=k6_plain_ms, library_ms=None,
+                **bound(x.numel() * (x.element_size() + 1), 3 * x.numel())),
+        k7=dict(ms=dev_ms(lambda: ik.conv_s8s8s32(
+            codes4, sx, qw.kernel, qw.scale, g, x.dtype)),
+            plain_ms=k7_plain_ms, library_ms=dev_ms(cudnn),
+            int_mm_ms=None, int_mm_gemm_ms=None, ops=g.ops(),
+            **bound_int8(g.N * g.H * g.W * g.C + g.O * g.C * g.KH * g.KW
+                         + g.N * g.O * g.Ho * g.Wo * x.element_size(),
+                         g.ops())))
+    if int_mm is not None:
+        full, gemm, mm_sums = int_mm
+        if not torch.equal(mm_sums, sums):
+            raise AssertionError(f"int8 yardstick _int_mm at {row}: other "
+                                 "sums than K7's")
+        row["k7"]["int_mm_ms"] = events_ms(full)[1]   # warmed in int_mm_fns
+        row["k7"]["int_mm_gemm_ms"] = dev_ms(gemm)
+    if any(differ.values()):
+        raise AssertionError(f"int8 kernels differ from their plain versions "
+                             f"at C={g.C} H={g.H} W={g.W} O={g.O} k={g.KW} "
+                             f"dil={g.dil} ndim={m.ndim}: {differ}")
+    return row
+
+
+def int8_forward_table(ik, quant, net, run, what: str) -> dict:
+    """Every convolution geometry of one forward `run()` of the int8 `net`:
+    the rows of int8_site_numbers and their sums per forward (each row
+    times its calls)."""
+    sites, calls = int8_sites(net, run)
+    with torch.inference_mode():
+        rows = [int8_site_numbers(ik, quant, s) for s in sites.values()]
+    per = {}
+    for tag in ("k5", "k6", "k7"):
+        tot = {key: sum(r["count"] * (r[tag][key] or 0.0) for r in rows)
+               for key in ("ms", "plain_ms", "bound_ms", "bytes_ms",
+                           "ops_ms")}
+        lib = [r[tag]["library_ms"] for r in rows]
+        tot["library_ms"] = (None if None in lib else sum(
+            r["count"] * r[tag]["library_ms"] for r in rows))
+        tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                           else "operations")
+        tot["err"] = max(r["err"][tag] for r in rows)
+        per[tag] = tot
+    mm = [r["k7"]["int_mm_ms"] for r in rows]
+    per["k7"]["int_mm_ms"] = (None if None in mm else sum(
+        r["count"] * r["k7"]["int_mm_ms"] for r in rows))
+    per["k7"]["int_mm_gemm_ms"] = (None if None in mm else sum(
+        r["count"] * r["k7"]["int_mm_gemm_ms"] for r in rows))
+    per["k7"]["ops"] = sum(r["count"] * r["k7"]["ops"] for r in rows)
+    for r in rows:
+        print(f"    {what} C={r['C']} {r['H']}x{r['W']} O={r['O']} k={r['k']} "
+              f"dil={r['dil']} x{r['count']}: K7 {r['k7']['ms']:.4f} ms "
+              f"(bound {r['k7']['bound_ms']:.4f}, {r['k7']['bound_by']}), "
+              f"cuDNN bf16 {r['k7']['library_ms']:.4f}, unfold+_int_mm "
+              f"{r['k7']['int_mm_ms']}, _int_mm alone "
+              f"{r['k7']['int_mm_gemm_ms']}, plain {r['k7']['plain_ms']:.2f}; "
+              f"K5 {r['k5']['ms']:.4f} (bound {r['k5']['bound_ms']:.4f}); "
+              f"K6 {r['k6']['ms']:.4f} (bound {r['k6']['bound_ms']:.4f}); "
+              f"differ {r['differ']}", flush=True)
+    return dict(convs_per_forward=calls, geometries=len(rows), rows=rows,
+                per_forward=per)
+
+
+def int8_phase(fk, fl, ik, serve_bf16, cine_bf16, device="cuda") -> dict:
+    """The int8 serving mode at full width (ops/quant.py, K5-K7 of
+    ops/csrc/int8conv.cu). K5/K6/K7 against their plain versions bit for
+    bit at every convolution geometry of one NCSNv2Deepest forward (256
+    px, ngf 128, seed 0) at batch 32 (acdc_problem's 16 chains x (Re, Im))
+    and of one NCSN1D forward (CINE127_1D, ngf 128) at the cine engine's
+    tube batch, each timed device-only beside its bound and yardsticks,
+    and summed per forward. The int8 score at the first and last level
+    against float32 (float32 mode) and bf16 on the same weights and input
+    (gate INT8_VS_F32; not equal to bf16); its launches per forward; the
+    batch-32 forward's device ms in int8, bf16 and f32; one chain (batch
+    2) card against CPU, the CPU side in a thread beside the card's work
+    (the tables time the card alone). Then the main path:
+    serve_recon.build_engine --dtype int8 at acdc_problem's geometry,
+    SERVE_LEVELS levels (warm-up, 3 requests over HTTP, 1 in-process),
+    beside the serve phase's bf16 engine of the same geometry and depth
+    in this run (`serve_bf16`, its numbers), a seg-guided int8 engine (1
+    request), --workload cine --dtype int8 at the cine phase's geometry
+    (warm-up, 1 request over HTTP, 1 in-process; beside the cine phase's
+    bf16 chain-steps/s, `cine_bf16`), with the launch counts cleared
+    before and read after: K5-K7 launched, K1, K2 and K4 not."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import NCSN1D
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        load_model, make_score_fn, to_nchw)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.fourier import (
+        MASK_PRESETS, _exp_sens_map)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.masks import (
+        generate_mask)
+    from inverseproblemwithdiffusionmodel_tpu_torch.ops import quant
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        sigma_ladder)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        serve_recon)
+    from inverseproblemwithdiffusionmodel_tpu_torch.serving import (
+        ReconstructionEngine)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.profiling import (
+        timed)
+    numbers = {}
+    cfg, model_cpu = acdc_model()
+    model = copy.deepcopy(model_cpu).to(device)
+    sigmas = torch.as_tensor(np.asarray(sigma_ladder(
+        cfg.model.sigma_begin, cfg.model.sigma_end, ACDC_LEVELS,
+        "geometric")), dtype=torch.float32)
+    size = cfg.data.image_size
+    gen = torch.Generator().manual_seed(0)
+    nb = 2 * ACDC_CHAINS
+    xb = torch.rand(nb, size, size, 1, generator=gen).to(device)
+    lb = (torch.arange(nb) % ACDC_LEVELS).to(device)
+    bf = torch.bfloat16
+    # one chain (Re, Im) at the first and last level: the CPU's int8 score
+    # in a thread while the card works
+    x2 = torch.rand(2, size, size, 1, generator=gen)
+    l2 = torch.tensor([0, ACDC_LEVELS - 1])
+    cpu_side = {}
+
+    def cpu_int8():
+        try:
+            t_cpu = time.perf_counter()
+            with torch.inference_mode():
+                cpu_side["q8"] = make_score_fn(model_cpu, sigmas, "int8")(
+                    x2, l2)
+            cpu_side["s"] = time.perf_counter() - t_cpu
+        except BaseException as err:     # re-raised on the main thread
+            cpu_side["error"] = err
+
+    worker = threading.Thread(target=cpu_int8)
+    worker.start()
+
+    # K5-K7 at every geometry of one full-width forward of each net
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    net = quant.enable_int8(copy.deepcopy(model).to(bf))
+    sig_bf = sigmas.to(device, bf)
+    numbers["ncsnv2"] = int8_forward_table(
+        ik, quant, net, lambda: net(to_nchw(xb).to(bf), sig_bf[lb]),
+        "ncsnv2 b32")
+    ik.LAUNCHES.clear()
+    with torch.inference_mode():
+        net(to_nchw(xb).to(bf), sig_bf[lb])
+    torch.cuda.synchronize()
+    n = numbers["ncsnv2"]
+    n["launches_per_forward"] = dict(ik.LAUNCHES)
+    if n["launches_per_forward"] != {tag: n["convs_per_forward"]
+                                     for tag in INT8_TAGS}:
+        raise AssertionError(f"int8 forward launched "
+                             f"{n['launches_per_forward']}, expected "
+                             f"{n['convs_per_forward']} of each")
+    del net
+    cfg_t = load_config("CINE127_1D", "real-imag")
+    net_t = quant.enable_int8(
+        seeded_weights(NCSN1D(cfg_t), seed=0).to(device, bf))
+    tubes = 2 * CINE_CHAINS * (128 // CINE_WIN) ** 2
+    xt = torch.randn(tubes, cfg_t.data.channels, cfg_t.data.image_size,
+                     generator=gen).to(device, bf)
+    st = torch.full((tubes,), 0.5, device=device, dtype=bf)
+    numbers["ncsn1d"] = int8_forward_table(ik, quant, net_t,
+                                           lambda: net_t(xt, st),
+                                           f"ncsn1d b{tubes}")
+    del net_t
+    torch.cuda.empty_cache()
+
+    # the net: int8 vs f32 and bf16 at the first and last level, batch 2
+    with torch.inference_mode():
+        with float32_exact():
+            f32 = make_score_fn(model, sigmas)(x2.to(device), l2.to(device))
+        b16 = make_score_fn(model, sigmas, bf)(x2.to(device), l2.to(device))
+        q8 = make_score_fn(model, sigmas, "int8")(x2.to(device),
+                                                   l2.to(device))
+        torch.cuda.synchronize()
+    worker.join()
+    if "error" in cpu_side:
+        raise cpu_side["error"]
+    q8_cpu, cpu_s = cpu_side["q8"], cpu_side["s"]
+    net_checks = dict(
+        int8_vs_f32=rel_l2(q8.cpu(), f32.cpu()),
+        bf16_vs_f32=rel_l2(b16.cpu(), f32.cpu()),
+        int8_vs_bf16=rel_l2(q8.cpu(), b16.cpu()),
+        int8_card_vs_cpu=rel_l2(q8.cpu(), q8_cpu),
+        cpu_int8_vs_f32=rel_l2(q8_cpu, f32.cpu()),
+        cpu_s=cpu_s)
+    numbers["net"] = net_checks
+    if not (torch.isfinite(q8).all() and q8.dtype == torch.float32
+            and net_checks["int8_vs_f32"] <= INT8_VS_F32
+            and not torch.equal(q8, b16)
+            and net_checks["int8_card_vs_cpu"] <= INT8_VS_F32):
+        raise AssertionError(f"int8 score: {net_checks}")
+    # the batch-32 forward in each mode, device ms
+    fwd = {}
+    with torch.inference_mode():
+        for name, dtype in (("f32", None), ("bf16", bf), ("int8", "int8")):
+            score = make_score_fn(model, sigmas, dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = timed(score, xb, lb, warmup=1, iters=3)
+            fwd[name] = dict(ms=1e3 * t["mean_s"], best_ms=1e3 * t["best_s"],
+                             peak=torch.cuda.max_memory_allocated())
+            del score, t
+    numbers["forward_b32"] = fwd
+    del model, model_cpu
+    torch.cuda.empty_cache()
+
+    # the main path: the int8 engines, counts cleared just before
+    lin_tfm, proximal, sig_s, yr, yi = acdc_problem(cfg, device,
+                                                    SERVE_LEVELS)
+    y_re, y_im = (v[:, 0].cpu().numpy() for v in (yr, yi))
+    mask1 = generate_mask(1, size, seed=1, **MASK_PRESETS[ACDC_R])
+    maps = np.stack([_exp_sens_map(size, size, 10 + i)
+                     for i in range(ACDC_COILS)])
+    maps = (maps / np.sqrt((maps ** 2).sum(axis=0, keepdims=True)))[..., None]
+    requests = [("seed=0", dict(y_re=y_re, y_im=y_im)),
+                ("seed=1&lr_scaled=3.0", dict(y_re=y_re, y_im=y_im,
+                                              mask=mask1)),
+                ("seed=2", dict(y_re=y_re, y_im=y_im, sens_re=maps))]
+    chain_steps = SERVE_LEVELS * cfg.sampling.n_steps_each * ACDC_CHAINS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in (ik.LAUNCHES, fk.LAUNCHES, fl.LAUNCHES):
+        counter.clear()
+    t_build = time.perf_counter()
+    eng = serve_recon.build_engine(serve_recon.parse_args(serve_argv("int8")))
+    build_s = time.perf_counter() - t_build
+    warmup_s = eng.warmup()
+    served = serve_requests(eng, requests, chain_steps)
+    res = eng.reconstruct(y_re, y_im, seed=3)
+    if not (np.isfinite(res.x_re).all() and np.isfinite(res.x_im).all()):
+        raise AssertionError("int8 engine: in-process request not finite")
+    engines = dict(
+        bf16=serve_bf16,
+        int8=dict(build_s=build_s, warmup_s=warmup_s, **served,
+                  in_process=dict(latency_s=res.latency_s,
+                                  chain_steps_per_s=res.chain_steps_per_s),
+                  peak=torch.cuda.max_memory_allocated()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seg_cpu, _ = load_model(None, "Seg", seed=0)
+    spec = dataclasses.replace(eng.spec, seg_lamda=1.0, seg_start_time=0.0)
+    guided = ReconstructionEngine(
+        eng.model, eng.sigmas, spec=spec,
+        mask=eng.default_lin_tfm.mask.cpu().numpy(),
+        sens_re=eng.default_lin_tfm.sens_re.cpu().numpy(),
+        seg_model=seg_cpu, device=device)
+    res = guided.reconstruct(y_re, y_im, seed=3, seg_label=disk_label(size))
+    if not np.isfinite(res.x_re).all():
+        raise AssertionError("guided int8 engine: not finite")
+    engines["guided_int8"] = dict(
+        in_process=dict(latency_s=res.latency_s,
+                        chain_steps_per_s=res.chain_steps_per_s),
+        peak=torch.cuda.max_memory_allocated())
+    del guided, seg_cpu, eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cine_cfg = load_config("CINE127", "real-imag")
+    _, _, yc_re, yc_im = cine_problem(cine_cfg.data.image_size, CINE_FRAMES)
+    eng = serve_recon.build_engine(serve_recon.parse_args(cine_argv("int8")))
+    warmup_s = eng.warmup()
+    cine_steps = CINE_SERVE_LEVELS * cine_cfg.sampling.n_steps_each \
+        * CINE_CHAINS
+    served = serve_requests(eng, [("seed=0", dict(y_re=yc_re, y_im=yc_im))],
+                            cine_steps)
+    res = eng.reconstruct(yc_re, yc_im, seed=3, lamda_T=CINE_LAMDA_T)
+    torch.cuda.synchronize()
+    if not (np.isfinite(res.x_re).all() and np.isfinite(res.x_im).all()):
+        raise AssertionError("cine int8 engine: in-process request not "
+                             "finite")
+    engines["cine_int8"] = dict(
+        warmup_s=warmup_s, **served,
+        in_process=dict(latency_s=res.latency_s,
+                        chain_steps_per_s=res.chain_steps_per_s),
+        peak=torch.cuda.max_memory_allocated(),
+        bf16_chain_steps_per_s=cine_bf16)
+    del eng
+    launches = dict(ik.LAUNCHES)
+    fir = {**fk.LAUNCHES, **fl.LAUNCHES}
+    numbers["engines"] = engines
+    numbers["launches"] = launches
+    per_fwd = numbers["ncsnv2"]["convs_per_forward"]
+    if (any(fir.values()) or sorted(launches) != sorted(INT8_TAGS)
+            or min(launches.values()) <= 0):
+        raise AssertionError(f"int8 engines launched {launches} of K5-K7 "
+                             f"and {fir} of K1/K2/K4")
+    numbers["reduced"] = (f"ACDC {SERVE_LEVELS} of 2311 levels; cine "
+                          f"{CINE_SERVE_LEVELS} of 1000 levels, "
+                          f"{CINE_CHAINS} chains")
+    numbers["ncsnv2_convs_per_forward"] = per_fwd
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def report_int8(q: dict, t: float) -> None:
+    for name in ("ncsnv2", "ncsn1d"):
+        n = q[name]
+        for tag, label in (("k5", "K5 absmax"), ("k6", "K6 quantize_s8"),
+                           ("k7", "K7 conv_s8s8s32")):
+            p = n["per_forward"][tag]
+            extra = (f", cuDNN bf16 {p['library_ms']:.4f}, unfold+_int_mm "
+                     f"{p['int_mm_ms']}, _int_mm alone {p['int_mm_gemm_ms']}"
+                     f", {p['ops'] / p['ms'] / 1e9:.1f} TOP/s"
+                     if tag == "k7" else
+                     f", library {p['library_ms']}")
+            print(f"    {name}: {label} per forward ({n['convs_per_forward']} "
+                  f"convolutions, {n['geometries']} geometries): "
+                  f"{p['ms']:.4f} ms, bound {p['bound_ms']:.4f} "
+                  f"({p['bound_by']}, {p['bound_ms'] / p['ms']:.3f} of it), "
+                  f"plain {p['plain_ms']:.2f}{extra}", flush=True)
+    e = q["engines"]
+    for name in ("bf16", "int8"):
+        r = e[name]
+        http = ", ".join(f"{x['query']}: {x['chain_steps_per_s']:.2f}"
+                         for x in r["requests"])
+        print(f"    engine {name}{' (the serve phase)' * (name == 'bf16')}: "
+              f"build {r['build_s']:.2f} s, warm-up {r['warmup_s']:.2f} s; "
+              f"chain-steps/s over HTTP {http}; in-process "
+              f"{r['in_process']['chain_steps_per_s']:.2f}; peak {r['peak']} "
+              f"bytes", flush=True)
+    fw = q["forward_b32"]
+    say("int8", t, f"K5-K7 equal their plain versions bit for bit at all "
+        f"{q['ncsnv2']['geometries']} NCSNv2Deepest geometries (batch 32) "
+        f"and {q['ncsn1d']['geometries']} NCSN1D ones; K7 launches per "
+        f"forward {q['ncsnv2']['launches_per_forward']} = the "
+        f"{q['ncsnv2']['convs_per_forward']} convolutions; forward at batch "
+        f"32: int8 {fw['int8']['ms']:.2f} ms, bf16 {fw['bf16']['ms']:.2f}, "
+        f"f32 {fw['f32']['ms']:.2f}; the net (batch 2, first and last level) "
+        f"{json.dumps(q['net'])} (int8 vs f32 <= {INT8_VS_F32}); engines "
+        f"in-process chain-steps/s: bf16 "
+        f"{e['bf16']['in_process']['chain_steps_per_s']:.2f}, int8 "
+        f"{e['int8']['in_process']['chain_steps_per_s']:.2f}, guided int8 "
+        f"{e['guided_int8']['in_process']['chain_steps_per_s']:.2f}, cine "
+        f"int8 {e['cine_int8']['in_process']['chain_steps_per_s']:.2f} "
+        f"(cine bf16 {e['cine_int8']['bf16_chain_steps_per_s']:.2f}); "
+        f"reduced: {q['reduced']}; launches {q['launches']}; no K1/K2/K4 "
+        f"launch")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4622,7 +5133,7 @@ def main() -> None:
     from inverseproblemwithdiffusionmodel_tpu_torch.models import create_model
     from inverseproblemwithdiffusionmodel_tpu_torch.ops import _build
     from inverseproblemwithdiffusionmodel_tpu_torch.ops import (
-        fir_kernels as fk, flr_kernels as fl)
+        fir_kernels as fk, flr_kernels as fl, int8_kernels as ik)
     from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
         pc_sampling)
     from inverseproblemwithdiffusionmodel_tpu_torch.sde import (
@@ -5206,12 +5717,18 @@ def main() -> None:
     launches["guided"] = {}
     report_guided(gd, t)
 
+    # 19. int8 ----------------------------------------------------------------
+    t = time.perf_counter()
+    q8 = int8_phase(fk, fl, ik, srv["bf16"],
+                    cine["bf16"]["in_process"]["chain_steps_per_s"])
+    report_int8(q8, t)
+
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "sense": sn,
                       "map_tv": mt, "serve": srv, "cine": cine,
                       "cine_complex": cc, "train_ncsn": tn,
                       "train_bf16": tb, "sample_vp": sv,
-                      "quickstart_3d": qs, "guided": gd, "natural": nt},
-                     default=str), flush=True)
+                      "quickstart_3d": qs, "guided": gd, "natural": nt,
+                      "int8": q8}, default=str), flush=True)
 
     for name, row in nt["ode_kernels"].items():
         summary[name]["err"] = max(summary[name]["err"], row["err"])
@@ -5243,6 +5760,23 @@ def main() -> None:
                     "ms", "plain_ms", "library_ms", "bound_ms", "err")}
         if name in host_us:
             kernels[-1]["host_us_per_launch"] = host_us[name]
+    for tag, key in zip(INT8_TAGS, ("k5", "k6", "k7")):
+        p, p1d = (q8[net]["per_forward"][key] for net in ("ncsnv2", "ncsn1d"))
+        kernels.append({
+            "name": f"int8_{tag}", "route": "cuda",
+            "source": f"{CSRC}/int8conv.cu", "replaces": INT8_REPLACES[tag],
+            "replaces_note": "an XLA op in the JAX package, not a TPU kernel",
+            "launches": q8["launches"][tag],
+            "launches_by_path": {"int8": q8["launches"][tag]},
+            "max_abs_err": max(p["err"], p1d["err"]), "ms": p["ms"],
+            "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+            "bound_by": p["bound_by"], "library_ms": p["library_ms"],
+            "per": "one NCSNv2Deepest forward at batch 32",
+            "ncsn1d_forward": {k: p1d[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "err")}})
+        if key == "k7":
+            kernels[-1].update(int_mm_ms=p["int_mm_ms"],
+                               int_mm_gemm_ms=p["int_mm_gemm_ms"])
     say("total", t0, "all phases passed")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

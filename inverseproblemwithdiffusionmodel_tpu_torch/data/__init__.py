@@ -7,11 +7,12 @@ from .datasets import (ArrayDataset, REGISTERED_DATA_ROOT_DIR,
                        load_data, load_image_folder, load_mnist,
                        load_sanity_check_1d, load_tissue_data,
                        reset_provenance, synthetic_acdc_slice,
-                       synthetic_cine, synthetic_digits, synthetic_rgb)
+                       synthetic_cine, synthetic_digits, synthetic_rgb,
+                       vol2slice)
 
 __all__ = ["ArrayDataset", "REGISTERED_DATA_ROOT_DIR", "data_provenance",
            "load_acdc", "load_cifar10", "load_cine", "load_data",
            "load_image_folder", "load_mnist", "load_sanity_check_1d",
            "load_tissue_data", "reset_provenance", "synthetic_acdc_slice",
            "synthetic_cine", "synthetic_digits", "synthetic_rgb",
-           "transforms"]
+           "transforms", "vol2slice"]

@@ -6,8 +6,8 @@ A copy of the numpy code of inverseproblemwithdiffusionmodel_tpu/data/
 datasets.py (`ArrayDataset`, `REGISTERED_DATA_ROOT_DIR`, `_read_idx`,
 `synthetic_digits` and `load_mnist` :84-131, `load_cifar10` :138,
 `synthetic_rgb` :166, `load_image_folder` :187, `synthetic_cine` and
-`load_cine` :243-366, `load_tissue_data`, `synthetic_acdc_slice` and
-`load_acdc` :392-456, `load_sanity_check_1d` :460, the provenance wrappers
+`load_cine` :243-366, `load_tissue_data`, `vol2slice`,
+`synthetic_acdc_slice` and `load_acdc` :369-456, `load_sanity_check_1d` :460, the provenance wrappers
 and `load_data` :523-586; reference: helpers/load_data.py:55-298); the
 port imports nothing of the JAX package. Roots come from the
 IPDM_DATA_ROOT environment variable or arguments. Where the files are
@@ -361,6 +361,23 @@ def load_tissue_data(path: str):
     (reference: load_data.py:170-183)."""
     d = np.load(path)
     return (d["image"], d["multiClassMasks"], d["PD"], d["T1"], d["T2"])
+
+
+def vol2slice(root_dir: str, save_dir: str) -> List[str]:
+    """Split each volume .npz of root_dir (image, multiClassMasks, PD, T1,
+    T2, slices on axis 1) into per-slice files `<name>_<s>.npz` in
+    save_dir; returns the paths written (reference: load_data.py:185-203)."""
+    os.makedirs(save_dir, exist_ok=True)
+    written = []
+    for filename in glob.glob(os.path.join(root_dir, "*.npz")):
+        image, mc, PD, T1, T2 = load_tissue_data(filename)
+        base = os.path.basename(filename)[:-len(".npz")]
+        for s in range(image.shape[1]):
+            out = os.path.join(save_dir, f"{base}_{s}.npz")
+            np.savez(out, image=image[:, s], multiClassMasks=mc[:, s],
+                     PD=PD[:, s], T1=T1[:, s], T2=T2[:, s])
+            written.append(out)
+    return written
 
 
 def synthetic_acdc_slice(rng: np.random.RandomState, H: int = 200,

@@ -28,6 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.quant import int8_conv
+
 
 def get_act(config) -> Callable[[torch.Tensor], torch.Tensor]:
     name = config.model.nonlinearity.lower()
@@ -61,7 +63,12 @@ class Conv(nn.Module):
     """N-D convolution (ndim 1, 2 or 3), symmetric padding (kernel_size // 2
     * dilation by default), optional extra zero padding `pre_pad` = (lo,
     hi) per axis. Weight (O, I, *k) and bias (O,), drawn as torch's
-    nn.Conv2d draws them, U(+-1/sqrt(fan_in))."""
+    nn.Conv2d draws them, U(+-1/sqrt(fan_in)).
+
+    `quant`, None by default, holds the weight quantized by
+    ops/quant.enable_int8: the conv then runs ops/quant.int8_conv (the JAX
+    Conv under quantized_convs("int8")) and adds the bias after the
+    dequantization, in x's dtype."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, padding: Optional[int] = None,
@@ -74,6 +81,7 @@ class Conv(nn.Module):
         self.stride, self.dilation, self.pre_pad = stride, dilation, pre_pad
         self.in_channels, self.out_channels = in_features, features
         self.ndim = ndim
+        self.quant = None
         self.weight = nn.Parameter(torch.empty((features, in_features)
                                                + (k,) * ndim))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
@@ -84,6 +92,13 @@ class Conv(nn.Module):
                     p.uniform_(-bound, bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant is not None:
+            out = int8_conv(x, self.quant, stride=self.stride,
+                            padding=self.padding, dilation=self.dilation,
+                            ndim=self.ndim, pre_pad=self.pre_pad)
+            if self.bias is None:
+                return out
+            return out + self.bias.reshape(-1, *[1] * self.ndim)
         if self.pre_pad is not None:
             x = F.pad(x, tuple(self.pre_pad) * self.ndim)
         return _CONV[self.ndim](x, self.weight, self.bias, self.stride,

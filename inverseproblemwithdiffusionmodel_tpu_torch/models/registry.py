@@ -17,7 +17,7 @@ calls it.
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -158,7 +158,7 @@ def make_clf_fn(model: torch.nn.Module
 
 
 def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
-                  compute_dtype: Optional[torch.dtype] = None
+                  compute_dtype: Union[torch.dtype, str, None] = None
                   ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Adapter `(x, labels) -> model(x, sigmas[labels])`, the interface of
     the ALD samplers, for the NCSNv2 family. x is channel-last (B, H, W, C)
@@ -171,16 +171,23 @@ def make_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
 
     compute_dtype=torch.bfloat16 runs the net on a bf16 copy of the weights
     with a bf16 input and sigmas, and casts the score back to float32; the
-    Langevin state stays float32. "int8" (the JAX package's int8 conv
-    mode) is not ported yet.
+    Langevin state stays float32. compute_dtype="int8", the serving mode,
+    is that bf16 copy with every layers.Conv on the int8 path
+    (ops/quant.py): the bf16-cast weights quantized once, here, per output
+    channel; each activation quantized per tensor over the whole batch.
+    The switch is made on the copy only, so other nets that share the
+    layers (the seg UNet of a guided engine) stay as they are. Inference
+    only: the int8 path carries no gradient.
     """
-    if compute_dtype == "int8":
-        raise NotImplementedError("int8 convolutions are not ported yet "
-                                  "(ROADMAP: Slice H)")
     device = next(model.parameters()).device
     sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
     net = model
-    if compute_dtype is not None:
+    if compute_dtype == "int8":
+        from ..ops.quant import enable_int8
+        compute_dtype = torch.bfloat16
+        net = enable_int8(copy.deepcopy(model).to(compute_dtype))
+        sigmas = sigmas.to(compute_dtype)
+    elif compute_dtype is not None:
         net = copy.deepcopy(model).to(compute_dtype)
         sigmas = sigmas.to(compute_dtype)
 

@@ -45,6 +45,16 @@ _ARGTYPES = {
     # csrc/flr.cu: x, bias, g, dx, rows, C, scale, scale * slope, stream.
     "flr_bwd_f32": [_PTR] * 4 + [_I64] * 2 + [_F32] * 2 + [_PTR],
     "flr_bwd_bf16": [_PTR] * 4 + [_I64] * 2 + [_F32] * 2 + [_PTR],
+    # csrc/int8conv.cu K5: x, numel, amax (float32, zeroed), stream.
+    "int8_absmax_f32": [_PTR, _I64, _PTR, _PTR],
+    "int8_absmax_bf16": [_PTR, _I64, _PTR, _PTR],
+    # K6: x (N, C, P) contiguous, amax, codes, scale, N, C, P, Cp, stream.
+    "int8_quantize_f32": [_PTR] * 4 + [_I64] * 4 + [_PTR],
+    "int8_quantize_bf16": [_PTR] * 4 + [_I64] * 4 + [_PTR],
+    # K7: codes, weight codes, scale, weight scales, out, int32 sums (or
+    # null), N, H, W, Cp, O, KH, KW, pad_h, pad_w, dilation, Ho, Wo, stream.
+    "int8_conv_f32": [_PTR] * 6 + [_I64] * 12 + [_PTR],
+    "int8_conv_bf16": [_PTR] * 6 + [_I64] * 12 + [_PTR],
 }
 
 

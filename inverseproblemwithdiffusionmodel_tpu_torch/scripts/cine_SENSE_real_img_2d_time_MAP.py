@@ -9,20 +9,18 @@ cine_SENSE_real_img_2d_time_MAP.py (reference: scripts/
 cine_SENSE_real_img_2d_time_MAP.py, MAPOptimizer2DTime, :160-169). It
 takes the JAX script's flags plus --device and saves the same arrays. The
 cine configs carry no MAP section, so Adam falls back to MAPConfig's
-defaults and --beta1 / --beta2. The JAX script draws a strip of
---num_plot_times frames with matplotlib (utils/visualizations, not ported
-yet: ROADMAP Slice H); this one saves the strip's frame indices and
-magnitudes in temporal_grid.npz of the run's directory and says that the
-PNG is not drawn. --task_name_T Diffusion3D takes the temporal score of a
-3-D net (NCSN3DShallow) on the pixel tubes.
+defaults and --beta1 / --beta2. Like the JAX script it draws a strip of
+--num_plot_times frames of the chains' mean magnitude into
+temporal_grid.png of the run's directory (utils/visualizations;
+matplotlib is imported only then; where it is not installed, the strip
+is skipped with a printed line and the arrays are saved all the same). --task_name_T Diffusion3D takes the
+temporal score of a 3-D net (NCSN3DShallow) on the pixel tubes.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
-
-import numpy as np
 
 from ._common import apply_overrides, add_common_args, save_artifacts, reload_model
 from .cine_SENSE_real_img_2d_time import (cine_metrics, cine_problem,
@@ -126,14 +124,16 @@ def main(argv=None):
                              original=host(x_true),
                              measurement=host(measurement), ZF=host(zf),
                              reconstructions=recon)
-    # the frames of the JAX script's strip (utils/visualizations.
-    # grid_of_temporal_samples), kept as numbers for a later plot
-    frames = np.linspace(0, T - 1, min(args.num_plot_times, T)).astype(int)
-    np.savez(os.path.join(run_dir, "temporal_grid.npz"), frames=frames,
-             magnitudes=host(mag)[frames])
-    print(f"temporal strip: frames {frames.tolist()} saved to "
-          f"temporal_grid.npz; the PNG is not drawn (utils/visualizations "
-          f"is not ported yet: ROADMAP Slice H)")
+    from ..utils.visualizations import grid_of_temporal_samples
+    try:
+        grid_of_temporal_samples(
+            host(mag), num_frames=min(args.num_plot_times, T),
+            save_path=os.path.join(run_dir, "temporal_grid.png"))
+    except ModuleNotFoundError as err:
+        # a card machine may have no matplotlib: keep the reconstruction
+        if err.name != "matplotlib":
+            raise
+        print("matplotlib is not installed: temporal_grid.png not drawn")
     print(f"artifacts -> {run_dir}")
     return recon
 

@@ -19,8 +19,10 @@ in, ensemble mean/std out; serving/server.py has the wire protocol).
 --ckpt_dir, --ckpt_dir_T and --seg_ckpt_dir are training/checkpoint.
 Checkpointer directories; without them the nets take weights drawn from a
 seed, with a loud warning. --seg_ckpt_dir builds a seg-guided 2-D engine.
-Not ported: chain sharding with --data_shards (ROADMAP: parallel/) and
-the int8 dtype (ROADMAP: Slice H); each raises NotImplementedError.
+--dtype int8 runs both workloads' score nets in bf16 with int8
+convolutions (ops/quant.py; on the card K5-K7 of ops/csrc/int8conv.cu).
+Not ported: chain sharding with --data_shards (ROADMAP: parallel/), which
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -99,9 +101,6 @@ def build_engine(args):
         raise NotImplementedError(f"--data_shards {args.data_shards}: chain "
                                   "sharding is not ported yet (ROADMAP: "
                                   "parallel/)")
-    if args.dtype == "int8":
-        raise NotImplementedError("--dtype int8 is not ported yet (ROADMAP: "
-                                  "Slice H)")
     resolve_device(args.device)        # no card: raise before building
     if args.workload == "cine":
         return build_cine_engine(args)

@@ -10,10 +10,10 @@ ALDUnconditionalSampler), with its flags plus --device. --task_name
 Diffusion samples (num_samples, s, s, C) images, Diffusion1D (num_samples,
 T, C) tubes, Diffusion3D (num_samples, win, win, T, C3) volumes, win^2 =
 config.data.channels. The samples go to samples.npy with args.json under a
-timestamped --save_dir directory. --if_save_fig saves the first four 1-D
-signals (signals.npz) and --if_save_as_gif the first sample's (T, H, W)
-volume (sample0_volume.npy), the arrays the JAX script draws; the PNG and
-the GIF wait for utils/visualizations (ROADMAP: Slice H). It prints the
+timestamped --save_dir directory. --if_save_fig draws the first four 1-D
+signals (signals.png) and --if_save_as_gif the first sample's (T, H, W)
+volume as sample0.gif, as the JAX script does (utils/visualizations:
+matplotlib and Pillow, imported only then). It prints the
 sampler's network evaluations per second between CUDA synchronizations
 (the config, model and weight set-up apart) and the wall seconds.
 --use_mesh raises (ROADMAP: Slice P): the chains run on one device.
@@ -34,9 +34,6 @@ from ..models.registry import make_score_fn
 from ..samplers.ald import ALDConfig, ald_unconditional_sampler
 from ..samplers.sigmas import check_ladder_stability, get_sigmas
 from ..utils.device import resolve_device, synchronize
-
-SLICE_H = "utils/visualizations is not ported yet: ROADMAP Slice H"
-
 
 def sample_shape(config, task_name: str, num_samples: int) -> tuple:
     """The channel-last shape the task's net samples (the JAX script's
@@ -62,11 +59,8 @@ def main(argv=None):
     p.add_argument("--step_lr", type=float, default=None)
     p.add_argument("--n_steps_each", "--num_steps_each",
                    type=int, default=None)
-    p.add_argument("--if_save_fig", action="store_true",
-                   help="save the first 1-D signals (the figure's data)")
-    p.add_argument("--if_save_as_gif", action="store_true",
-                   help="save the first sample's (T, H, W) volume (the "
-                        "GIF's frames)")
+    p.add_argument("--if_save_fig", action="store_true")
+    p.add_argument("--if_save_as_gif", action="store_true")
     p.add_argument("--use_mesh", action="store_true")
     args = p.parse_args(argv)
     if args.use_mesh:
@@ -102,11 +96,11 @@ def main(argv=None):
     samples = samples.cpu().numpy()
     run_dir = save_artifacts(args.save_dir, vars(args), samples=samples)
     if args.if_save_fig and samples.ndim == 3:      # (B, T, C) 1-D signals
-        np.savez(os.path.join(run_dir, "signals.npz"),
-                 signals=samples[:min(4, len(samples))])
-        print(f"--if_save_fig: signals saved to signals.npz; the PNG is not "
-              f"drawn ({SLICE_H})")
+        from ..utils.visualizations import vis_signals
+        vis_signals(*[samples[i] for i in range(min(4, len(samples)))],
+                    save_path=os.path.join(run_dir, "signals.png"))
     if args.if_save_as_gif:
+        from ..utils.visualizations import save_vol_as_gif
         vol = None
         if samples.ndim == 5:      # (B, win, win, T, C) 3-D net volumes
             vol = np.moveaxis(samples[0][..., 0], -1, 0)     # (T, H, W)
@@ -115,9 +109,7 @@ def main(argv=None):
             if k * k == samples.shape[-1]:
                 vol = samples[0].reshape(-1, k, k)            # (T, k, k)
         if vol is not None:
-            np.save(os.path.join(run_dir, "sample0_volume.npy"), vol)
-            print(f"--if_save_as_gif: the (T, H, W) volume saved to "
-                  f"sample0_volume.npy; the GIF is not drawn ({SLICE_H})")
+            save_vol_as_gif(vol, os.path.join(run_dir, "sample0.gif"))
         else:
             print("--if_save_as_gif: only 1-D tube or 3-D volume samples "
                   "have a temporal axis to animate; skipped")

@@ -50,7 +50,7 @@ class CineEngineSpec:
     win_size: int = 8
     if_random_shift: bool = False
     prox_iters: int = 4
-    dtype: str = "bf16"        # f32 | bf16 (int8 not ported)
+    dtype: str = "bf16"        # f32 | bf16 | int8
     mode: str = "scan"         # scan | steps: both the host loop here
 
 

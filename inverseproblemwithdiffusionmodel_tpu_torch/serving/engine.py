@@ -19,10 +19,11 @@ serving/engine.py.
 - The chain ensemble is the batch: the single-copy measurement is tiled
   over `chains` rows on the device, and the result is their mean and
   spread.
-- dtype "f32" runs the score net in float32, "bf16" in bf16
-  (models/registry.make_score_fn); the Langevin state, the proximal and
-  the segmentation guidance stay float32. "int8" is not ported
-  (ROADMAP: Slice H).
+- dtype "f32" runs the score net in float32, "bf16" in bf16, "int8" in
+  bf16 with its convolutions in int8 (models/registry.make_score_fn,
+  ops/quant.py; the activation scale spans the whole chain batch); the
+  Langevin state, the proximal and the segmentation guidance stay
+  float32, and the seg net keeps its float32 convolutions.
 - mode "scan" and "steps" are both the host loop over noise levels (the
   JAX package's whole-chain program and its stepped form give equal
   results; the port has only the loop).
@@ -67,7 +68,7 @@ class EngineSpec:
     lr_scaled: float = 5.0     # default data-consistency weight
     denoise: bool = True
     prox_iters: int = 4
-    dtype: str = "bf16"        # f32 | bf16 (int8 not ported)
+    dtype: str = "bf16"        # f32 | bf16 | int8
     mode: str = "scan"         # scan | steps: both the host loop here
     # segmentation guidance (on where the engine has a seg net; reference
     # ramp semantics, ncsn/models/ALD_optimizers.py:23,
@@ -107,7 +108,7 @@ def _make_arg_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
                        dtype: str):
     """The engine's score function for a spec dtype, built once (the JAX
     form takes the params as an argument of the compiled program; here
-    the model holds them). int8 raises NotImplementedError."""
+    the model holds them)."""
     if dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"unknown dtype {dtype!r} (f32|bf16|int8)")
     return make_score_fn(model, sigmas, _COMPUTE_DTYPES[dtype])

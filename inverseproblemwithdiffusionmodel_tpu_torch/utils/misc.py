@@ -1,19 +1,24 @@
 """Batch collation for the training steps, the synthetic phase, the 1-D
-foreground filter, and the Re/Im interleave of the inverse samplers.
+foreground filter, the Re/Im interleave of the inverse samplers, and the
+data scaling and normalization helpers.
 
-Port of `collate_batch`, `add_phase`, `filter_batch`, `stack_parts`,
-`unstack_parts` and `undersample_seg_mask` from
-inverseproblemwithdiffusionmodel_tpu/utils/misc.py (reference:
-helpers/load_data.py:324-440, helpers/utils.py:314-327). The random draws
-(a global phase per sample, a low-resolution phase patch, the kept seg
-pixels) come from a torch.Generator on the batch's device unless they are
-given: tests feed the numbers JAX draws.
+Port of inverseproblemwithdiffusionmodel_tpu/utils/misc.py: `collate_batch`,
+`add_phase`, `filter_batch`, `stack_parts`, `unstack_parts`,
+`undersample_seg_mask` (reference: helpers/load_data.py:324-440,
+helpers/utils.py:314-327), and `expand_like`, `logit_transform`,
+`data_transform`, `inverse_data_scaler`, `normalize`, `denormalize`,
+`normalize_phase`, `compute_angle` (reference: helpers/utils.py:20-36,
+212-226, 276-305, 402-410). The random draws (a global phase per sample, a
+low-resolution phase patch, the kept seg pixels, the dequantization noise)
+come from a torch.Generator on the batch's device unless they are given:
+tests feed the numbers JAX draws.
 """
 from __future__ import annotations
 
 import math
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..config import DATA_MODES as MODES
@@ -144,3 +149,86 @@ def undersample_seg_mask(label: torch.Tensor, fraction: float,
                                                 device=flat.device)
     kept = ((ranks < k) & fg).to(flat.dtype)
     return kept.reshape(label.shape)
+
+
+def expand_like(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(B,) -> (B, 1, ..., 1) matching `like`'s rank."""
+    return v.reshape(v.shape[0], *([1] * (like.ndim - 1)))
+
+
+def logit_transform(image: torch.Tensor, lam: float = 1e-6) -> torch.Tensor:
+    image = lam + (1 - 2 * lam) * image
+    return torch.log(image) - torch.log1p(-image)
+
+
+def data_transform(config, X: torch.Tensor,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """The input scaling pipeline (reference: helpers/utils.py:212-226):
+    uniform then Gaussian dequantization where the config asks for them
+    (drawn from `generator`, on X's device), then 2x - 1 (rescaled) or the
+    logit transform, then the config's `image_mean` subtracted where it
+    has one."""
+    if config.data.uniform_dequantization:
+        X = X / 256.0 * 255.0 + torch.rand(
+            X.shape, generator=generator, dtype=X.dtype,
+            device=X.device) / 256.0
+    if config.data.gaussian_dequantization:
+        X = X + torch.randn(X.shape, generator=generator, dtype=X.dtype,
+                            device=X.device) * 0.01
+    if config.data.rescaled:
+        X = 2 * X - 1.0
+    elif config.data.logit_transform:
+        X = logit_transform(X)
+    image_mean = config.get("image_mean") if hasattr(config, "get") else None
+    if image_mean is not None:
+        X = X - torch.as_tensor(np.asarray(image_mean), dtype=X.dtype,
+                                device=X.device)[None, ...]
+    return X
+
+
+def inverse_data_scaler(is_centered: bool):
+    """(reference: helpers/utils.py:30-36)."""
+    if is_centered:
+        return lambda x: (x + 1.0) / 2.0
+    return lambda x: x
+
+
+def normalize(img: torch.Tensor, low_q: float = 0.02, high_q: float = 0.98,
+              return_q: bool = False):
+    """Quantile normalization to [0, 1], the quantiles linearly
+    interpolated as jnp.quantile's (reference: helpers/utils.py:287-297)."""
+    if not 0 <= low_q < high_q <= 1:
+        raise ValueError(f"quantiles {low_q}, {high_q}: need 0 <= low < "
+                         "high <= 1")
+    flat = img.reshape(-1)
+    low_val, high_val = torch.quantile(
+        flat, torch.tensor([low_q, high_q], dtype=flat.dtype,
+                           device=flat.device))
+    out = torch.clamp((img - low_val) / (high_val - low_val), 0.0, 1.0)
+    if return_q:
+        return out, low_val, high_val
+    return out
+
+
+def denormalize(img: torch.Tensor, a_min: float, a_max: float
+                ) -> torch.Tensor:
+    """(reference: helpers/utils.py:300-305; a_max unused there too)."""
+    lo, hi = img.min(), img.max()
+    return (img - lo) / (hi - lo) + a_min
+
+
+def normalize_phase(x_phase: torch.Tensor) -> torch.Tensor:
+    """(reference: helpers/utils.py:402-410)."""
+    return (x_phase - math.pi) / (2 * math.pi)
+
+
+def compute_angle(img, if_normalize: bool = False) -> np.ndarray:
+    """Phase map of a complex image, optionally min-max normalized; host
+    numpy (reference: helpers/utils.py:276-285)."""
+    img = img.cpu().numpy() if isinstance(img, torch.Tensor) else img
+    angle = np.angle(np.asarray(img))
+    if if_normalize:
+        angle = angle - angle.min()
+        angle = angle / angle.max()
+    return angle

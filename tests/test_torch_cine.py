@@ -583,13 +583,19 @@ def test_engine_requests_and_shapes(setup):
     sig = torch.tensor(np.asarray(SIG))
     with pytest.raises(ValueError, match="temporal score model"):
         CineReconstructionEngine(s["netS"], sig, **base)
-    for kw, err, match in ((dict(dtype="int8"), NotImplementedError,
-                            "Slice H"),
-                           (dict(mode="graph"), ValueError, "mode")):
-        with pytest.raises(err, match=match):
-            CineReconstructionEngine(
-                s["netS"], sig, model_T=s["netT"], sigmas_T=SIG_T,
-                spec=CineEngineSpec(**{**ENGINE_SPEC, **kw}), device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        CineReconstructionEngine(
+            s["netS"], sig, model_T=s["netT"], sigmas_T=SIG_T,
+            spec=CineEngineSpec(**{**ENGINE_SPEC, "mode": "graph"}),
+            device="cpu")
+    # dtype int8 (refused before it was ported): both nets' copies on the
+    # int8 path, the 1-D temporal net's convolutions too; finite chains
+    q8 = CineReconstructionEngine(
+        s["netS"], sig, model_T=s["netT"], sigmas_T=SIG_T,
+        spec=CineEngineSpec(**{**ENGINE_SPEC, "dtype": "int8"}),
+        device="cpu")
+    res8 = q8.reconstruct(s["y"], s["yi"], seed=1)
+    assert np.isfinite(res8.x_re).all() and res8.x_re.dtype == np.float32
     with pytest.raises(NotImplementedError, match="parallel"):
         CineReconstructionEngine(s["netS"], sig, model_T=s["netT"],
                                  sigmas_T=SIG_T, mesh=object(), **base)

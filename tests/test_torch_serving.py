@@ -461,12 +461,20 @@ def test_spec_validation(setup):
     for kw, err, match in (
             (dict(levels=LEVELS + 1), ValueError, "len"),
             (dict(mode="graph"), ValueError, "mode"),
-            (dict(dtype="f16"), ValueError, "dtype"),
-            (dict(dtype="int8"), NotImplementedError, "Slice H")):
+            (dict(dtype="f16"), ValueError, "dtype")):
         with pytest.raises(err, match=match):
             ReconstructionEngine(setup["model"], sigmas,
                                  spec=EngineSpec(**{**SPEC, **kw}),
                                  device="cpu")
+    # dtype int8 builds and serves: finite float32 chains, and the
+    # engine's net itself keeps its float32 convolutions
+    eng = ReconstructionEngine(setup["model"], sigmas,
+                               spec=EngineSpec(**{**SPEC, "dtype": "int8"}),
+                               device="cpu")
+    res = eng.reconstruct(setup["yr"], setup["yi"], seed=0)
+    assert res.x_re.dtype == np.float32 and np.isfinite(res.x_re).all()
+    assert all(m.quant is None for m in eng.model.modules()
+               if isinstance(m, layers.Conv))
     with pytest.raises(NotImplementedError, match="parallel"):
         ReconstructionEngine(setup["model"], sigmas,
                              spec=EngineSpec(**SPEC), mesh=object(),
@@ -651,12 +659,28 @@ def test_cli_builds_engine(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--workload", "cine", "--dtype", "int8"], "Slice H"),
+    (["--workload", "cine", "--dtype", "int8", "--ds_name", "CINE127",
+      "--frames", "3", "--override", "data.image_size=16"], None),
     (["--data_shards", "2"], "parallel"),
-    (["--dtype", "int8"], "Slice H")], ids=["cine", "data_shards", "int8"])
+    (["--dtype", "int8"], None)], ids=["cine", "data_shards", "int8"])
 def test_cli_refuses_what_is_not_ported(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        serve_recon.build_engine(serve_recon.parse_args(CLI + flags))
+    """--data_shards (chain sharding) is not ported and raises. --dtype
+    int8, refused before it was ported, now builds both workloads' engines
+    with int8 score nets (tests/test_torch_int8_serving.py holds them to
+    JAX), and one request comes back finite."""
+    args = serve_recon.parse_args(CLI + flags)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            serve_recon.build_engine(args)
+        return
+    eng = serve_recon.build_engine(args)
+    assert eng.spec.dtype == "int8"
+    s = eng.spec
+    shape = (2,) + ((s.frames,) if hasattr(s, "frames") else ()) + (
+        s.height, s.width)
+    y = np.random.RandomState(0).rand(*shape).astype(np.float32)
+    res = eng.reconstruct(y, np.zeros_like(y), seed=0)
+    assert np.isfinite(res.mean_mag).all()
 
 
 def test_main_warms_up_and_serves():

@@ -21,6 +21,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+from PIL import Image
 import scipy.io as sio
 import torch
 
@@ -309,7 +310,8 @@ def test_script_matches_the_jax_script(tmp_path, monkeypatch, task):
     out = io.StringIO()
     with contextlib.redirect_stdout(out), warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        ref = jax_script.main(argv + ["--save_dir", str(tmp_path / "jax")])
+        ref = jax_script.main(argv + ["--save_dir", str(tmp_path / "jax"),
+                                      "--if_save_fig", "--if_save_as_gif"])
     shape = ref.shape
     x0, _, noises = jax_draws(1, shape, LEVELS * STEPS)
 
@@ -332,13 +334,20 @@ def test_script_matches_the_jax_script(tmp_path, monkeypatch, task):
     np.testing.assert_allclose(ours, ref, **NET_TOL)
     assert "evaluations/s" in out.getvalue()
     (run,) = os.listdir(tmp_path / "port")
+    (jrun,) = os.listdir(tmp_path / "jax")
     saved = set(os.listdir(tmp_path / "port" / run))
     expect = {"samples.npy", "args.json"}
     if task != "Diffusion":
-        expect.add("sample0_volume.npy")
+        expect.add("sample0.gif")
     if task == "Diffusion1D":
-        expect.add("signals.npz")
-    assert saved == expect
+        expect.add("signals.png")
+    # the JAX script's files: the figure and the GIF drawn the same way
+    assert saved == expect == set(os.listdir(tmp_path / "jax" / jrun))
+    for name in expect - {"samples.npy", "args.json"}:
+        with Image.open(tmp_path / "port" / run / name) as a, \
+                Image.open(tmp_path / "jax" / jrun / name) as b:
+            assert a.size == b.size
+            assert getattr(a, "n_frames", 1) == getattr(b, "n_frames", 1)
     np.testing.assert_array_equal(
         np.load(tmp_path / "port" / run / "samples.npy"), ours)
 
