@@ -8,9 +8,9 @@ phases, each printing one line with its own seconds:
 
 1. device: the card, torch and CUDA versions, nvidia-smi's name and power
    limit. Exits non-zero, printing no result, where torch sees no card.
-2. build: one nvcc over every ops/csrc/*.cu into one library with a plain
-   C interface, loaded with ctypes; prints ptxas' register and
-   shared-memory lines for every kernel.
+2. build: one nvcc -c per ops/csrc/*.cu, all started together, linked into
+   one library with a plain C interface, loaded with ctypes; prints
+   ptxas' register and shared-memory lines for every kernel.
 3. kernels: K1 (FIR 2x up) and K2 (FIR 2x down) against their plain PyTorch
    versions at the 36 shapes one FFHQ-256 NCSN++ forward gives them, at
    batch 2 (sampling) and batch 8 (training); each kernel, its plain
@@ -247,7 +247,8 @@ phases, each printing one line with its own seconds:
    unconditioned_sampling.main --ds_name CIFAR10 (8 chains, 20 of 232
    levels). Only the ODE path launches K1 / K2 (checked).
 19. int8: the int8 serving mode (ops/quant.py on K5 absmax, K6
-   quantize_s8 and K7 conv_s8s8s32 of ops/csrc/int8conv.cu), run last
+   quantize_s8, a tiled transpose, and K7 conv_s8s8s32, a warp-specialised
+   wgmma kernel fed by TMA im2col loads, of ops/csrc/int8conv.cu), run last
    (int8_phase): K5-K7 against their plain versions bit for bit (the
    elements that differ counted: amax, scale, codes, int32 sums, the
    dequantized bf16 output) at every convolution geometry of one
@@ -255,7 +256,8 @@ phases, each printing one line with its own seconds:
    Re/Im, 113 convolutions) and of one NCSN1D forward at the cine engine's
    2,048 tubes, each timed device-only (graph_ms, 5 calls replayed twice)
    beside its bound (int8 operations at 1,979 TOP/s or bytes at 3.35
-   TB/s), the plain version, cuDNN's bf16 convolution of the same shape
+   TB/s, over the true channels C, not the codes' padding to Cp) and
+   K7's plan, the plain version, cuDNN's bf16 convolution of the same shape
    and F.unfold + torch._int_mm, summed per forward; K7 launches per
    forward = the convolutions; the int8 score at the first and last level
    against f32 (float32 mode; <= INT8_VS_F32) and bf16 (not equal), one
@@ -4724,7 +4726,9 @@ def int_mm_fns(codes4, qw, g):
 def int8_site_numbers(ik, quant, site) -> dict:
     """K5, K6 and K7 at one convolution of a forward, on its real input:
     each against its plain version bit for bit (the elements that differ
-    counted: amax, scale, codes, int32 sums, dequantized output), timed
+    counted: amax, scale, codes, int32 sums, dequantized output), K7's
+    plan (int8_kernels.conv_plan: instance, channel block, ring, K stages,
+    epilogue run) beside it, timed
     device-only (graph_ms) beside the plain version (CUDA events around
     the checking call) and the yardsticks: max |x| by
     torch.linalg.vector_norm (K5), cuDNN's bf16 convolution of the same
@@ -4773,9 +4777,12 @@ def int8_site_numbers(ik, quant, site) -> dict:
     cudnn = lambda: conv(pad(x), w, None, 1, m.padding, m.dilation)
     dev_ms = lambda fn: graph_ms(fn, reps=5, replays=2)
     int_mm = int_mm_fns(codes4, qw, g)
+    plan = ik.conv_plan(g)
     row = dict(
         N=g.N, C=g.C, H=g.H, W=g.W, O=g.O, k=g.KW, dil=g.dil, ndim=m.ndim,
         count=site["count"], differ=differ, err=errs,
+        plan=dict(bn=plan.bn, cb=plan.cb, stages=plan.stages,
+                  k_iters=plan.k_iters, run=plan.run),
         k5=dict(ms=dev_ms(lambda: ik.absmax(x)), plain_ms=k5_plain_ms,
                 library_ms=dev_ms(lambda: torch.linalg.vector_norm(
                     x, float("inf"))),
@@ -4831,7 +4838,8 @@ def int8_forward_table(ik, quant, net, run, what: str) -> dict:
     per["k7"]["ops"] = sum(r["count"] * r["k7"]["ops"] for r in rows)
     for r in rows:
         print(f"    {what} C={r['C']} {r['H']}x{r['W']} O={r['O']} k={r['k']} "
-              f"dil={r['dil']} x{r['count']}: K7 {r['k7']['ms']:.4f} ms "
+              f"dil={r['dil']} x{r['count']} (plan {r['plan']}): K7 "
+              f"{r['k7']['ms']:.4f} ms "
               f"(bound {r['k7']['bound_ms']:.4f}, {r['k7']['bound_by']}), "
               f"cuDNN bf16 {r['k7']['library_ms']:.4f}, unfold+_int_mm "
               f"{r['k7']['int_mm_ms']}, _int_mm alone "

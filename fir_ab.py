@@ -9,12 +9,12 @@
 (`bf16`; the baseline source must have the bf16 launchers too).
 
 Builds the given fir2x.cu, with the checkout's other ops/csrc sources, into
-a second library beside the checkout's own (ops/_build.py, one nvcc call
-each). Then, at every FIR call of one FFHQ-256 NCSN++ forward at batch 2 and
-at batch 8 and at every K3 backward call of one training step at batch 8
-(chip_smoke.py's shape lists), it holds both libraries' outputs against the
-plain PyTorch version (1e-5 of the largest value in float32, one bf16 ulp
-of it in bf16) and times each launch
+a second library beside the checkout's own (ops/_build.py, one nvcc per
+source, then a link). Then, at every FIR call of one FFHQ-256 NCSN++
+forward at batch 2 and at batch 8 and at every K3 backward call of one
+training step at batch 8 (chip_smoke.py's shape lists), it holds both
+libraries' outputs against the plain PyTorch version (1e-5 of the largest
+value in float32, one bf16 ulp of it in bf16) and times each launch
 device-only (chip_smoke.graph_ms: 20 launches captured in a CUDA graph, the
 replay timed by CUDA events), in turns baseline, checkout, checkout,
 baseline, so that both see the same card, clocks and neighbours. Prints

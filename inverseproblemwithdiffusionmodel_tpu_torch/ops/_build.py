@@ -1,13 +1,15 @@
-"""Build and load the port's CUDA kernels: one `nvcc` call compiles every
-`csrc/*.cu` into one shared library with a plain C interface, loaded with
-`ctypes`.
+"""Build and load the port's CUDA kernels: one `nvcc -c` per `csrc/*.cu`,
+all started together, then one link into a shared library with a plain C
+interface, loaded with `ctypes`. The build takes as long as its slowest
+source, not the sum (`int8_ab.py` times both forms).
 
 The library is built on first use into `_build/<key>/libport_kernels.so` at
 the root of this package, where `<key>` is the sha256 of the sources and the
 flags, so an edited source gets a fresh build and an unchanged one is
 reused. `nvcc` writes a temporary file that `os.replace` then moves into
 place, so two processes building at once need no lock: the last rename wins
-and both results are the same library.
+and both results are the same library (each process compiles into object
+files of its own).
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ _BUILD_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 _LIB_NAME = "libport_kernels.so"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v")
 
 _PTR, _I64, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 # argtypes of the C launchers, by function; every one returns a cudaError_t.
@@ -52,9 +55,12 @@ _ARGTYPES = {
     "int8_quantize_f32": [_PTR] * 4 + [_I64] * 4 + [_PTR],
     "int8_quantize_bf16": [_PTR] * 4 + [_I64] * 4 + [_PTR],
     # K7: codes, weight codes, scale, weight scales, out, int32 sums (or
-    # null), N, H, W, Cp, O, KH, KW, pad_h, pad_w, dilation, Ho, Wo, stream.
-    "int8_conv_f32": [_PTR] * 6 + [_I64] * 12 + [_PTR],
-    "int8_conv_bf16": [_PTR] * 6 + [_I64] * 12 + [_PTR],
+    # null), then int8_kernels.conv_launch_args (N, H, W, Cp, O, KH, KW,
+    # dilation, Ho, Wo, and the plan: bn, cb, chunks, k_iters, stages,
+    # blocks_per_sm, stage_bytes, m_tiles, o_tiles, run, lower_w, lower_h,
+    # upper_w, upper_h, shared bytes); stream.
+    "int8_conv_f32": [_PTR] * 6 + [_I64] * 25 + [_PTR],
+    "int8_conv_bf16": [_PTR] * 6 + [_I64] * 25 + [_PTR],
 }
 
 
@@ -63,7 +69,7 @@ class Build:
     """A loaded kernel library and how it came to be."""
     lib: ctypes.CDLL
     path: str
-    seconds: float   # time spent in nvcc by this process; 0.0 if reused
+    seconds: float   # wall time of this process's nvcc calls; 0.0 if reused
     log: str         # nvcc's output, including ptxas register and smem lines
 
 
@@ -112,14 +118,36 @@ def build(sources: Optional[Tuple[str, ...]] = None,
     if not os.path.isfile(path):
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+        nvcc = find_nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        jobs = []
+        for src in sources:
+            obj = os.path.join(out_dir, f"{os.path.basename(src)}."
+                               f"{os.getpid()}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if not failed:
+            cmd = [nvcc, *ARCH, "-shared", "-o", tmp,
+                   *[obj for _, obj, _ in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{logs[-1]}")
+        for _, obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        log = "".join(logs)
         with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
             f.write(log)
         os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)

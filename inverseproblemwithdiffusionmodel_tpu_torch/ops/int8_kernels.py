@@ -7,13 +7,19 @@ PyTorch has no s8 x s8 -> s32 convolution on a CUDA tensor, so the port
 has these three kernels:
 
 - `absmax` (K5): max |x| over the whole tensor, one float32 value;
-- `quantize_s8` (K6): x (N, C, *spatial), contiguous, to int8 codes clip(round(x / scale), -127, 127) with scale = max(amax,
-  1e-12) / 127, written channels-last (N, *spatial, Cp), the channels
-  padded with zero codes to Cp, a multiple of 32;
+- `quantize_s8` (K6, a tiled transpose through shared memory): x (N, C,
+  *spatial), contiguous, to int8 codes clip(round(x / scale), -127, 127)
+  with scale = max(amax, 1e-12) / 127, written channels-last (N,
+  *spatial, Cp), the channels padded with zero codes to Cp, a multiple of
+  32;
 - `conv_s8s8s32` (K7): the convolution of those codes with the weight
   codes (O, KH, KW, Cp) in int32, dequantized by scale * sw[o] and written
   channels-first (N, O, Ho, Wo) in float32 or bf16; optionally also the
-  int32 sums.
+  int32 sums. A warp-specialised wgmma kernel fed by TMA im2col loads;
+  `conv_plan` is its host-side plan per geometry (the template instance,
+  the channel block and its swizzle, the im2col pixel box, the K stages,
+  the ring), and a geometry it cannot map raises NotImplementedError,
+  naming it.
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
 runs its plain version (`absmax_plain`, `quantize_s8_plain`,
@@ -79,6 +85,115 @@ class ConvGeometry:
         return 2 * self.N * self.Ho * self.Wo * self.O * self.C \
             * self.KH * self.KW
 
+    def __str__(self) -> str:
+        return (f"N={self.N} C={self.C} H={self.H} W={self.W} O={self.O} "
+                f"k={self.KH}x{self.KW} pads (h {self.pad_h}, "
+                f"{self.pad_h_hi}; w {self.pad_w}, {self.pad_w_hi}) "
+                f"dil={self.dil}")
+
+
+# K7's tile and the limits of its tensor maps (csrc/int8conv.cu)
+BM = 128                    # output pixels per tile: two wgmma m64 halves
+STAGE_K = 128               # bytes of K per stage: four wgmma K steps
+BN_CHOICES = (8, 64, 128, 256)   # output channels per tile (template)
+MAX_STAGES = 6              # the ring's depth (the kernel has 8 slots)
+SMEM_HEAD = 3072            # mbarriers and scales, plus 1 KB of alignment
+SMEM_ONE_BLOCK = 232448     # the most dynamic shared memory of a block
+SMEM_TWO_BLOCKS = 115712    # each of two blocks on one SM (228 KB, 1 KB each
+                            # reserved)
+IM2COL_CORNER = (-128, 127)  # a rank-4 im2col map's pixel box corners
+IM2COL_OFFSET_MAX = 255      # and a load's im2col offsets (8 bits each)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """K7's launch at one geometry. A tile is BM output pixels (in (N, Ho,
+    Wo) order, so it may cross images) by `bn` output channels. The K loop
+    runs tap-major in TMA box pairs of `cb` channels (bytes), one tap and
+    cb channels each, STAGE_K / cb of them to a stage of the ring (the
+    last stage's spare pairs load zeros of B). A comes from a rank-4 TMA
+    im2col map of the codes (C, W, H, N innermost first): the pixel box
+    runs from `lower` to (W - 1, H - 1) + `upper` ((w, h) pairs, tensor
+    coordinates), so output pixel (ho, wo) starts at (wo + lower[0],
+    ho + lower[1]), and tap (ky, kx) adds its im2col offset (kx dil,
+    ky dil); outside the image the TMA fills zeros. The epilogue stores
+    runs of up to `run` pixels of one channel (a power of 2 dividing
+    Ho Wo, at most 8: 16 bytes of bf16; 4 for float32).
+
+    The plan is the one owner of K7's tiling: `conv_launch_args` hands
+    every field to csrc/int8conv.cu's launcher, which takes them as they
+    are and only checks that the kernel's instance and buffers hold
+    them."""
+    bn: int
+    cb: int              # channels (bytes) per TMA box: 128, 64 or 32,
+                         # each box row in the cb-byte swizzle
+    chunks: int          # box pairs: KH KW Cp / cb
+    k_iters: int         # stages per tile: chunks / (STAGE_K / cb), up
+    stages: int          # ring depth
+    blocks_per_sm: int
+    lower: Tuple[int, int]
+    upper: Tuple[int, int]
+    m_tiles: int
+    o_tiles: int
+    stage_bytes: int
+    smem_bytes: int
+    run: int
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(g: ConvGeometry) -> ConvPlan:
+    """K7's plan at geometry g, or NotImplementedError naming g where its
+    tensor maps cannot express it."""
+    def refuse(why: str):
+        raise NotImplementedError(f"conv_s8s8s32: the wgmma kernel does not "
+                                  f"take {g}: {why}")
+
+    if g.Ho <= 0 or g.Wo <= 0:
+        refuse(f"output {g.Ho}x{g.Wo}")
+    bn = next((b for b in BN_CHOICES if g.O <= b), BN_CHOICES[-1])
+    Cp = g.Cp
+    cb = 128 if Cp % 128 == 0 else 64 if Cp % 64 == 0 else 32
+    lower = (-g.pad_w, -g.pad_h)
+    upper = (g.pad_w_hi - (g.KW - 1) * g.dil, g.pad_h_hi - (g.KH - 1) * g.dil)
+    lo, hi = IM2COL_CORNER
+    if not all(lo <= v <= hi for v in lower + upper):
+        refuse(f"pixel box corners {lower}, {upper} outside [{lo}, {hi}]")
+    offset = (max(g.KH, g.KW) - 1) * g.dil   # the last tap's im2col offset
+    if offset > IM2COL_OFFSET_MAX:
+        refuse(f"im2col offset {offset} past {IM2COL_OFFSET_MAX}")
+    M = g.N * g.Ho * g.Wo
+    if M >= 2 ** 31 or g.N * g.H * g.W * Cp >= 2 ** 40:
+        refuse(f"{M} output pixels")
+    m_tiles = -(-M // BM)
+    blocks = 1 if bn == 256 else 2
+    stage_bytes = -(-(BM + bn) * STAGE_K // 1024) * 1024
+    budget = (SMEM_ONE_BLOCK if blocks == 1 else SMEM_TWO_BLOCKS) - SMEM_HEAD
+    stages = min(MAX_STAGES, budget // stage_bytes)
+    chunks = g.KH * g.KW * Cp // cb
+    hw = g.Ho * g.Wo
+    return ConvPlan(
+        bn=bn, cb=cb, chunks=chunks, k_iters=-(-chunks // (STAGE_K // cb)),
+        stages=stages, blocks_per_sm=blocks, lower=lower, upper=upper,
+        m_tiles=m_tiles, o_tiles=-(-g.O // bn),
+        stage_bytes=stage_bytes,
+        # the epilogue's float32 tile, rows BM + 4 floats apart, reuses the
+        # ring
+        smem_bytes=SMEM_HEAD + max(stages * stage_bytes, bn * (BM + 4) * 4),
+        run=min(8, hw & -hw))
+
+
+def conv_launch_args(g: ConvGeometry, out_dtype: torch.dtype
+                     ) -> Tuple[int, ...]:
+    """The integers K7's C launcher takes after its pointers
+    (_build._ARGTYPES): the geometry, then conv_plan(g), the epilogue's run
+    cut to 16 bytes of out_dtype."""
+    p = conv_plan(g)
+    run = min(p.run, 16 // (torch.finfo(out_dtype).bits // 8))
+    return (g.N, g.H, g.W, g.Cp, g.O, g.KH, g.KW, g.dil, g.Ho, g.Wo, p.bn,
+            p.cb, p.chunks, p.k_iters, p.stages, p.blocks_per_sm,
+            p.stage_bytes, p.m_tiles, p.o_tiles, run, *p.lower, *p.upper,
+            p.smem_bytes)
+
 
 def exact_conv(t: torch.Tensor):
     """cuDNN off for a float64 convolution on the card, so that no FFT or
@@ -100,10 +215,23 @@ def _c_launcher(name: str):
     return getattr(_build.build().lib, name)
 
 
+# csrc/int8conv.cu's codes past the CUDA runtime's errors
+_LAUNCH_ERRORS = ((5000, "a plan the launcher does not take"),
+                  (4000, "no kernel instance for the plan's bn"),
+                  (3000, "the driver's tensor-map encoders not found"),
+                  (2000, "cuTensorMapEncodeTiled (B) failed with CUresult"),
+                  (1000, "cuTensorMapEncodeIm2col (A) failed with CUresult"))
+
+
 def _call(name: str, *args) -> None:
     rc = _c_launcher(name)(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    if rc == 0:
+        return
+    for base, what in _LAUNCH_ERRORS:
+        if rc >= base:
+            raise RuntimeError(f"{name}: {what}"
+                               + (f" {rc - base}" if base < 3000 else ""))
+    raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
 def _check_float(name: str, x: torch.Tensor) -> str:
@@ -190,6 +318,7 @@ def quantize_s8(x: torch.Tensor, amax: torch.Tensor, Cp: int
 
 # -- K7 ---------------------------------------------------------------------
 
+
 def conv_s8s8s32_plain(codes: torch.Tensor, scale: torch.Tensor,
                        kernel: torch.Tensor, sw: torch.Tensor,
                        geom: ConvGeometry, out_dtype: torch.dtype,
@@ -232,6 +361,7 @@ def conv_s8s8s32(codes: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"conv_s8s8s32: {name} must be a contiguous "
                              f"{dtype} {shape} on {codes.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    args = conv_launch_args(g, out_dtype)
     out = torch.empty((g.N, g.O, g.Ho, g.Wo), dtype=out_dtype,
                       device=codes.device)
     sums = (torch.empty(out.shape, dtype=torch.int32, device=codes.device)
@@ -239,8 +369,7 @@ def conv_s8s8s32(codes: torch.Tensor, scale: torch.Tensor,
     with _guard(codes):
         _call(f"int8_conv_{_SUFFIX[out_dtype]}", codes.data_ptr(),
               kernel.data_ptr(), scale.data_ptr(), sw.data_ptr(),
-              out.data_ptr(), None if sums is None else sums.data_ptr(), g.N,
-              g.H, g.W, g.Cp, g.O, g.KH, g.KW, g.pad_h, g.pad_w, g.dil, g.Ho,
-              g.Wo)
+              out.data_ptr(), None if sums is None else sums.data_ptr(),
+              *args)
     LAUNCHES["conv_s8s8s32"] += 1
     return (out, sums) if with_sums else out

@@ -181,6 +181,8 @@ def int8_conv(x: torch.Tensor, weight: Union[torch.Tensor, QuantWeight], *,
     if qw.kernel.device != x.device:
         qw = qw.to(x.device)
     g = geometry(x, qw, padding, dilation, ndim, pre_pad)
+    if x.device.type != "cpu":
+        ik.conv_plan(g)      # a geometry K7 cannot map raises before K5
     x = x.contiguous()
     codes, sx = ik.quantize_s8(x, ik.absmax(x), g.Cp)
     codes = codes.reshape(g.N, g.H, g.W, g.Cp)     # 1-D: height 1

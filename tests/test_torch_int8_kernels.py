@@ -18,7 +18,11 @@ from inverseproblemwithdiffusionmodel_tpu_torch.ops import (
 torch.set_num_threads(1)
 
 # (N, C, spatial, O, kernel size, dilation, pre_pad, ndim): the score
-# nets' geometries at small widths, C and O off the kernel's tile sizes
+# nets' geometries at small widths, C and O off the kernel's tile sizes;
+# between them every K7 instance (bn 8, 64, 128, 256) and channel block
+# (cb 32, 64, 128), O = 1, Cp = 32, tiles crossing images, fewer pixels
+# than a tile, the epilogue's runs of 8, 4, 2 and 1, and K6's 16-byte,
+# 8-byte and scalar loads (P a multiple of 8, of 4 but not 8, odd)
 CASES = [(2, 40, (9, 9), 16, 3, 1, None, 2),
          (2, 40, (9, 9), 70, 3, 2, None, 2),
          (3, 33, (7, 11), 65, 3, 4, None, 2),
@@ -28,7 +32,12 @@ CASES = [(2, 40, (9, 9), 16, 3, 1, None, 2),
          (2, 24, (16, 16), 1, 3, 1, None, 2),
          (9, 64, (24,), 32, 3, 1, None, 1),
          (9, 16, (12,), 16, 3, 4, None, 1),
-         (9, 64, (24,), 16, 1, 1, None, 1)]
+         (9, 64, (24,), 16, 1, 1, None, 1),
+         (2, 128, (12, 12), 256, 3, 1, None, 2),
+         (2, 300, (9, 9), 300, 3, 1, None, 2),
+         (4, 256, (5, 5), 8, 1, 1, None, 2),
+         (3, 128, (10,), 128, 3, 2, None, 1),
+         (5, 64, (12,), 20, 3, 2, None, 1)]
 
 
 def _inputs(case, dtype, device="cpu", seed=0):
@@ -56,6 +65,29 @@ def test_plain_chain_equals_the_whole_op(case, dtype):
     qw = quant.QuantWeight.of(w)
     assert qw.kernel.shape[-1] % 32 == 0 and qw.kernel.is_contiguous()
     assert not qw.kernel[..., w.shape[1]:].any()
+
+
+def test_cases_reach_every_instance_and_tail():
+    """CASES (the gpu test's) cover each K7 template instance and channel
+    block, each epilogue run and each of K6's load paths."""
+    plans, runs, k6, tiles = set(), set(), set(), set()
+    for case in CASES:
+        x, w, kw = _inputs(case, torch.float32)
+        g = quant.geometry(x, quant.QuantWeight.of(w), kw["padding"],
+                           kw["dilation"], kw["ndim"], kw["pre_pad"])
+        plan = ik.conv_plan(g)
+        plans.add((plan.bn, plan.cb))
+        runs.add(plan.run)
+        P = g.H * g.W
+        k6.add(8 if P % 8 == 0 else 4 if P % 4 == 0 else 1)
+        M, HW = g.N * g.Ho * g.Wo, g.Ho * g.Wo
+        tiles.add("short" if M < ik.BM else "crosses" if HW % ik.BM
+                  else "whole")
+    assert {bn for bn, _ in plans} == set(ik.BN_CHOICES)
+    assert {cb for _, cb in plans} == {32, 64, 128}
+    assert runs == {8, 4, 2, 1}
+    assert k6 == {8, 4, 1}
+    assert {"short", "crosses"} <= tiles
 
 
 def test_sums_are_exact_past_float32():
@@ -113,7 +145,8 @@ def test_enable_int8_switches_every_conv_once():
 def test_cuda_kernels_equal_their_plain_versions():
     """K5, K6 and K7 on the card against their plain versions, bit for
     bit (amax, scale, codes, int32 sums, dequantized output), float32 and
-    bf16, one launch of each per int8_conv."""
+    bf16, one launch of each per int8_conv, at CASES: every K7 instance
+    and each tail (test_cases_reach_every_instance_and_tail)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     for case in CASES:

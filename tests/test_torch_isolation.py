@@ -29,6 +29,7 @@ def _sources():
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "fir_ab.py")
+    yield os.path.join(ROOT, "int8_ab.py")
 
 
 def _imported_roots(path):
