@@ -41,8 +41,8 @@ phases, each printing one line with its own seconds:
    from seed 0) forward on the card against the same model on the CPU, at
    batch 1 and, in the float32 mode, at batch 2, and the kernels' launch
    counts over that forward (18 each).
-5. sample: scripts.pc_sampling.main with that config at num_scales 100
-   (reduced from 2000), 2 samples: finite samples, 200 network evaluations
+5. sample: scripts.pc_sampling.main with that config at num_scales 50
+   (reduced from 2000), 2 samples: finite samples, 100 network evaluations
    (the nfe it prints) and the first forward, 18 launches of each kernel
    per evaluation; and a
    tiny PC run on the card against the same run on the CPU, fed the same
@@ -72,7 +72,7 @@ phases, each printing one line with its own seconds:
 10. recon: samplers.ald_pair.make_stepped_pair_reconstructor at bench.py's
    geometry (16 chains, 4 coils, R = 8, the ladder cut to 8 of 2311
    levels, 3 inner steps, CG 4, lr_scaled 5.0, denoising), the net in
-   float32 (torch's defaults) and in bf16: one warm-up and 3 timed runs,
+   float32 (torch's defaults) and in bf16: one warm-up and 2 timed runs,
    each ended by a host read; chain-steps/s from the fastest, peak memory,
    finite outputs; one level step timed and profiled (top device kernels
    and operators, launches per inner step, the device's idle share); bf16
@@ -84,8 +84,8 @@ phases, each printing one line with its own seconds:
    scripts.acdc_SENSE_real_img.main, at full width (NCSNv2Deepest 256 px,
    ngf 128, seed 0; 16 chains, R = 8, 4 coils, the complex64 SENSE
    operator on cuFFT, CG 8, lr_scaled 5.0, --override
-   recons.num_classes=8: the 348 -> 0.01 ladder cut from 2311 levels to
-   8), torch's defaults: chain-steps/s of the sampler alone (between CUDA
+   recons.num_classes=4: the 348 -> 0.01 ladder cut from 2311 levels to
+   4), torch's defaults: chain-steps/s of the sampler alone (between CUDA
    synchronizations, the set-up apart), wall s, peak memory, the NRMSE and
    SSIM it prints (finite; the weights are random), its artifacts; the
    single-coil script with SingleCoil and the SENSE script guided
@@ -114,7 +114,7 @@ phases, each printing one line with its own seconds:
    tests/test_torch_map_long.py, which a doubled-weight control must
    break; a tiny MAP direction card vs CPU.
 11. serve: the serving entry point at the recon geometry (the ladder cut
-   to 4 levels), for f32 and bf16: scripts.serve_recon.build_engine
+   to 2 levels), for f32 and bf16: scripts.serve_recon.build_engine
    (weights from seed 0), the engine's warm-up, 3 requests over HTTP on
    127.0.0.1 (npz in and out: the default operator; a new R = 8 mask with
    lr_scaled 3.0; new coil maps) and one in-process request: shapes,
@@ -193,7 +193,7 @@ phases, each printing one line with its own seconds:
 16. quickstart_3d: the README quick start's pair and the 3-D temporal
    prior at full width (weights from seed 0), torch's defaults:
    scripts.unconditioned_sampling.main --ds_name MNIST (NCSNv2Deepest 32
-   px, ngf 128; 8 samples, the ladder cut from 232 to 58 levels x 5 steps,
+   px, ngf 128; 8 samples, the ladder cut from 232 to 29 levels x 5 steps,
    and the denoise): the sampler's network evaluations/s (the set-up
    apart), wall s, peak, finite (8, 32, 32, 1) samples;
    scripts.train_ncsn.main --ds_name MNIST (synthetic digits, the config's
@@ -240,12 +240,31 @@ phases, each printing one line with its own seconds:
    K1 / K2 launches per evaluation, the sampler's evaluations/s, peak; a
    tiny NCSN++ ODEs card vs CPU (VP and VE leaves, the same steps);
    pc_sampling.main on ve/ncsn/cifar10 (NCSN v1, 16 samples, 10 levels x
-   50 ALD steps, cut from the leaf's 100); the v1 forward card vs CPU; training.fit with the
+   25 ALD steps, cut from the leaf's 100); the v1 forward card vs CPU;
+   training.fit with the
    continuous step on discrete labels at the leaf's batch 128 (5 steps)
    and one step card vs CPU; train_ncsn.main --ds_name CELEBA (64 px, the
    config's batch 128, 5 steps on the synthetic stand-in);
    unconditioned_sampling.main --ds_name CIFAR10 (8 chains, 20 of 232
    levels). Only the ODE path launches K1 / K2 (checked).
+18b. migrate (migrate_phase, after guided): the migration path at full
+   width, weights from seeds, files in a temporary directory outside the
+   checkout. The ACDC NCSNv2Deepest (256 px, ngf 128) written as a
+   reference Lightning .ckpt (export_ncsn_state_dict; EMA and raw copies),
+   scripts.import_torch_checkpoint --ds_name ACDC (and --raw_weights,
+   which must take the raw copy), the imported net's forward against the
+   source's on the card bit for bit, then acdc_SENSE_real_img --ckpt_dir
+   on the import (16 chains, 2 levels); the CINE127_1D NCSN1D alike, its
+   forward only; the FFHQ-256 NCSN++ as a reference all_modules .pth,
+   import_torch_checkpoint --continuous, its forward bit for bit, then
+   pc_sampling --ckpt_dir on it, whose K1 / K2 launches are counted.
+   train_ncsn --ds_name ACDC (batch 8, 4 steps) on the native C++ batcher
+   (its batches held to the plain version's for the seed) and with
+   --no_native_loader: s/step and the host's batch-wait seconds of each.
+   Whether torch.utils.tensorboard imports; if it does, the native run
+   mirrors its metrics and the event file is read back against
+   metrics.jsonl; if not, the mirror must warn and metrics.jsonl still be
+   written.
 19. int8: the int8 serving mode (ops/quant.py on K5 absmax, K6
    quantize_s8, a tiled transpose, and K7 conv_s8s8s32, a warp-specialised
    wgmma kernel fed by TMA im2col loads, of ops/csrc/int8conv.cu), run last
@@ -280,6 +299,8 @@ before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
 sense, map_tv, serve, cine, cine_complex, train_ncsn, each train_bf16
 run, each sample_vp run, quickstart_3d, guided, each path of natural, and
 the int8 engines) and read just after it.
+Each architecture's seeded weights are drawn once a process and
+copied to its later builds (seeded_once: the same values).
 Any failure raises and exits non-zero. Phases 9 to 19 print their numbers
 as one JSON line before `total`. The last
 lines are nvidia-smi's name and power limit, a JSON line of per-kernel
@@ -318,7 +339,8 @@ import torch
 import torch.nn.functional as F
 
 CONFIG = "ve/ffhq_256_ncsnpp_continuous"
-NUM_SCALES = 100           # the config's 2000, reduced to keep the run short
+NUM_SCALES = 50            # the config's 2000, reduced to keep the run short
+                           # (100 before the migrate phase)
 BATCH = 2
 KERNEL_RTOL = 1e-5         # of the largest |value|: float32 sums reordered
 MODEL_REL_L2 = 1e-4        # card vs CPU forward, float32 with TF32 off
@@ -341,15 +363,17 @@ ACDC_CHAINS = 16           # the net runs at batch 32: Re and Im interleaved
 ACDC_COILS = 4
 ACDC_R = 8
 ACDC_LEVELS = 8            # of the config's 2311
-SERVE_LEVELS = 4           # the serving phase's: cut from 8 to keep the
-                           # smoke within its time with `natural`
+SERVE_LEVELS = 2           # the serving phase's: cut from 8 to keep the
+                           # smoke within its time, to 4 with `natural`,
+                           # then to 2 with `migrate`
 ACDC_CG_ITERS = 4
 ACDC_LR_SCALED = 5.0
-ACDC_REPS = 3              # timed runs after one warm-up; the fastest counts
+ACDC_REPS = 2              # timed runs after one warm-up; the fastest counts
+                           # (3 before the migrate phase)
 # The headline ACDC SENSE CLI (scripts/acdc_SENSE_real_img) at full width
 SENSE_SAMPLES = 16         # the headline run's chains (the net at batch 32)
-SENSE_LEVELS = 8           # --override recons.num_classes: of the ladder's
-                           # 2311 (348 -> 0.01)
+SENSE_LEVELS = 4           # --override recons.num_classes: of the ladder's
+                           # 2311 (348 -> 0.01); 8 before the migrate phase
 SENSE_SIDE_SAMPLES = 4     # the single-coil and the guided runs
 SENSE_GATE_LEVEL = 0       # complex vs pair form gated after this level
 FFT_REL_L2 = 1e-5          # cuFFT vs the pair DFT at 256 px, float32
@@ -384,8 +408,9 @@ CINE_MODE_LEVELS = 2       # the tv, none and tv-only runs
 CINE_MAP_ITERS = 20        # cine_SENSE_real_img_2d_time_MAP: of the 200
 # The README quick start (MNIST) and the 3-D temporal prior
 QS_SAMPLES = 8             # unconditioned_sampling's chains (the net's batch)
-QS_MNIST_LEVELS = 58       # of the MNIST ladder's 232 (whole before PR 16,
-                           # cut to keep the smoke within its time)
+QS_MNIST_LEVELS = 29       # of the MNIST ladder's 232 (whole before the
+                           # natural phase, then 58 before the migrate
+                           # phase; cut to keep the smoke within its time)
 QS_TRAIN_STEPS = 5         # train_ncsn --ds_name MNIST at the config's 128
 QS_3D_TRAIN_STEPS = 5      # train_ncsn Diffusion3D at the config's batch 90
 QS_3D_LEVELS = 20          # unconditioned 1-D / 3-D runs: of the 400 levels
@@ -416,6 +441,10 @@ GUIDED_VARIANTS = ("inpainting", "interpolation", "cls_conditioned",
                    "inverse_problem", "inverse_problem_proj", "inverse_clf",
                    "inverse_clf_proximal")
 GUIDED_CLF = ("cls_conditioned", "inverse_clf", "inverse_clf_proximal")
+MIGRATE_LEVELS = 2         # the imported prior's CLI run: of the 2311
+MIGRATE_TUBES = 64         # the imported NCSN1D's forward batch
+MIGRATE_TRAIN_BATCH = 8    # train_ncsn on each feed: the README's batch
+MIGRATE_TRAIN_STEPS = 4
 # Discrete score training through scripts.train_ncsn on the loaders'
 # synthetic stand-ins (24 + 6 ACDC slices at 256 px; 12 + 4 cine videos
 # as 8 x 8 tubes of 24 frames): run name -> (its flags, steps)
@@ -451,7 +480,8 @@ VP_BF16_GRAD_CEIL = 6e-2
 VP_TRAIN_BATCH = 128       # the leaf's batch
 VP_PARITY_BATCH = 8        # card vs CPU and bf16 vs f32 steps
 VP_SAMPLES = 16
-VP_NUM_SCALES = 100        # of the leaves' 1000 (232 for ve/ncsnv2/cifar10)
+VP_NUM_SCALES = 50         # of the leaves' 1000 (232 for ve/ncsnv2/cifar10);
+                           # 100 before the migrate phase
 VP_CKPT_NUM_SCALES = 10
 VP_SAMPLE_LEAVES = ["vp/cifar10_ncsnpp_continuous",
                     "vp/cifar10_ddpmpp_continuous", "vp/ddpm/cifar10",
@@ -473,8 +503,9 @@ ODE_VE_CONFIG = "ve/cifar10_ncsnpp_continuous"
 ODE_REL_L2 = 1e-3
 ODE_VP_CHECK_TOL = 1e-6
 NATURAL_V1_CONFIG = "ve/ncsn/cifar10"
-NATURAL_V1_STEPS_EACH = 50       # ALD steps a level: of the leaf's 100, cut
-                                 # in PR 17 to keep the smoke within its time
+NATURAL_V1_STEPS_EACH = 25       # ALD steps a level: of the leaf's 100, cut
+                                 # to keep the smoke within its time (50
+                                 # with the int8 phase, 25 with migrate)
 NATURAL_V1_STEPS = 5             # training.fit at the leaf's batch 128
 NATURAL_TRAIN_STEPS = 5          # train_ncsn --ds_name CELEBA at 128
 NATURAL_UNCOND_SAMPLES = 8
@@ -1548,6 +1579,26 @@ def profile_cine_level(eng, y_re, y_im, device) -> dict:
                                              device, CINE_CHECK_LEVEL))
 
 
+def reuse_last(forward):
+    """`forward` that, called again with tensors equal bit for bit to its
+    last call's, returns a copy of its last output instead of computing it
+    again (`.reused` counts those calls)."""
+    last = {}
+
+    def call(*args):
+        if last and len(args) == len(last["args"]) and all(
+                a.shape == b.shape and torch.equal(a, b)
+                for a, b in zip(args, last["args"])):
+            call.reused += 1
+            return last["out"].clone()
+        out = forward(*args)
+        last.update(args=[a.clone() for a in args], out=out.clone())
+        return out
+
+    call.reused = 0
+    return call
+
+
 def cine_phase(fk, fl, device="cuda") -> dict:
     """The cine serving path at README's geometry (CINE127 frames, 128 px,
     T = 24, 4 coils, per-frame R = 8 masks; spatial NCSNv2Deepest ngf 128,
@@ -1698,6 +1749,9 @@ def cine_phase(fk, fl, device="cuda") -> dict:
     # tubes') and, with the random shift on, the same roll.
     cpu_S = copy.deepcopy(model_S).cpu()
     cpu_T = copy.deepcopy(model_T).cpu()
+    # the spatial step sees the same frames with the shift off and on: the
+    # CPU's spatial net computes them once
+    cpu_S.forward = reuse_last(cpu_S.forward)
     gen = torch.Generator().manual_seed(8)
     tubes = torch.rand(64, T, CINE_WIN ** 2, generator=gen)
     labels = torch.tensor([57, 342] * 32)
@@ -1736,6 +1790,7 @@ def cine_phase(fk, fl, device="cuda") -> dict:
             rel_l2(a, b) for a, b in zip(*steps))
     numbers["card_vs_cpu_rel_l2"] = checks
     numbers["cpu_check_s"] = cpu_s
+    numbers["cpu_spatial_reused"] = cpu_S.forward.reused
     failed = {k: v for k, v in checks.items() if not v <= MODEL_REL_L2}
     if failed:
         raise AssertionError(f"cine card vs CPU: rel L2 {failed}")
@@ -1846,7 +1901,8 @@ def report_cine(cine: dict, t: float) -> None:
         f"{cine['bf16_vs_f32_rel_l2']:.3g} (<= {BF16_REL_L2}); card vs CPU "
         f"(float32 mode) rel L2 {json.dumps(cine['card_vs_cpu_rel_l2'])} "
         f"(each <= {MODEL_REL_L2}; the CPU side {cine['cpu_check_s']:.1f} "
-        f"s); one input signature per engine; no K1/K2/K4 launch")
+        f"s, its spatial net reused {cine['cpu_spatial_reused']} times); one "
+        f"input signature per engine; no K1/K2/K4 launch")
 
 
 @contextlib.contextmanager
@@ -3951,6 +4007,68 @@ def run_variant(name: str, score, clf_fn, sigmas, prob: dict, config,
         lr_scaled=lr_scaled, clf_start_time=clf_start_time, **kw)
 
 
+def guided_check(sigmas, config, k: int = GUIDED_CHECK_LEVEL) -> dict:
+    """The one-level check's ladder and sampler config: level k alone, a
+    one-level ladder at level k's step (the proximal's alpha, step_lr x
+    lr_scaled, kept at the whole run's; the guidance constant, since a
+    one-level ramp is 0)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
+        ALDConfig)
+    check_cfg = ALDConfig(n_steps_each=config.n_steps_each, denoise=False,
+                          step_lr=float(config.step_lr * (
+                              sigmas[k] / sigmas[-1]) ** 2))
+    return dict(level=sigmas[k:k + 1], config=check_cfg,
+                lr_scaled=5.0 * config.step_lr / check_cfg.step_lr)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to deterministic algorithms inside the block (its
+    benchmark mode too: it then times only those)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def guided_level_run(name: str, model, clf, check: dict, x0: torch.Tensor,
+                     dev, noise_seed: int = 16, deterministic: bool = True
+                     ) -> torch.Tensor:
+    """One level of the sampler `name` (guided_check's ladder) from x0 on
+    `dev`, fed the draws of a CPU generator seeded with `noise_seed`, in the
+    float32 mode; the model and the classifier move to `dev`. Returns the
+    output on the CPU, complex ones as their real view.
+
+    `deterministic` restricts cuDNN to deterministic algorithms. Without
+    it, benchmark mode may pick a backward of the classifier that sums with
+    atomics: its input gradient then varies run to run (up to 3e-7 rel L2
+    on an H100), and one run in 20 of inverse_clf_proximal read 4.46e-4
+    against the CPU where the others read 2.4e-7 (guided_gate.py)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import registry
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    model.to(dev)
+    clf.to(dev)
+    noise_gen = torch.Generator().manual_seed(noise_seed)
+    level = check["level"]
+    with float32_exact(), (cudnn_deterministic() if deterministic
+                           else contextlib.nullcontext()):
+        x_chk = (x0[:1].repeat(GUIDED_INTERPOLATIONS, 1, 1, 1)
+                 if name == "interpolation" else x0)
+        out = run_variant(
+            name, registry.make_score_fn(model, level),
+            registry.make_clf_fn(clf), level,
+            guided_problem(x_chk.shape[0], dev), check["config"],
+            x_chk.to(dev), dev, clf_start_time=None,
+            lr_scaled=check["lr_scaled"],
+            noise=lambda s: torch.randn(tuple(s),
+                                        generator=noise_gen).to(dev))
+    out = out.cpu()
+    return torch.view_as_real(out) if out.is_complex() else out
+
+
 def guided_phase(fk, fl, device="cuda") -> dict:
     """Classifier and segmentation training and the guided samplers at full
     width, weights from seed 0, torch's defaults unless said.
@@ -3966,10 +4084,10 @@ def guided_phase(fk, fl, device="cuda") -> dict:
     finite outputs, evaluations/s between CUDA synchronizations, the score
     net's and the classifier gradient's shares of the sampler's time by
     CUDA events; one level of each card vs CPU, fed the same noise, float32
-    mode. The CLIs mnist_inv_clf_sampling and mnist_inv_clf_prox_sampling
-    (the ladder cut alike, 8 samples) and mnist_MAP (GUIDED_MAP_ITERS of
-    the config's 15000 iterations) through timed_cli. Launches none of K1,
-    K2 or K4."""
+    mode, cuDNN's algorithms deterministic (guided_level_run). The CLIs
+    mnist_inv_clf_sampling and mnist_inv_clf_prox_sampling (the ladder cut
+    alike, 8 samples) and mnist_MAP (GUIDED_MAP_ITERS of the config's 15000
+    iterations) through timed_cli. Launches none of K1, K2 or K4."""
     from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
     from inverseproblemwithdiffusionmodel_tpu_torch.models import registry
     from inverseproblemwithdiffusionmodel_tpu_torch.samplers import (
@@ -3981,8 +4099,6 @@ def guided_phase(fk, fl, device="cuda") -> dict:
     from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
         mnist_MAP, mnist_inv_clf_prox_sampling as prox_cli,
         mnist_inv_clf_sampling as clf_cli, train_clf, train_seg)
-    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
-        float32_exact)
     numbers = {"nvidia_smi": nvidia_smi()}
     gen = torch.Generator().manual_seed(15)
     fk.LAUNCHES.clear()
@@ -4096,41 +4212,21 @@ def guided_phase(fk, fl, device="cuda") -> dict:
     # alpha, step_lr x lr_scaled, kept at the run's; the guidance
     # constant, since a one-level ramp is 0)
     k = GUIDED_CHECK_LEVEL
-    level = sigmas[k:k + 1]
-    check_cfg = ALDConfig(n_steps_each=n_steps, denoise=False,
-                          step_lr=float(config.step_lr * (
-                              sigmas[k] / sigmas[-1]) ** 2))
+    check = guided_check(sigmas, config, k)
     x0 = torch.rand(GUIDED_CHECK_CHAINS, 32, 32, 1, generator=gen)
     checks, cpu_s = {}, 0.0
     for name in GUIDED_VARIANTS:
         outs = {}
         for dev in (device, "cpu"):
-            model.to(dev)
-            clf.to(dev)
-            noise_gen = torch.Generator().manual_seed(16)
             t_dev = time.perf_counter()
-            with float32_exact():
-                x_chk = (x0[:1].repeat(GUIDED_INTERPOLATIONS, 1, 1, 1)
-                         if name == "interpolation" else x0)
-                out = run_variant(
-                    name, registry.make_score_fn(model, level),
-                    registry.make_clf_fn(clf), level,
-                    guided_problem(x_chk.shape[0], dev), check_cfg,
-                    x_chk.to(dev), dev, clf_start_time=None,
-                    lr_scaled=5.0 * config.step_lr / check_cfg.step_lr,
-                    noise=lambda s: torch.randn(tuple(s),
-                                                generator=noise_gen).to(dev))
+            outs[dev] = guided_level_run(name, model, clf, check, x0, dev)
             if dev == "cpu":
                 cpu_s += time.perf_counter() - t_dev
-            outs[dev] = out.cpu()
-        card, cpu = outs[device], outs["cpu"]
-        if card.is_complex():
-            card, cpu = torch.view_as_real(card), torch.view_as_real(cpu)
-        checks[name] = rel_l2(card, cpu)
+        checks[name] = rel_l2(outs[device], outs["cpu"])
     model.to(device)
     clf.to(device)
     numbers["level_card_vs_cpu"] = dict(
-        level=k, sigma=float(sigmas[k]), step=check_cfg.step_lr,
+        level=k, sigma=float(sigmas[k]), step=check["config"].step_lr,
         rel_l2=checks, cpu_s=cpu_s)
     if not all(v <= MODEL_REL_L2 for v in checks.values()):
         raise AssertionError(f"ald_variants one level card vs CPU: {checks}")
@@ -4213,6 +4309,422 @@ def report_guided(gd: dict, t: float) -> None:
         f"({GUIDED_MAP_ITERS} of 15000) "
         f"{gd['mnist_MAP']['iters_per_s']:.2f} iterations/s; no K1/K2/K4 "
         f"launch")
+
+
+# -- 18b. migrate: reference checkpoints, the native feed, TensorBoard -----
+
+def lightning_checkpoint(path: str, ema_model, raw_model) -> int:
+    """A reference-style Lightning checkpoint of two NCSNv2-family nets,
+    written by the port's export_ncsn_state_dict: `model.`-prefixed keys,
+    the EMA copy under callbacks.EMA.ema_state_dict, the raw copy under
+    state_dict. Returns the file's bytes."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.torch_import import (
+        export_ncsn_state_dict)
+    pre = lambda m: {f"model.{k}": torch.from_numpy(v)
+                     for k, v in export_ncsn_state_dict(m).items()}
+    torch.save({"state_dict": pre(raw_model),
+                "callbacks": {"EMA": {"ema_state_dict": pre(ema_model)}},
+                "epoch": 0, "global_step": 0}, path)
+    return os.path.getsize(path)
+
+
+def ncsnpp_reference_state(model, cfg) -> dict:
+    """The reference's state dict of the port's NCSN++: every top-level
+    module at its all_modules index (the port's ncsnpp_index_map
+    inverted), the fused resamplers' Conv2d_0_weight (kh, kw, I, O) as
+    Conv2d_0.weight (O, I, kh, kw); everything else is torch's layout
+    already."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.torch_import import (
+        ncsnpp_index_map)
+    index = ncsnpp_index_map(cfg)
+    sd = {}
+    for key, value in model.state_dict().items():
+        top, _, rest = key.partition(".")
+        module, dot, leaf = rest.rpartition(".")
+        if leaf in ("Conv2d_0_weight", "Conv2d_0_bias"):
+            rest = module + dot + leaf.replace("_weight", ".weight").replace(
+                "_bias", ".bias")
+            if leaf == "Conv2d_0_weight":
+                value = value.permute(3, 2, 0, 1)
+        sd[f"all_modules.{index[top]}.{rest}"] = value.contiguous().clone()
+    return sd
+
+
+def timed_import(argv: list) -> tuple:
+    """import_torch_checkpoint.main(argv), its output echoed indented:
+    (the TrainState it wrote, the wall seconds)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        import_torch_checkpoint)
+    out = io.StringIO()
+    t_run = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = import_torch_checkpoint.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_run
+    for line in out.getvalue().splitlines():
+        print(f"    {line}", flush=True)
+    if "all leaves matched" not in out.getvalue():
+        raise AssertionError("import_torch_checkpoint printed no match")
+    return state, seconds
+
+
+def restored(ckpt_dir: str, model_fn, use_ema: bool = True):
+    """A fresh net from `model_fn()` with the EMA (or raw) weights of the
+    latest checkpoint in `ckpt_dir`, and the step it restored."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        Checkpointer)
+    params, step = Checkpointer(ckpt_dir, track_best=False).restore_params(
+        use_ema=use_ema)
+    model = model_fn()
+    model.load_state_dict(params, strict=True)
+    return model, step
+
+
+def same_weights(a, b) -> bool:
+    sa, sb = a.state_dict(), b.state_dict()
+    return sa.keys() == sb.keys() and all(
+        torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)
+
+
+def same_forward(a, b, x, c, device) -> bool:
+    """Both nets' forward on `device`, the same input, cuDNN's algorithms
+    deterministic: equal bit for bit."""
+    outs = []
+    for net in (a, b):
+        net.to(device).eval()
+        with torch.no_grad(), cudnn_deterministic():
+            outs.append(net(x.to(device), c.to(device)).cpu())
+        net.cpu()
+    return torch.equal(outs[0], outs[1]) and bool(
+        torch.isfinite(outs[0]).all())
+
+
+@contextlib.contextmanager
+def feed_probe(train_ncsn, rec: dict, tensorboard: bool = False):
+    """Wrap the feed factory train_ncsn builds: rec gets the feed it took
+    ("native" or "numpy"), the data, batch size and seed it was given,
+    every batch handed out and the host's seconds waiting for each. With
+    `tensorboard`, the run's FitConfig mirrors the metrics (log_every 1)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import FitConfig
+    inner, inner_cfg = train_ncsn.make_train_iterator, train_ncsn.FitConfig
+
+    def make_train_iterator(data, batch_size, **kw):
+        make = inner(data, batch_size, **kw)
+        rec.update(feed=make.feed, data=data, batch_size=batch_size,
+                   seed=kw["seed"], batches=[], wait_s=[])
+
+        def timed():
+            it = iter(make())
+            while True:
+                t_wait = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                rec["wait_s"].append(time.perf_counter() - t_wait)
+                rec["batches"].append(batch)
+                yield batch
+
+        timed.feed = make.feed
+        return timed
+
+    train_ncsn.make_train_iterator = make_train_iterator
+    if tensorboard:
+        train_ncsn.FitConfig = lambda **kw: FitConfig(
+            **dict(kw, log_every=1, tensorboard=True))
+    try:
+        yield rec
+    finally:
+        train_ncsn.make_train_iterator = inner
+        train_ncsn.FitConfig = inner_cfg
+
+
+def tensorboard_importable() -> tuple:
+    """(whether torch.utils.tensorboard imports here, the error if not)."""
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+    except Exception as e:
+        return False, repr(e)
+    return True, None
+
+
+def migrate_phase(fk, fl, device="cuda") -> dict:
+    """The migration path at full width, weights from seeds, files in a
+    temporary directory outside the checkout. Discrete: the ACDC
+    NCSNv2Deepest (256 px, ngf 128) as a Lightning .ckpt (EMA from seed 0,
+    raw from seed 1), import_torch_checkpoint --ds_name ACDC (and again
+    with --raw_weights), the imported net's forward against the source's
+    on the card (bit for bit), then acdc_SENSE_real_img --ckpt_dir at
+    SENSE_SAMPLES chains and MIGRATE_LEVELS levels; the CINE127_1D NCSN1D
+    alike (--task_name Diffusion1D), its forward only. Continuous: the
+    FFHQ-256 NCSN++ (CONFIG) as a reference all_modules .pth,
+    import_torch_checkpoint --continuous, the forward bit for bit, then
+    pc_sampling --ckpt_dir (K1/K2 counted). The feed: train_ncsn --ds_name
+    ACDC, MIGRATE_TRAIN_STEPS steps at batch MIGRATE_TRAIN_BATCH, on the
+    native batcher (its batches held to the plain version's for the seed)
+    and with --no_native_loader; the first run mirrors its metrics to
+    TensorBoard where torch.utils.tensorboard imports (the event file read
+    back against metrics.jsonl), else the mirror must warn and
+    metrics.jsonl still be written."""
+    import warnings
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
+        get_continuous_config)
+    from inverseproblemwithdiffusionmodel_tpu_torch.data.native_loader import (
+        reference_batches)
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        create_model, load_model)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        acdc_SENSE_real_img, pc_sampling, train_ncsn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.tb_export import (
+        read_scalars)
+    numbers = {"nvidia_smi": nvidia_smi()}
+    gen = torch.Generator().manual_seed(19)
+    root = tempfile.mkdtemp(prefix="chip_smoke_migrate_")
+    try:
+        # Discrete: NCSNv2Deepest (ACDC) and NCSN1D (CINE127_1D)
+        for name, ds, task, sens in (
+                ("acdc", "ACDC", "Diffusion", True),
+                ("cine_1d", "CINE127_1D", "Diffusion1D", False)):
+            t_part = time.perf_counter()
+            cfg = load_config(ds, "real-imag")
+            d = cfg.data
+            x = (torch.rand(2, d.channels, d.image_size, d.image_size,
+                            generator=gen) if sens else
+                 torch.rand(MIGRATE_TUBES, d.channels, d.image_size,
+                            generator=gen))
+            ema, _ = load_model(cfg, task, seed=0)
+            raw, _ = load_model(cfg, task, seed=1)
+            ckpt = os.path.join(root, f"{name}.ckpt")
+            t_save = time.perf_counter()
+            size = lightning_checkpoint(ckpt, ema, raw)
+            save_s = time.perf_counter() - t_save
+            runs = {}
+            for flag in ([], ["--raw_weights"]):
+                out = os.path.join(root, f"{name}{''.join(flag)}_ckpts")
+                _, runs[bool(flag)] = timed_import(
+                    ["--ckpt_path", ckpt, "--ds_name", ds, "--task_name",
+                     task, "--mode", "real-imag", "--out_dir", out,
+                     "--device", device] + flag)
+                got, step = restored(out, lambda: load_model(cfg, task)[0])
+                want = raw if flag else ema
+                if not (step == 0 and same_weights(got, want)
+                        and not same_weights(got, ema if flag else raw)):
+                    raise AssertionError(f"{name} import {flag}: step {step}"
+                                         f", weights not the source's")
+            c = torch.tensor([348.0, 0.37]).repeat(x.shape[0] // 2)
+            got, _ = restored(os.path.join(root, f"{name}_ckpts"),
+                              lambda: load_model(cfg, task)[0])
+            if not same_forward(got, ema, x, c, device):
+                raise AssertionError(f"{name}: the imported net's forward "
+                                     f"differs from the source's")
+            r = dict(net={"Diffusion": "NCSNv2Deepest",
+                          "Diffusion1D": "NCSN1D"}[task], ckpt_bytes=size,
+                     ckpt_save_s=save_s, import_s=runs[False],
+                     import_raw_s=runs[True], forward_equal=True,
+                     params=sum(p.numel() for p in ema.parameters()))
+            del ema, raw, got
+            if sens:
+                cli = timed_cli(acdc_SENSE_real_img, [
+                    "--ckpt_dir", os.path.join(root, f"{name}_ckpts"),
+                    "--R", str(ACDC_R), "--num_sens", str(ACDC_COILS),
+                    "--lr_scaled", str(ACDC_LR_SCALED), "--override",
+                    f"recons.num_classes={MIGRATE_LEVELS}", "--seed", "0",
+                    "--device", str(device), "--num_samples",
+                    str(SENSE_SAMPLES)])
+                recons = cli.pop("recons")
+                del cli["call"]
+                if not (recons.shape == (SENSE_SAMPLES, d.image_size,
+                                         d.image_size, 1)
+                        and np.isfinite(recons).all()):
+                    raise AssertionError(f"imported CLI: {recons.shape}, "
+                                         f"finite {np.isfinite(recons).all()}")
+                cli["chain_steps"] = MIGRATE_LEVELS * 3 * SENSE_SAMPLES
+                cli["chain_steps_per_s"] = cli["chain_steps"] / cli[
+                    "sampler_s"]
+                r["sense_cli"] = cli
+            for path in os.listdir(root):
+                if path.startswith(name):
+                    full = os.path.join(root, path)
+                    (shutil.rmtree if os.path.isdir(full) else os.remove)(
+                        full)
+            r["wall_s"] = time.perf_counter() - t_part
+            numbers[name] = r
+
+        # Continuous: NCSN++ FFHQ-256
+        t_part = time.perf_counter()
+        cfg = get_continuous_config(CONFIG)
+        src = seeded_weights(create_model(cfg), seed=0)
+        pth = os.path.join(root, "ncsnpp.pth")
+        torch.save(ncsnpp_reference_state(src, cfg), pth)
+        out = os.path.join(root, "ncsnpp_ckpts")
+        _, import_s = timed_import(["--ckpt_path", pth, "--continuous",
+                                    CONFIG, "--out_dir", out, "--device",
+                                    device])
+        got, step = restored(out, lambda: create_model(cfg))
+        size = cfg.data.image_size
+        x = torch.rand(1, size, size, cfg.data.num_channels, generator=gen)
+        if not (step == 0 and same_weights(got, src) and same_forward(
+                got, src, x, torch.tensor([0.5]), device)):
+            raise AssertionError("NCSN++: the imported net differs from the "
+                                 "source")
+        del got
+        fk.LAUNCHES.clear()
+        fl.LAUNCHES.clear()
+        t_sample = time.perf_counter()
+        samples, nfe, text = run_pc_sampling(pc_sampling, [
+            "--config", CONFIG, "--num_samples", str(BATCH), "--seed", "0",
+            "--ckpt_dir", out, "--device", str(device), "--override",
+            f"model.num_scales={CKPT_NUM_SCALES}", "--save_dir",
+            os.path.join(root, "samples")])
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t_sample
+        launches = {**fk.LAUNCHES, **fl.LAUNCHES}
+        per_forward, _ = fir_counts(cfg)
+        expect = {k: n * (CKPT_NUM_SCALES * 2 + 1)
+                  for k, n in per_forward.items()}
+        if not ("restored step 0 from" in text and dict(fk.LAUNCHES) ==
+                expect and nfe == CKPT_NUM_SCALES * 2
+                and np.isfinite(samples).all()):
+            raise AssertionError(f"pc_sampling on the import: launches "
+                                 f"{launches} (expected {expect}), nfe {nfe}")
+        numbers["ncsnpp"] = dict(
+            params=sum(p.numel() for p in src.parameters()),
+            pth_bytes=os.path.getsize(pth), import_s=import_s,
+            forward_equal=True, launches=launches, nfe=nfe,
+            sample_s=sample_s, wall_s=time.perf_counter() - t_part)
+        del src
+        shutil.rmtree(out, ignore_errors=True)
+        os.remove(pth)
+
+        # The feed: native, then --no_native_loader; TensorBoard
+        tb_ok, tb_error = tensorboard_importable()
+        numbers["tensorboard_importable"] = tb_ok
+        data_root = os.path.join(root, "no_data")
+        os.makedirs(data_root)
+        for name, flag in (("native", []), ("numpy", ["--no_native_loader"])):
+            rec, feed = {}, {}
+            log_root = os.path.join(root, f"train_{name}")
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            with timed_fit(train_ncsn, rec, "end_conv.bias"), \
+                    feed_probe(train_ncsn, feed, tensorboard=not flag), \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                state = train_ncsn.main([
+                    "--ds_name", "ACDC", "--mode", "real-imag", "--device",
+                    device, "--batch_size", str(MIGRATE_TRAIN_BATCH),
+                    "--log_dir", log_root, "--data_root", data_root,
+                    "--override",
+                    f"training.n_iters={MIGRATE_TRAIN_STEPS}"] + flag)
+            torch.cuda.synchronize()
+            r = dict(feed=feed["feed"], steps=state.step,
+                     s_per_step=float(np.mean(rec["step_s"][1:])),
+                     first_step_s=rec["step_s"][0],
+                     batch_wait_s=sum(feed["wait_s"]),
+                     batch_wait_max_s=max(feed["wait_s"]),
+                     batches=len(feed["batches"]), save_s=rec["save_s"],
+                     wall_s=time.perf_counter() - t_run,
+                     losses=rec["losses"])
+            del state
+            if r["feed"] != name or r["steps"] != MIGRATE_TRAIN_STEPS or \
+                    not np.isfinite(r["losses"]).all():
+                raise AssertionError(f"train_ncsn {flag}: {r}")
+            if name == "native":
+                data = feed["data"]
+                plain = reference_batches(
+                    data.shape[0], feed["batch_size"], shuffle=True,
+                    seed=feed["seed"], drop_last=True)
+                r["batches_equal_plain"] = all(
+                    np.array_equal(b, data[next(plain)])
+                    for b in feed["batches"])
+                if not r["batches_equal_plain"]:
+                    raise AssertionError("the native feed's batches differ "
+                                         "from the plain version's")
+                run_dir = os.path.join(log_root, "ACDC_Diffusion_real-imag")
+                with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                    records = [json.loads(line) for line in f]
+                want = {}
+                for rec_line in records:
+                    for k, v in rec_line.items():
+                        if k not in ("ts", "step"):
+                            want.setdefault(k, []).append(
+                                (rec_line["step"], np.float32(v)))
+                warned = [str(w.message) for w in caught
+                          if "TensorBoard export unavailable"
+                          in str(w.message)]
+                if tb_ok:
+                    events = read_scalars(os.path.join(run_dir, "tb"))
+                    got = {k: [(s, np.float32(v)) for s, v, _ in rows]
+                           for k, rows in events.items()}
+                    if not (got == want and want.get("train_loss")):
+                        raise AssertionError(f"TensorBoard events {got} vs "
+                                             f"metrics.jsonl {want}")
+                    r["tensorboard"] = dict(
+                        tags=sorted(got), scalars=sum(map(len, got.values())),
+                        equal_to_jsonl=True)
+                else:
+                    if not (len(warned) == 1 and want.get("train_loss") and
+                            not os.path.exists(os.path.join(run_dir, "tb"))):
+                        raise AssertionError(f"no TensorBoard: warnings "
+                                             f"{warned}, jsonl {want}")
+                    r["tensorboard"] = dict(error=tb_error, warned=warned[0],
+                                            jsonl_records=len(records))
+            numbers[f"train_{name}"] = r
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def report_migrate(mg: dict, t: float, sense_cps: float) -> None:
+    smi = mg["nvidia_smi"]
+    for name in ("acdc", "cine_1d"):
+        r = mg[name]
+        print(f"    {name}: {r['net']} ({r['params']} params): .ckpt "
+              f"{r['ckpt_bytes']} bytes written in {r['ckpt_save_s']:.2f} s; "
+              f"import_torch_checkpoint {r['import_s']:.2f} s (EMA), "
+              f"{r['import_raw_s']:.2f} s (--raw_weights, the raw copy); "
+              f"forward equal bit for bit; wall {r['wall_s']:.2f} s ({smi})",
+              flush=True)
+    cli = mg["acdc"]["sense_cli"]
+    pp = mg["ncsnpp"]
+    print(f"    acdc_SENSE_real_img --ckpt_dir (the import): "
+          f"{SENSE_SAMPLES} chains, {MIGRATE_LEVELS} levels x 3: sampler "
+          f"{cli['sampler_s']:.4f} s, {cli['chain_steps_per_s']:.2f} "
+          f"chain-steps/s (the sense phase's {sense_cps:.2f}), wall "
+          f"{cli['wall_s']:.2f} s", flush=True)
+    print(f"    ncsnpp: {pp['params']} params, .pth {pp['pth_bytes']} bytes, "
+          f"import {pp['import_s']:.2f} s, forward equal bit for bit; "
+          f"pc_sampling --ckpt_dir nfe {pp['nfe']} in {pp['sample_s']:.2f} s,"
+          f" launches {json.dumps(pp['launches'])}", flush=True)
+    for name in ("native", "numpy"):
+        r = mg[f"train_{name}"]
+        print(f"    train_ncsn ACDC batch {MIGRATE_TRAIN_BATCH}, {name} feed: "
+              f"{r['s_per_step']:.4f} s/step (first {r['first_step_s']:.2f} "
+              f"s excluded), batch wait {r['batch_wait_s']:.6f} s over "
+              f"{r['batches']} batches (max {r['batch_wait_max_s']:.6f}); "
+              f"wall {r['wall_s']:.2f} s" + (
+                  f"; batches equal the plain version's "
+                  f"{r['batches_equal_plain']}; TensorBoard "
+                  f"{json.dumps(r['tensorboard'])}"
+                  if name == "native" else ""), flush=True)
+    nat, npy = mg["train_native"], mg["train_numpy"]
+    say("migrate", t, f"import_torch_checkpoint at full width: ACDC "
+        f"NCSNv2Deepest {mg['acdc']['import_s']:.2f} s, CINE127_1D NCSN1D "
+        f"{mg['cine_1d']['import_s']:.2f} s, FFHQ-256 NCSN++ "
+        f"{pp['import_s']:.2f} s; each imported net's forward equals its "
+        f"source's bit for bit on the card, --raw_weights takes the raw "
+        f"copy; acdc_SENSE_real_img on the import "
+        f"{cli['chain_steps_per_s']:.2f} chain-steps/s (sense phase "
+        f"{sense_cps:.2f}); pc_sampling on the NCSN++ import: K1/K2 "
+        f"launches {json.dumps(pp['launches'])}; train_ncsn feed native "
+        f"{nat['s_per_step']:.4f} s/step (wait {nat['batch_wait_s']:.6f} s), "
+        f"numpy {npy['s_per_step']:.4f} (wait {npy['batch_wait_s']:.6f} s); "
+        f"torch.utils.tensorboard imports: {mg['tensorboard_importable']}; "
+        f"{smi}")
 
 
 def tiny_ode_card_vs_cpu(cfg, gate, tol: float, gen, device="cuda"
@@ -5130,12 +5642,40 @@ def report_int8(q: dict, t: float) -> None:
         f"launch")
 
 
+def seeded_once(seeded_weights):
+    """utils/convert.seeded_weights drawing each architecture's weights for
+    a seed once per process: a later net with the same modules, parameter
+    names and shapes, seed and scale gets a copy of the first draw. The
+    values are the same (the draws depend on those alone, on the CPU's
+    generator); the smoke builds its full-width nets tens of times, and a
+    draw of 94 M parameters takes seconds of one CPU core."""
+    drawn = {}
+
+    def seeded(model, seed, std_scale=1.0):
+        key = (seed, std_scale,
+               tuple((n, type(m).__name__) for n, m in model.named_modules()),
+               tuple((n, tuple(p.shape)) for n, p in model.named_parameters()))
+        if key not in drawn:
+            seeded_weights(model, seed, std_scale)
+            drawn[key] = {n: p.detach().cpu().clone()
+                          for n, p in model.named_parameters()}
+        else:
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(drawn[key][n])
+        return model
+
+    return seeded
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; this smoke "
                          "runs on the GPU only")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils import convert
+    convert.seeded_weights = seeded_once(convert.seeded_weights)
     from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
         get_continuous_config, make_sde)
     from inverseproblemwithdiffusionmodel_tpu_torch.models import create_model
@@ -5725,6 +6265,12 @@ def main() -> None:
     launches["guided"] = {}
     report_guided(gd, t)
 
+    # 18b. migrate ------------------------------------------------------------
+    t = time.perf_counter()
+    mg = migrate_phase(fk, fl)
+    launches["migrate"] = mg["ncsnpp"]["launches"]
+    report_migrate(mg, t, sn["sense"]["chain_steps_per_s"])
+
     # 19. int8 ----------------------------------------------------------------
     t = time.perf_counter()
     q8 = int8_phase(fk, fl, ik, srv["bf16"],
@@ -5736,7 +6282,7 @@ def main() -> None:
                       "cine_complex": cc, "train_ncsn": tn,
                       "train_bf16": tb, "sample_vp": sv,
                       "quickstart_3d": qs, "guided": gd, "natural": nt,
-                      "int8": q8}, default=str), flush=True)
+                      "migrate": mg, "int8": q8}, default=str), flush=True)
 
     for name, row in nt["ode_kernels"].items():
         summary[name]["err"] = max(summary[name]["err"], row["err"])

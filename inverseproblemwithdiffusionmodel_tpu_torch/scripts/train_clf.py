@@ -12,8 +12,9 @@ training.fit, with the same flags plus --device. The batch defaults to the
 config's training.clf_batch_size (MNIST: 512), the epochs to 10;
 --train_mode debug stops after 2 steps. No EMA is tracked. Checkpoints land
 under `<log_dir>/<ds_name>_Clf/ckpts`, which the guided CLIs read with
---clf_ckpt_dir. The native C++ batcher is not ported, so --num_workers
-changes nothing.
+--clf_ckpt_dir. --num_workers is accepted for the reference CLI's sake
+and unused, as in the JAX script: labeled batches come from the numpy
+iterator (the C++ batcher feeds unlabeled arrays only).
 """
 from __future__ import annotations
 

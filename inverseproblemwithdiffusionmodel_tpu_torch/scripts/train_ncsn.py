@@ -30,9 +30,10 @@ same flags plus --device. The run writes `desc.txt`, `metrics.jsonl` and
 checkpoints under `<log_dir>/<ds_name>_<task_name>_<mode>/ckpts`, which
 `serve_recon --ckpt_dir` (and `--ckpt_dir_T` for a temporal prior) serves
 from. The stop is `training.n_iters` (or 2 steps with --train_mode debug).
-Not ported: --use_mesh (ROADMAP: Slice P), which raises. The native C++
-batcher is not ported, so --no_native_loader and --num_workers change
-nothing.
+Batches come from the native C++ prefetch batcher (data/native_loader.py)
+where g++ builds it, else from numpy; --no_native_loader takes numpy.
+--num_workers is accepted for the reference CLI's sake and unused, as in
+the JAX script. Not ported: --use_mesh (ROADMAP: Slice P), which raises.
 """
 from __future__ import annotations
 
@@ -89,8 +90,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--override", action="append", default=[],
                    metavar="KEY=VALUE")
     p.add_argument("--no_native_loader", action="store_true",
-                   help="accepted for the JAX CLI's sake: the port feeds "
-                        "batches from numpy only")
+                   help="feed batches from the numpy iterator instead "
+                        "of the C++ prefetch batcher")
     p.add_argument("--if_centering", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="center inputs to [-1, 1] before collation (the "
@@ -171,7 +172,8 @@ def main(argv=None) -> TrainState:
     cfg = FitConfig(n_epochs=n_epochs, max_steps=max_steps,
                     log_dir=log_dir, seed=args.seed)
     state = fit(state, step,
-                make_train_iterator(train_data, batch_size, seed=args.seed),
+                make_train_iterator(train_data, batch_size, seed=args.seed,
+                                    prefer_native=not args.no_native_loader),
                 cfg, eval_step=eval_step,
                 val_iter_fn=batch_iterator(val_data, batch_size,
                                            shuffle=False, seed=0))

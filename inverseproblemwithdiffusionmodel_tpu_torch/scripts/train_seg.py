@@ -14,8 +14,10 @@ training.make_seg_train_step -> training.fit, with the same flags plus
 (ACDC: 64; 8 where a config has none), the epochs to 10; --train_mode
 debug stops after 2 steps. No EMA is tracked. Checkpoints land under
 `<log_dir>/<ds_name>_Seg/ckpts`, which the guided ACDC CLIs and
-serve_recon read with --seg_ckpt_dir. The native C++ batcher is not ported, so --num_workers
-changes nothing.
+serve_recon read with --seg_ckpt_dir. --num_workers is accepted for the
+reference CLI's sake and unused, as in the JAX script: labeled batches
+come from the numpy iterator (the C++ batcher feeds unlabeled arrays
+only).
 """
 from __future__ import annotations
 

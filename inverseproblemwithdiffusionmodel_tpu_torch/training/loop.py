@@ -5,9 +5,9 @@ Port of `MetricsLogger` (:21), `FitConfig` (:60), `fit` (:75),
 `make_train_iterator` (:163) and `batch_iterator` (:185) from
 inverseproblemwithdiffusionmodel_tpu/training/loop.py (reference:
 helpers/pl_helpers.py:355-399). Logging is a JSONL metrics stream, one line
-per event. The native C++ batcher of `make_train_iterator` is not ported:
-batches come from `batch_iterator`, the path the JAX package takes where
-its batcher does not build.
+per event, mirrored to TensorBoard on request. `make_train_iterator` feeds
+batches from the native C++ prefetch batcher (data/native_loader.py) where
+it builds, else from `batch_iterator`.
 """
 from __future__ import annotations
 
@@ -25,25 +25,38 @@ from .state import TrainState
 
 
 class MetricsLogger:
-    """Append-only JSONL scalar log (timestamp, step, **scalars)."""
+    """Append-only JSONL scalar log (timestamp, step, **scalars).
+
+    tensorboard=True additionally mirrors every scalar to a TB event file
+    under `<log_dir>/tb` (utils/tb_export.TBMirror), dashboard parity with
+    the reference's SummaryWriter logging (helpers/pl_helpers.py:361).
+    Existing jsonl runs convert after the fact with
+    `scripts/export_tensorboard.py`."""
 
     def __init__(self, log_dir: str, name: str = "metrics.jsonl",
                  tensorboard: bool = False):
-        if tensorboard:
-            raise NotImplementedError("a TensorBoard mirror of the metrics "
-                                      "is not ported yet (ROADMAP: Slice H)")
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, name)
         self._f = open(self.path, "a")
+        self._tb = None
+        if tensorboard:
+            from ..utils.tb_export import TBMirror
+            self._tb = TBMirror(os.path.join(log_dir, "tb"))
 
     def log(self, step: int, **scalars: float) -> None:
         rec = {"ts": time.time(), "step": int(step)}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+        if self._tb is not None:
+            self._tb.add(step, walltime=rec["ts"],
+                         **{k: v for k, v in rec.items()
+                            if k not in ("ts", "step")})
 
     def close(self):
         self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 @dataclass
@@ -57,7 +70,7 @@ class FitConfig:
     log_dir: str = "runs/default"
     keep_ckpts: int = 3
     resume: bool = True       # restore the latest checkpoint if one exists
-    tensorboard: bool = False  # not ported: raises
+    tensorboard: bool = False  # mirror the metrics to <log_dir>/tb
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -165,7 +178,28 @@ def batch_iterator(data: np.ndarray, batch_size: int, *, labels=None,
     return make
 
 
-# The training feed factory under the JAX package's name: the numpy
-# iterator (the JAX package's native C++ prefetch batcher is not ported,
-# ROADMAP: Slice E).
-make_train_iterator = batch_iterator
+def make_train_iterator(data: np.ndarray, batch_size: int, *,
+                        shuffle: bool = True, seed: int = 0,
+                        drop_last: bool = True, prefer_native: bool = True):
+    """Training feed factory: the C++ prefetch batcher
+    (native/batcher.cpp via data/native_loader.py, the reference's
+    DataLoader num_workers analog, helpers/pl_helpers.py:115) when it
+    builds on this host, else the numpy iterator. Unlabeled float arrays
+    only; labeled feeds use `batch_iterator(labels=...)`. The factory's
+    `feed` attribute says which was taken: "native" or "numpy"."""
+    if prefer_native:
+        try:
+            from ..data.native_loader import (native_available,
+                                              native_batch_iterator)
+            if native_available():
+                make = native_batch_iterator(
+                    np.asarray(data), batch_size, shuffle=shuffle,
+                    seed=seed, drop_last=drop_last)
+                make.feed = "native"
+                return make
+        except RuntimeError:
+            pass  # the batcher refused these data: the numpy path
+    make = batch_iterator(data, batch_size, shuffle=shuffle, seed=seed,
+                          drop_last=drop_last)
+    make.feed = "numpy"
+    return make

@@ -30,6 +30,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "fir_ab.py")
     yield os.path.join(ROOT, "int8_ab.py")
+    yield os.path.join(ROOT, "guided_gate.py")
 
 
 def _imported_roots(path):
@@ -119,6 +120,12 @@ def test_importing_the_port_loads_no_jax_module():
         "from inverseproblemwithdiffusionmodel_tpu_torch.models import "
         "ncsn, simple\n"
         "from inverseproblemwithdiffusionmodel_tpu_torch.sde import odeint\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.utils import "
+        "tb_export, torch_import\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.data import "
+        "native_loader\n"
+        "from inverseproblemwithdiffusionmodel_tpu_torch.scripts import "
+        "export_tensorboard, import_torch_checkpoint\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -155,7 +162,8 @@ RECON_SCRIPTS = ["acdc_SENSE_real_img",
                                     "train_ncsn --task_name Diffusion3D",
                                     "train_clf", "train_seg",
                                     "unconditioned_sampling --task_name "
-                                    "Diffusion3D --ds_name CINE127_1D"]
+                                    "Diffusion3D --ds_name CINE127_1D",
+                                    "import_torch_checkpoint"]
                          + RECON_SCRIPTS)
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path, script):
     script, *flags = script.split()
@@ -168,6 +176,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path, script):
         "train_ncsn": ["--ds_name", "ACDC", "--log_dir", str(tmp_path)],
         "train_clf": ["--log_dir", str(tmp_path)],
         "train_seg": ["--log_dir", str(tmp_path)],
+        "import_torch_checkpoint": ["--ckpt_path", str(tmp_path / "x.ckpt"),
+                                    "--ds_name", "ACDC", "--out_dir",
+                                    str(tmp_path / "ckpts")],
         **{name: save_dir for name in RECON_SCRIPTS},
     }.get(script, [])
     with pytest.raises(RuntimeError, match="no CUDA device"):
