@@ -93,8 +93,8 @@ phases, each printing one line with its own seconds:
    in the float32 mode: cuFFT's i2k / k2i against the pair DFT at 256 px;
    samplers.ald.ald_inverse_seg_proximal_real_imag against
    make_stepped_pair_reconstructor on the recon geometry (same weights,
-   CG 4, the same injected noise), level by level, gated after the first
-   level; the complex sampler card vs CPU at 32 px (ngf 8, 2 levels);
+   CG 4, the same injected noise; 4 levels), level by level, gated after
+   the first level; the complex sampler card vs CPU at 32 px (ngf 8, 2 levels);
    SENSE's adjointness on the card.
 10c. map_tv: the MAP and TV baselines at the ACDC geometry (NCSNv2Deepest
    256 px, ngf 128, seed 0; the ACDC loader's synthetic test slice),
@@ -288,6 +288,11 @@ phases, each printing one line with its own seconds:
    a seg-guided int8 engine (1 request), --workload cine --dtype int8 at
    the cine phase's (warm-up, 1 request over HTTP, 1 in-process; beside
    the cine phase's bf16 engine): K5-K7 launched, K1, K2 and K4 not.
+   Then int8_edge_checks: K5-K7 on inputs with a NaN, a +inf, a -inf (NaN
+   where the plain chain is: everywhere), K5 with a NaN or an inf at the
+   largest NCSNv2Deepest input, K5 bit for bit at tiny and misaligned
+   inputs, two calls in a row and in a replayed CUDA graph (K5's ticket
+   back at 0), and one CUDA kernel a K5 call (torch.profiler).
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -318,6 +323,7 @@ a TPU kernel.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import copy
@@ -368,14 +374,19 @@ SERVE_LEVELS = 2           # the serving phase's: cut from 8 to keep the
                            # then to 2 with `migrate`
 ACDC_CG_ITERS = 4
 ACDC_LR_SCALED = 5.0
-ACDC_REPS = 2              # timed runs after one warm-up; the fastest counts
-                           # (3 before the migrate phase)
+ACDC_REPS = 1              # timed runs after one warm-up; the fastest counts
+                           # (3 before the migrate phase, then 2; cut to
+                           # keep the smoke within its time)
 # The headline ACDC SENSE CLI (scripts/acdc_SENSE_real_img) at full width
 SENSE_SAMPLES = 16         # the headline run's chains (the net at batch 32)
 SENSE_LEVELS = 4           # --override recons.num_classes: of the ladder's
                            # 2311 (348 -> 0.01); 8 before the migrate phase
 SENSE_SIDE_SAMPLES = 4     # the single-coil and the guided runs
 SENSE_GATE_LEVEL = 0       # complex vs pair form gated after this level
+SENSE_CHECK_LEVELS = 4     # the complex vs pair form run's ladder (the
+                           # recon geometry's 8 before the CPU references
+                           # moved beside the card's work; cut to keep the
+                           # smoke within its time)
 FFT_REL_L2 = 1e-5          # cuFFT vs the pair DFT at 256 px, float32
 ADJOINT_REL = 1e-5         # <A x, y> vs <x, A^H y>, sums in complex128
 # The cine (2D+time) serving path: README's 128 px, T = 24, 4 coils, R = 8
@@ -480,8 +491,10 @@ VP_BF16_GRAD_CEIL = 6e-2
 VP_TRAIN_BATCH = 128       # the leaf's batch
 VP_PARITY_BATCH = 8        # card vs CPU and bf16 vs f32 steps
 VP_SAMPLES = 16
-VP_NUM_SCALES = 50         # of the leaves' 1000 (232 for ve/ncsnv2/cifar10);
-                           # 100 before the migrate phase
+VP_NUM_SCALES = 25         # of the leaves' 1000 (232 for ve/ncsnv2/cifar10);
+                           # 100 before the migrate phase, then 50; above
+                           # beta_max = 20, where the ancestral leaves'
+                           # discrete beta stays below 1
 VP_CKPT_NUM_SCALES = 10
 VP_SAMPLE_LEAVES = ["vp/cifar10_ncsnpp_continuous",
                     "vp/cifar10_ddpmpp_continuous", "vp/ddpm/cifar10",
@@ -496,16 +509,16 @@ NATURAL_SAMPLES = 16             # the ODE's and NCSN v1's samples
 # On the VP leaf the drift grows as 1 / std near t = eps, where the std
 # loses three digits to cancellation, and the last step overshoots to
 # t < 0, where the std is NaN: at the sampler's rtol 1e-5 a 1e-7
-# perturbation of the score moves the solve by about 1e-2 (the control),
-# so that run is reported beside its control and the VP gate runs at
-# ODE_VP_CHECK_TOL
+# perturbation of the score moves the solve by about 1e-2 (read with a
+# control, PERF.md), so the VP gate runs at ODE_VP_CHECK_TOL
 ODE_VE_CONFIG = "ve/cifar10_ncsnpp_continuous"
 ODE_REL_L2 = 1e-3
 ODE_VP_CHECK_TOL = 1e-6
 NATURAL_V1_CONFIG = "ve/ncsn/cifar10"
-NATURAL_V1_STEPS_EACH = 25       # ALD steps a level: of the leaf's 100, cut
+NATURAL_V1_STEPS_EACH = 10       # ALD steps a level: of the leaf's 100, cut
                                  # to keep the smoke within its time (50
-                                 # with the int8 phase, 25 with migrate)
+                                 # with the int8 phase, 25 with migrate,
+                                 # then 10)
 NATURAL_V1_STEPS = 5             # training.fit at the leaf's batch 128
 NATURAL_TRAIN_STEPS = 5          # train_ncsn --ds_name CELEBA at 128
 NATURAL_UNCOND_SAMPLES = 8
@@ -517,6 +530,16 @@ INT8_VS_F32 = 0.15         # int8 score vs float32: the JAX test's bound
                            # (tests/test_torch_int8.py)
 INT8_OPS_PER_S = 1979e12   # H100 SXM data sheet, int8 tensor cores, dense
 INT8_INT_MM_MAX_BYTES = 8 * 2 ** 30   # the unfold + _int_mm yardstick's A
+# K5-K7 beyond a forward's inputs (int8_edge_checks): small geometries
+# (N, C, spatial, O, k, dilation, pre_pad, ndim) for non-finite inputs,
+# sizes from below one 16-byte vector to several waves, byte offsets of x
+INT8_EDGE_CASES = [(2, 40, (9, 9), 16, 3, 1, None, 2),
+                   (9, 64, (24,), 32, 3, 1, None, 1)]
+INT8_NON_FINITE = {"nan": [math.nan], "+inf": [math.inf],
+                   "-inf": [-math.inf],
+                   "inf_and_nan": [math.inf, math.nan, -math.inf]}
+INT8_TINY = (1, 2, 3, 7, 8, 9, 15, 17, 1001, 4099, 65539, 3 * 2 ** 20 + 5)
+INT8_OFFSETS = (0, 2, 4, 8)
 INT8_TAGS = ("absmax", "quantize_s8", "conv_s8s8s32")
 QUANT = "inverseproblemwithdiffusionmodel_tpu/ops/quant.py"
 INT8_REPLACES = {"absmax": f"{QUANT}:93", "quantize_s8": f"{QUANT}:93",
@@ -603,10 +626,10 @@ def fir_counts(cfg) -> tuple:
     return count(fir_shapes(cfg)), count(bwd_shapes(cfg))
 
 
-def cuda_ms(fn, reps: int = 20, host: bool = False):
-    """Device ms per call by CUDA events, after 3 warm-up calls; with
+def cuda_ms(fn, reps: int = 20, host: bool = False, warmup: int = 3):
+    """Device ms per call by CUDA events, after `warmup` calls; with
     host=True also the host's ms per call to enqueue the work."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -691,7 +714,11 @@ def kernel_numbers(tag, C, R, k, fk, gen, batch):
     bf16 = tag.endswith(".bf16")
     base = tag[:-len(".bf16")] if bf16 else tag
     dtype = torch.bfloat16 if bf16 else torch.float32
-    x = torch.randn(batch, R, R, C, generator=gen).cuda().to(dtype)
+    # the inputs are drawn on the card, from a seed drawn from `gen`
+    card_gen = torch.Generator(device="cuda").manual_seed(
+        int(torch.randint(2 ** 31, (1,), generator=gen)))
+    x = torch.randn(batch, R, R, C, generator=card_gen,
+                    device="cuda").to(dtype)
     up_taps, dn_taps = fk._sep_kernel_1d(k, 2.0), fk._sep_kernel_1d(k, 1.0)
     if base in ("up2x", "down2x"):
         inp, taps = x, (up_taps if base == "up2x" else dn_taps)
@@ -700,8 +727,8 @@ def kernel_numbers(tag, C, R, k, fk, gen, batch):
     else:
         fwd = fk.upsample2x if base == "down2x.bwd" else fk.downsample2x
         R_out = 2 * R if base == "down2x.bwd" else R // 2
-        inp = torch.randn(batch, R_out, R_out, C,
-                          generator=gen).cuda().to(dtype)
+        inp = torch.randn(batch, R_out, R_out, C, generator=card_gen,
+                          device="cuda").to(dtype)
         taps = (up_taps if base == "down2x.bwd" else dn_taps)[::-1].copy()
 
         def check(v):
@@ -918,7 +945,40 @@ def run_pc_sampling(pc_sampling, argv):
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
-    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+    """||a - b|| / ||b||, summed in float64. Two float32 tensors are
+    subtracted in float32 (within 2^-24 of the difference itself), which
+    spares the float64 copies of a net's gradients."""
+    if not a.dtype == b.dtype == torch.float32:
+        a, b = a.double(), b.double()
+    norm = lambda v: torch.linalg.vector_norm(v, dtype=torch.float64)
+    return (norm(a - b) / norm(b)).item()
+
+
+class Background:
+    """fn(*args, **kwargs) on a thread of its own, for a CPU reference that
+    runs beside the card's work; `result()` joins it and re-raises what it
+    raised. It must make no CUDA call: the main thread may be capturing a
+    CUDA graph meanwhile. `seconds` is its own run time."""
+
+    def __init__(self, fn, *args, **kwargs):
+        self._out = {}
+
+        def run():
+            t_run = time.perf_counter()
+            try:
+                self._out["value"] = fn(*args, **kwargs)
+            except BaseException as err:     # re-raised by result()
+                self._out["error"] = err
+            self.seconds = time.perf_counter() - t_run
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
 
 
 def acdc_model(seed: int = 0):
@@ -944,7 +1004,8 @@ def ncsnv2_phase(fk, fl, device="cuda") -> dict:
     """NCSNv2Deepest at full width (256 px, ngf 128) through
     models/registry.make_score_fn on channel-last (B, 256, 256, 1) input,
     as the reconstruction calls it: card against CPU at batch 2 (the
-    ladder's first and last levels) in the float32 mode, then device ms at
+    ladder's first and last levels) in the float32 mode, the CPU's forward
+    on a thread of its own beside the card's timings; device ms at
     batch 32 (the reconstruction's) with torch's defaults and in bf16, and
     the peak memory of those calls. For the record, the same forwards in
     two other layouts: the bare permute of x, whose channels-last strides
@@ -964,22 +1025,23 @@ def ncsnv2_phase(fk, fl, device="cuda") -> dict:
     gen = torch.Generator().manual_seed(0)
     x = torch.rand(BATCH, size, size, 1, generator=gen)
     labels = torch.tensor([0, ACDC_LEVELS - 1])
+
+    def cpu_forward():
+        with torch.inference_mode():
+            return make_score_fn(model_cpu, sigmas)(x, labels)
+
+    # the CPU's forward runs beside the card's timings
+    ref = Background(cpu_forward)
     fk.LAUNCHES.clear()
     fl.LAUNCHES.clear()
     with torch.inference_mode(), float32_exact():
         out = make_score_fn(model, sigmas)(x.to(device),
                                            labels.to(device)).cpu()
-        ref = make_score_fn(model_cpu, sigmas)(x, labels)
     no_kernel_launches(fk, fl, "the NCSNv2Deepest forward")
-    rel = rel_l2(out, ref)
-    if not (torch.isfinite(out).all() and rel <= MODEL_REL_L2):
-        raise AssertionError(f"NCSNv2Deepest card vs CPU: rel L2 {rel}")
-    del model_cpu, ref
     nb = 2 * ACDC_CHAINS
     xb = torch.rand(nb, size, size, 1, generator=gen).to(device)
     lb = (torch.arange(nb) % ACDC_LEVELS).to(device)
-    numbers = dict(params=sum(p.numel() for p in model.parameters()),
-                   rel_l2=rel)
+    numbers = dict(params=sum(p.numel() for p in model.parameters()))
     with torch.inference_mode():
         for dtype, name in ((None, "f32"), (torch.bfloat16, "bf16")):
             score = make_score_fn(model, sigmas, dtype)
@@ -999,6 +1061,9 @@ def ncsnv2_phase(fk, fl, device="cuda") -> dict:
                 numbers[key] = dict(ms=ms, host_ms=host_ms,
                                     peak=torch.cuda.max_memory_allocated())
             del score, net, net_cl
+    numbers["rel_l2"] = rel = rel_l2(out, ref.result())
+    if not (torch.isfinite(out).all() and rel <= MODEL_REL_L2):
+        raise AssertionError(f"NCSNv2Deepest card vs CPU: rel L2 {rel}")
     return numbers
 
 
@@ -1055,18 +1120,21 @@ def recon_phase(fk, fl, device="cuda") -> dict:
     ended by a host read of |xr|.sum() + |xi|.sum() (bench.py:365-369),
     chain-steps/s from the fastest, peak memory, finite outputs; one level
     step of the float32 run under torch.profiler; the first inner step on
-    the card against the CPU, 1 chain, same noise, float32 mode."""
+    the card against the CPU, 1 chain, same noise, float32 mode
+    (recon_check_parts), the CPU side on a thread of its own from the
+    phase's start."""
     from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
         ALDConfig)
     from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald_pair import (
         make_stepped_pair_reconstructor)
-    from inverseproblemwithdiffusionmodel_tpu_torch.utils.misc import (
-        stack_parts)
-    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
-        float32_exact)
     cfg, model_cpu = acdc_model()
     model = copy.deepcopy(model_cpu)
     lin_tfm, proximal, sigmas, yr, yi = acdc_problem(cfg, device)
+    # the card-vs-CPU check's CPU side runs beside the timed runs
+    check_in = recon_check_inputs(cfg, yr, yi)
+    cpu_side = Background(recon_check_parts, model_cpu, sigmas,
+                          lin_tfm.to("cpu"), proximal.to("cpu"), check_in,
+                          "cpu")
     n_steps = cfg.sampling.n_steps_each
     ald_cfg = ALDConfig(n_steps_each=n_steps, step_lr=cfg.sampling.step_lr)
     chain_steps = ACDC_LEVELS * n_steps * ACDC_CHAINS
@@ -1109,57 +1177,78 @@ def recon_phase(fk, fl, device="cuda") -> dict:
         raise AssertionError(f"bf16 reconstruction vs float32: rel L2 "
                              f"{numbers['bf16_vs_f32_rel_l2']}")
 
-    # Card against CPU on the reconstruction's own tensors: one chain, the
-    # float32 mode, the same injected noise. Parts: the score at the chain
-    # start (the interleaved batch of 2, channel-last) at the first and the
-    # last level; the proximal's correction prox(z) - z at the step's c
-    # from z = 0 (from the z of a step the correction is about 1e-6 of
-    # |z|, and float32's rounding of z, 6e-8 of |z|, moves it by percents
-    # on either device) and at c = 1 from
-    # z = the start plus level 0's noise, where A^H A moves x by about a
-    # tenth and the normal kernel and the CG show; the whole inner step at
-    # the first and the last level.
-    one = ALDConfig(n_steps_each=1, step_lr=cfg.sampling.step_lr,
-                    denoise=False)
-    gen = torch.Generator().manual_seed(5)
-    shape = (1,) + tuple(yr.shape[2:])
-    draws = [torch.randn(shape, generator=gen) for _ in range(2)]
-    last = ACDC_LEVELS - 1
-    results = []
-    with float32_exact():
-        for dev, net in ((device, model), ("cpu", model_cpu)):
-            recon = make_stepped_pair_reconstructor(
-                net, sigmas, lin_tfm, proximal, one,
-                lr_scaled=ACDC_LR_SCALED, device=dev)
-            n_re, n_im = (d.to(dev) for d in draws)
-            s0 = float(one.step_lr * (recon.sigmas[0] / recon.sigmas[-1]) ** 2)
-            got = {}
-            with torch.inference_mode():
-                y1 = yr[:, :1].to(dev), yi[:, :1].to(dev)
-                xr, xi, prox = recon.start(*y1)
-                stacked = stack_parts(xr, xi)
-                for c in (0, last):
-                    got[f"score_level{c}"] = (recon.score_fn(
-                        stacked, torch.full((2,), c, device=dev)),)
-                    it = iter((n_re, n_im))
-                    got[f"step_level{c}"] = recon.level_step(
-                        prox, xr, xi, *y1, c, lambda s: next(it))
-                zero = torch.zeros_like(xr)
-                got["prox_step_c_from_0"] = prox(
-                    zero, zero, *y1, one.step_lr * ACDC_LR_SCALED, 1.0)
-                amp = (2 * s0) ** 0.5
-                zr, zi = xr + amp * n_re, xi + amp * n_im
-                pr, pi = prox(zr, zi, *y1, 1.0, 1.0)
-                got["prox_c1_correction"] = (pr - zr, pi - zi)
-            results.append({k: [v.cpu() for v in vs]
-                            for k, vs in got.items()})
-    card, cpu = results
+    card = recon_check_parts(model, sigmas, lin_tfm, proximal,
+                             check_in, device)
+    cpu = cpu_side.result()
     numbers["card_vs_cpu_rel_l2"] = checks = {
         k: max(rel_l2(a, b) for a, b in zip(card[k], cpu[k])) for k in card}
     failed = {k: v for k, v in checks.items() if not v <= MODEL_REL_L2}
     if failed:
         raise AssertionError(f"reconstruction card vs CPU: rel L2 {failed}")
     return numbers
+
+
+def recon_check_inputs(cfg, yr, yi) -> dict:
+    """recon_check_parts' inputs: one chain's measurement and two noise
+    draws (seed 5), on the CPU."""
+    gen = torch.Generator().manual_seed(5)
+    shape = (1,) + tuple(yr.shape[2:])
+    return dict(cfg=cfg, y1=(yr[:, :1].cpu(), yi[:, :1].cpu()),
+                draws=[torch.randn(shape, generator=gen) for _ in range(2)])
+
+
+def recon_check_parts(net, sigmas, lin_tfm, proximal, inp: dict,
+                      dev) -> dict:
+    """The reconstruction's parts on `dev` (on the card in the float32
+    mode), for card against CPU on its own tensors: one chain, the same
+    injected noise. Parts: the score at the chain start (the interleaved
+    batch of 2, channel-last) at the first and the last level; the
+    proximal's correction prox(z) - z at the step's c from z = 0 (from the
+    z of a step the correction is about 1e-6 of |z|, and float32's
+    rounding of z, 6e-8 of |z|, moves it by percents on either device) and
+    at c = 1 from z = the start plus level 0's noise, where A^H A moves x
+    by about a tenth and the normal kernel and the CG show; the whole
+    inner step at the first and the last level. On the CPU it makes no
+    CUDA call (it may run on a thread of its own): `lin_tfm` and
+    `proximal` are then the card's, copied to the CPU."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
+        ALDConfig)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald_pair import (
+        make_stepped_pair_reconstructor)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.misc import (
+        stack_parts)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    cfg = inp["cfg"]
+    one = ALDConfig(n_steps_each=1, step_lr=cfg.sampling.step_lr,
+                    denoise=False)
+    last = ACDC_LEVELS - 1
+    mode = contextlib.nullcontext() if str(dev) == "cpu" else float32_exact()
+    with mode:
+        recon = make_stepped_pair_reconstructor(
+            net, sigmas, lin_tfm, proximal, one,
+            lr_scaled=ACDC_LR_SCALED, device=dev)
+        n_re, n_im = (d.to(dev) for d in inp["draws"])
+        s0 = float(one.step_lr * (recon.sigmas[0] / recon.sigmas[-1]) ** 2)
+        got = {}
+        with torch.inference_mode():
+            y1 = tuple(v.to(dev) for v in inp["y1"])
+            xr, xi, prox = recon.start(*y1)
+            stacked = stack_parts(xr, xi)
+            for c in (0, last):
+                got[f"score_level{c}"] = (recon.score_fn(
+                    stacked, torch.full((2,), c, device=dev)),)
+                it = iter((n_re, n_im))
+                got[f"step_level{c}"] = recon.level_step(
+                    prox, xr, xi, *y1, c, lambda s: next(it))
+            zero = torch.zeros_like(xr)
+            got["prox_step_c_from_0"] = prox(
+                zero, zero, *y1, one.step_lr * ACDC_LR_SCALED, 1.0)
+            amp = (2 * s0) ** 0.5
+            zr, zi = xr + amp * n_re, xi + amp * n_im
+            pr, pi = prox(zr, zi, *y1, 1.0, 1.0)
+            got["prox_c1_correction"] = (pr - zr, pi - zi)
+    return {k: [v.cpu() for v in vs] for k, vs in got.items()}
 
 
 def serve_argv(dtype: str) -> list:
@@ -1614,22 +1703,19 @@ def cine_phase(fk, fl, device="cuda") -> dict:
     memory. A profiled level step of the f32 engine. The full-width
     NCSN1D forward and one inner step at a temporal level (one chain,
     shift off and on, the same injected noise and shift) card against
-    CPU in the float32 mode. None of K1, K2 or K4 launches."""
+    CPU in the float32 mode (cine_check_parts; the CPU side on a thread
+    of its own after the f32 engine's in-process request, so the bf16
+    engine's numbers are read beside it). None of K1, K2 or K4
+    launches."""
     from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
-    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
-        make_score_fn)
     from inverseproblemwithdiffusionmodel_tpu_torch.operators.fourier import (
         MASK_PRESETS, _exp_sens_map)
     from inverseproblemwithdiffusionmodel_tpu_torch.operators.masks import (
         generate_mask)
-    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
-        ALDConfig)
     from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald_pair import (
         make_stepped_2d_time_pair_reconstructor)
     from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
         serve_recon)
-    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
-        float32_exact)
     cfg = load_config("CINE127", "real-imag")
     size, T = cfg.data.image_size, CINE_FRAMES
     mask, maps, y_re, y_im = cine_problem(size, T)
@@ -1677,6 +1763,17 @@ def cine_phase(fk, fl, device="cuda") -> dict:
                                  f"{tuple(prox.kernel_re.shape)}")
         res = eng.reconstruct(y_re, y_im, seed=3, lamda_T=CINE_LAMDA_T)
         outputs[name] = (res.x_re, res.x_im)
+        if name == "f32":
+            # the card-vs-CPU check's CPU side runs beside the rest of the
+            # phase; the spatial step sees the same frames with the shift
+            # off and on, so the CPU's spatial net computes them once
+            check_in = cine_check_inputs(cfg, mask, maps, y_re, y_im)
+            cpu_S = copy.deepcopy(eng.model_S).cpu()
+            cpu_S.forward = reuse_last(cpu_S.forward)
+            cpu_side = Background(
+                cine_check_parts, cpu_S, copy.deepcopy(eng.model_T).cpu(),
+                torch.as_tensor(eng.sigmas_S).cpu(),
+                torch.as_tensor(eng.sigmas_T).cpu(), check_in, "cpu")
         stats = eng.stats()
         want = (CINE_CHAINS, T, size, size, 1)
         if (stats["input_signatures"] != 1 or stats["requests"] != 4
@@ -1742,59 +1839,74 @@ def cine_phase(fk, fl, device="cuda") -> dict:
                              f"{numbers['bf16_vs_f32_rel_l2']}")
     torch.cuda.empty_cache()
 
-    # Card against CPU, float32 mode. The full-width NCSN1D through
-    # make_score_fn on channel-last tubes at the first temporal level and
-    # the last; one inner step at CINE_CHECK_LEVEL on one chain of T
-    # frames, the same injected noise (the frames' Re and Im, then the
-    # tubes') and, with the random shift on, the same roll.
-    cpu_S = copy.deepcopy(model_S).cpu()
-    cpu_T = copy.deepcopy(model_T).cpu()
-    # the spatial step sees the same frames with the shift off and on: the
-    # CPU's spatial net computes them once
-    cpu_S.forward = reuse_last(cpu_S.forward)
-    gen = torch.Generator().manual_seed(8)
-    tubes = torch.rand(64, T, CINE_WIN ** 2, generator=gen)
-    labels = torch.tensor([57, 342] * 32)
-    outs = []
-    with torch.inference_mode(), float32_exact():
-        for dev, net in ((device, model_T), ("cpu", cpu_T)):
-            outs.append(make_score_fn(net, sigmas_T)(
-                tubes.to(dev), labels.to(dev)).cpu())
-    checks = {"ncsn1d_forward": rel_l2(*outs)}
-    lin1, prox1, y1_re, y1_im = cine_tiled(mask, maps, y_re, y_im, 1, "cpu")
-    frames = (T, size, size, 1)
-    tube_shape = ((size // CINE_WIN) ** 2, T, CINE_WIN ** 2)
-    draws = [torch.randn(shp, generator=gen)
-             for shp in (frames, frames, tube_shape, tube_shape)]
-    one = ALDConfig(n_steps_each=1, step_lr=cfg.sampling.step_lr)
-    cpu_s = 0.0
-    for shift_on in (False, True):
-        steps = []
-        for dev, nets in ((device, (model_S, model_T)),
-                          ("cpu", (cpu_S, cpu_T))):
-            t_dev = time.perf_counter()
-            recon = make_stepped_2d_time_pair_reconstructor(
-                *nets, sigmas_S, sigmas_T, lin1, prox1, one,
-                lr_scaled=5.0, if_random_shift=shift_on, win_size=CINE_WIN,
-                num_frames=T, device=dev)
-            it = iter(d.to(dev) for d in draws)
-            with torch.inference_mode(), float32_exact():
-                y1 = y1_re.to(dev), y1_im.to(dev)
-                xr, xi, prox = recon.start(*y1)
-                steps.append([v.cpu() for v in recon.level_step(
-                    prox, xr, xi, *y1, CINE_CHECK_LEVEL, lambda s: next(it),
-                    lambda win: (3, 5))])
-            if dev == "cpu":
-                cpu_s += time.perf_counter() - t_dev
-        checks[f"inner_step_shift_{'on' if shift_on else 'off'}"] = max(
-            rel_l2(a, b) for a, b in zip(*steps))
+    card = cine_check_parts(model_S, model_T, sigmas_S, sigmas_T,
+                            check_in, device)
+    cpu = cpu_side.result()
+    checks = {k: max(rel_l2(a, b) for a, b in zip(card[k], cpu[k]))
+              for k in card}
     numbers["card_vs_cpu_rel_l2"] = checks
-    numbers["cpu_check_s"] = cpu_s
+    numbers["cpu_check_s"] = cpu_side.seconds
     numbers["cpu_spatial_reused"] = cpu_S.forward.reused
     failed = {k: v for k, v in checks.items() if not v <= MODEL_REL_L2}
     if failed:
         raise AssertionError(f"cine card vs CPU: rel L2 {failed}")
     return numbers
+
+
+def cine_check_inputs(cfg, mask, maps, y_re, y_im) -> dict:
+    """cine_check_parts' inputs, on the CPU: 64 tubes and their levels
+    (seed 8), one chain's operator, proximal and measurement, and the
+    inner step's noise draws."""
+    size, T = cfg.data.image_size, CINE_FRAMES
+    gen = torch.Generator().manual_seed(8)
+    tubes = torch.rand(64, T, CINE_WIN ** 2, generator=gen)
+    lin1, prox1, y1_re, y1_im = cine_tiled(mask, maps, y_re, y_im, 1, "cpu")
+    frames = (T, size, size, 1)
+    tube_shape = ((size // CINE_WIN) ** 2, T, CINE_WIN ** 2)
+    return dict(cfg=cfg, tubes=tubes, labels=torch.tensor([57, 342] * 32),
+                lin1=lin1, prox1=prox1, y1=(y1_re, y1_im),
+                draws=[torch.randn(shp, generator=gen) for shp in
+                       (frames, frames, tube_shape, tube_shape)])
+
+
+def cine_check_parts(model_S, model_T, sigmas_S, sigmas_T, inp: dict,
+                     dev) -> dict:
+    """Card against CPU, float32 mode: the full-width NCSN1D through
+    make_score_fn on channel-last tubes at the first temporal level and
+    the last; one inner step at CINE_CHECK_LEVEL on one chain of T frames,
+    the same injected noise (the frames' Re and Im, then the tubes') and,
+    with the random shift on, the same roll. On the CPU it makes no CUDA
+    call (it may run on a thread of its own): the nets and ladders are then
+    CPU copies."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        make_score_fn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
+        ALDConfig)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald_pair import (
+        make_stepped_2d_time_pair_reconstructor)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    mode = contextlib.nullcontext() if str(dev) == "cpu" else float32_exact()
+    one = ALDConfig(n_steps_each=1, step_lr=inp["cfg"].sampling.step_lr)
+    out = {}
+    with mode:
+        with torch.inference_mode():
+            out["ncsn1d_forward"] = [make_score_fn(model_T, sigmas_T)(
+                inp["tubes"].to(dev), inp["labels"].to(dev)).cpu()]
+        for shift_on in (False, True):
+            recon = make_stepped_2d_time_pair_reconstructor(
+                model_S, model_T, sigmas_S, sigmas_T, inp["lin1"],
+                inp["prox1"], one, lr_scaled=5.0, if_random_shift=shift_on,
+                win_size=CINE_WIN, num_frames=CINE_FRAMES, device=dev)
+            it = iter(d.to(dev) for d in inp["draws"])
+            with torch.inference_mode():
+                y1 = tuple(v.to(dev) for v in inp["y1"])
+                xr, xi, prox = recon.start(*y1)
+                out[f"inner_step_shift_{'on' if shift_on else 'off'}"] = [
+                    v.cpu() for v in recon.level_step(
+                        prox, xr, xi, *y1, CINE_CHECK_LEVEL,
+                        lambda s: next(it), lambda win: (3, 5))]
+    return out
 
 
 def profile_level(recon, yr, yi, n_steps, device, level: int = 0) -> dict:
@@ -1986,7 +2098,8 @@ def train_ncsn_phase(fk, fl, device="cuda", override=()) -> dict:
     loaded, one finite request (256 px, R = 8, 4 coils, 8 levels). Then
     `train_step_checks`: one ACDC step at batch 1 (2 rows) and one
     CINE127_1D step at batch 8 tubes, card against CPU and bf16 against
-    f32. None of K1, K2 or K4 launches. `override` adds --override flags
+    f32, the CPU side on a thread of its own from the phase's start. None
+    of K1, K2 or K4 launches. `override` adds --override flags
     to every train_ncsn run and config (a rehearsal at a tiny size)."""
     from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
     from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
@@ -2005,6 +2118,8 @@ def train_ncsn_phase(fk, fl, device="cuda", override=()) -> dict:
                                     override),
             "cine": apply_overrides(load_config("CINE127_1D", "real-imag"),
                                     override)}
+    # train_step_checks' CPU side runs beside the training runs
+    step_cpu = train_step_cpu_start(cfgs)
     watch = "end_conv.bias"
     numbers = dict(runs={})
     root = tempfile.mkdtemp(prefix="chip_smoke_train_ncsn_")
@@ -2142,36 +2257,19 @@ def train_ncsn_phase(fk, fl, device="cuda", override=()) -> dict:
     no_kernel_launches(fk, fl, "the train_ncsn phase")
     torch.cuda.empty_cache()
 
-    numbers.update(train_step_checks(cfgs, device))
+    numbers.update(train_step_checks(cfgs, device, step_cpu))
     return numbers
 
 
-def train_step_checks(cfgs: dict, device="cuda") -> dict:
-    """One discrete train step of each net of `cfgs` ("acdc", "cine") from
-    the same weights (seed 0), batch, phi, labels and noise: on the card
-    and on the CPU in float32 mode, and on the card in bf16. Gates: card
-    against CPU, the loss, the gradient and the Adam update (the
-    parameters and the EMA after the step are reported: the start weights
-    dominate both); a control, the CPU gradient with Gaussian noise of rel
-    L2 CONTROL_GRAD_REL stepped by a fresh optimizer, must read an update
-    above the update's gate; bf16 against f32 on the card, the loss within
-    BF16_LOSS_REL and the gradient at least BF16_GRAD_FLOOR away (the step
-    really ran in bf16)."""
+def train_step_inputs(cfgs: dict) -> dict:
+    """train_step_checks' inputs for each net of `cfgs` ("acdc", "cine"):
+    the batch, phi, labels and noise, drawn from seed 9, and the ladder."""
     import math
-    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
-        load_model)
     from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
         get_sigmas)
-    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
-        TrainState, get_optimizer, make_score_train_step)
-    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
-        float32_exact)
     gen = torch.Generator().manual_seed(9)
-    checks, cpu_s = {}, 0.0
+    inputs = {}
     for kind, cfg in cfgs.items():
-        task = "Diffusion" if kind == "acdc" else "Diffusion1D"
-        model, _ = load_model(cfg, task, seed=0)
-        w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
         if kind == "acdc":
             s = cfg.data.image_size
             batch = torch.rand(1, s, s, cfg.data.channels, generator=gen)
@@ -2180,44 +2278,87 @@ def train_step_checks(cfgs: dict, device="cuda") -> dict:
                                generator=gen)
             batch[4:] = 0.5      # background tubes: the filter drops them
         sigmas = get_sigmas(cfg)
-        draws = dict(
+        inputs[kind] = dict(batch=batch, sigmas=sigmas, draws=dict(
             phi=(torch.rand(len(batch), generator=gen) * 2 - 1) * math.pi,
             labels=torch.randint(0, len(sigmas), (2 * len(batch),),
                                  generator=gen),
             noise=torch.randn((2 * len(batch),) + batch.shape[1:],
-                              generator=gen))
-        vec = lambda tensors: torch.cat([t.detach().reshape(-1).cpu()
-                                         for t in tensors])
-        out = {}
-        for run, dev, dtype in (("card", device, None), ("cpu", "cpu", None),
-                                ("card_bf16", device, torch.bfloat16)):
-            model.load_state_dict(w0)
-            model.to(dev)
-            state = TrainState.create(model, get_optimizer(cfg),
-                                      ema_decay=cfg.model.ema_rate)
-            step = make_score_train_step(
-                model, sigmas, data_mode="real-imag",
-                anneal_power=cfg.training.anneal_power,
-                filter_th=cfg.data.th if kind == "cine" else None,
-                compute_dtype=dtype, if_centering=True)
-            t_dev = time.perf_counter()
-            with float32_exact():
-                state, loss = step(state, batch.to(dev), **{
-                    k: v.to(dev) for k, v in draws.items()})
-            if dev == "cpu":
-                cpu_s += time.perf_counter() - t_dev
-            out[run] = dict(
-                loss=float(loss),
+                              generator=gen)))
+    return inputs
+
+
+def train_step_model(cfg, kind: str):
+    """The net of train_step_checks' `kind`, weights from seed 0."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        load_model)
+    task = "Diffusion" if kind == "acdc" else "Diffusion1D"
+    return load_model(cfg, task, seed=0)[0]
+
+
+def vec(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1).cpu() for t in tensors])
+
+
+def train_step_run(cfg, kind: str, inp: dict, dev, dtype=None,
+                   model=None) -> dict:
+    """One discrete train step of train_step_checks' net `kind` (`model`,
+    made here where None) on `dev` in `dtype` (None: float32; on the card
+    in the float32 mode): the loss, the gradients, the parameters and the
+    EMA after it."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        TrainState, get_optimizer, make_score_train_step)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    model = (model or train_step_model(cfg, kind)).to(dev)
+    state = TrainState.create(model, get_optimizer(cfg),
+                              ema_decay=cfg.model.ema_rate)
+    step = make_score_train_step(
+        model, inp["sigmas"], data_mode="real-imag",
+        anneal_power=cfg.training.anneal_power,
+        filter_th=cfg.data.th if kind == "cine" else None,
+        compute_dtype=dtype, if_centering=True)
+    # the TF32 flags are the card's alone, and process-wide: a CPU step,
+    # which may run on a thread of its own, leaves them alone
+    mode = contextlib.nullcontext() if str(dev) == "cpu" else float32_exact()
+    with mode:
+        state, loss = step(state, inp["batch"].to(dev), **{
+            k: v.to(dev) for k, v in inp["draws"].items()})
+    return dict(loss=float(loss),
                 grads=vec(p.grad for p in model.parameters()),
                 params=vec(model.parameters()),
                 ema=vec(state.ema.params.values()))
-            del state, step
-        # the control: the CPU gradient plus noise, one fresh Adam step
-        g = out["cpu"]["grads"]
-        noisy = g + torch.randn(g.shape, generator=gen, dtype=g.dtype) * (
-            CONTROL_GRAD_REL * g.norm() / math.sqrt(g.numel()))
-        model.load_state_dict(w0)
-        model.to("cpu")
+
+
+def train_step_cpu_start(cfgs: dict) -> tuple:
+    """Start train_step_checks' CPU side on a thread of its own
+    (Background): returns (the inputs, the Background). The nets are made
+    here, on the calling thread: a module's default initialization draws
+    from torch's global generator, which the thread leaves alone."""
+    inputs = train_step_inputs(cfgs)
+    models = {kind: [train_step_model(cfg, kind) for _ in range(2)]
+              for kind, cfg in cfgs.items()}
+    return inputs, Background(train_step_cpu, cfgs, inputs, models)
+
+
+def train_step_cpu(cfgs: dict, inputs: dict, models: dict) -> dict:
+    """train_step_checks' CPU side: per net, the CPU step (train_step_run,
+    on the first of `models`) and the control, the CPU gradient with
+    Gaussian noise of rel L2 CONTROL_GRAD_REL (seed 10) stepped by a fresh
+    optimizer on the second: the noisy gradient and the parameters after
+    it."""
+    import math
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        TrainState, get_optimizer)
+    out = {}
+    for kind, cfg in cfgs.items():
+        cpu = train_step_run(cfg, kind, inputs[kind], "cpu",
+                             model=models[kind][0])
+        g = cpu["grads"]
+        noisy = g + torch.randn(
+            g.shape, generator=torch.Generator().manual_seed(10),
+            dtype=g.dtype) * (CONTROL_GRAD_REL * g.norm()
+                              / math.sqrt(g.numel()))
+        model = models[kind][1]
         state = TrainState.create(model, get_optimizer(cfg),
                                   ema_decay=cfg.model.ema_rate)
         offset = 0
@@ -2225,20 +2366,51 @@ def train_step_checks(cfgs: dict, device="cuda") -> dict:
             p.grad = noisy[offset:offset + p.numel()].view_as(p).clone()
             offset += p.numel()
         state.apply_gradients()
-        control = vec(model.parameters())
-        del state
-        card, cpu = out["card"], out["cpu"]
+        out[kind] = dict(cpu=cpu, noisy=noisy,
+                         control=vec(model.parameters()))
+        del state, model, models[kind]
+    return out
+
+
+def train_step_checks(cfgs: dict, device="cuda", cpu_ref=None) -> dict:
+    """One discrete train step of each net of `cfgs` ("acdc", "cine") from
+    the same weights (seed 0), batch, phi, labels and noise
+    (train_step_inputs): on the card and on the CPU in float32 mode, and on
+    the card in bf16. Gates: card against CPU, the loss, the gradient and
+    the Adam update (the parameters and the EMA after the step are
+    reported: the start weights dominate both); a control, the CPU
+    gradient with Gaussian noise of rel L2 CONTROL_GRAD_REL stepped by a
+    fresh optimizer, must read an update above the update's gate; bf16
+    against f32 on the card, the loss within BF16_LOSS_REL and the
+    gradient at least BF16_GRAD_FLOOR away (the step really ran in bf16).
+    `cpu_ref`: train_step_cpu_start's, started earlier so that the CPU side
+    runs beside other card work; started and waited for here where None."""
+    inputs, worker = cpu_ref or train_step_cpu_start(cfgs)
+    card_runs = {}
+    for kind, cfg in cfgs.items():
+        card_runs[kind] = dict(
+            card=train_step_run(cfg, kind, inputs[kind], device),
+            card_bf16=train_step_run(cfg, kind, inputs[kind], device,
+                                     torch.bfloat16))
+        torch.cuda.empty_cache()
+    cpu_side = worker.result()
+    checks = {}
+    for kind, cfg in cfgs.items():
+        w0 = train_step_model(cfg, kind).state_dict()
         p0 = torch.cat([v.reshape(-1) for v in w0.values()])
+        card, bf16 = card_runs[kind]["card"], card_runs[kind]["card_bf16"]
+        cpu, noisy = cpu_side[kind]["cpu"], cpu_side[kind]["noisy"]
+        control = cpu_side[kind]["control"]
         c = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
              "grads": rel_l2(card["grads"], cpu["grads"]),
              "update": rel_l2(card["params"] - p0, cpu["params"] - p0),
              "params": rel_l2(card["params"], cpu["params"]),
              "ema": rel_l2(card["ema"], cpu["ema"]),
-             "control_grads": rel_l2(noisy, g),
+             "control_grads": rel_l2(noisy, cpu["grads"]),
              "control_update": rel_l2(control - p0, cpu["params"] - p0),
-             "bf16_loss": abs(out["card_bf16"]["loss"] - card["loss"])
+             "bf16_loss": abs(bf16["loss"] - card["loss"])
              / abs(card["loss"]),
-             "bf16_grads": rel_l2(out["card_bf16"]["grads"], card["grads"])}
+             "bf16_grads": rel_l2(bf16["grads"], card["grads"])}
         checks[kind] = c
         failed = {k: c[k] for k, gate in (
             ("loss", TRAIN_LOSS_REL), ("grads", MODEL_REL_L2),
@@ -2251,9 +2423,7 @@ def train_step_checks(cfgs: dict, device="cuda") -> dict:
         if failed:
             raise AssertionError(f"train step {kind}, card vs CPU or bf16 "
                                  f"vs f32: {failed} (all: {c})")
-        del model, out
-        torch.cuda.empty_cache()
-    return {"card_vs_cpu": checks, "cpu_check_s": cpu_s}
+    return {"card_vs_cpu": checks, "cpu_check_s": worker.seconds}
 
 
 @contextlib.contextmanager
@@ -2343,16 +2513,17 @@ def fit_run(fk, fl, cfg, model, compute_dtype, batch: int, steps: int,
                 params=sum(p.numel() for p in model.parameters()))
 
 
-def step_pair(cfg, weights, x, t, z, device, compute_dtype=None):
-    """One continuous step on a fresh copy of `weights`: its loss and its
-    clipped gradients, flattened, on the CPU."""
+def step_pair(cfg, weights, x, t, z, device, compute_dtype=None, net=None):
+    """One continuous step on a fresh copy of `weights` (loaded into `net`,
+    made here where None): its loss and its clipped gradients, flattened,
+    on the CPU."""
     from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
         make_sde)
     from inverseproblemwithdiffusionmodel_tpu_torch.models import (
         create_model)
     from inverseproblemwithdiffusionmodel_tpu_torch.training import (
         TrainState, get_optimizer, make_continuous_score_train_step)
-    net = create_model(cfg)
+    net = net or create_model(cfg)
     net.load_state_dict(weights)
     net.to(device)
     st = TrainState.create(net, get_optimizer(cfg), ema_decay=None)
@@ -2389,8 +2560,9 @@ def train_bf16_phase(fk, fl, device="cuda") -> dict:
     batch 8 in bf16 (the f32 `train` phase's run), and the CIFAR-10 VP
     NCSN++ (vp/cifar10_ncsnpp_continuous at full width) at the leaf's batch
     128 in f32 and bf16; seeded weights and data, TRAIN_STEPS steps each.
-    Then one CIFAR-10 VP step at batch 8 card vs CPU in the float32 mode,
-    and bf16 vs f32 on the card (dropout 0 for both comparisons), with a
+    Then one CIFAR-10 VP step at batch 8 card vs CPU in the float32 mode
+    (the CPU side on a thread of its own from the phase's start), and
+    bf16 vs f32 on the card (dropout 0 for both comparisons), with a
     control: the bf16 step with the FIR backward halved must read beyond
     the gradient's ceiling."""
     from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
@@ -2402,6 +2574,20 @@ def train_bf16_phase(fk, fl, device="cuda") -> dict:
     from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
         float32_exact)
     out = {}
+    # the VP step's CPU side runs beside the training runs (its net made
+    # here: a module's default initialization draws from torch's global
+    # generator, which the thread leaves alone)
+    cfg = get_continuous_config(VP_CONFIG).replace(**{"model.dropout": 0.0})
+    weights = seeded_weights(create_model(cfg), seed=0).state_dict()
+    sde = make_sde(cfg)
+    pgen = torch.Generator().manual_seed(3)
+    B, size = VP_PARITY_BATCH, cfg.data.image_size
+    x = torch.rand(B, size, size, 3, generator=pgen) * 2 - 1
+    t = torch.rand(B, generator=pgen) * (sde.T - 1e-5) + 1e-5
+    z = torch.randn(B, size, size, 3, generator=pgen)
+    step_cpu = Background(step_pair, cfg, weights, x, t, z, "cpu",
+                          net=create_model(cfg))
+    parity_cfg = cfg
     runs = [("ffhq_bf16", CONFIG, TRAIN_BATCH, torch.bfloat16),
             ("vp_f32", VP_CONFIG, VP_TRAIN_BATCH, None),
             ("vp_bf16", VP_CONFIG, VP_TRAIN_BATCH, torch.bfloat16)]
@@ -2435,17 +2621,11 @@ def train_bf16_phase(fk, fl, device="cuda") -> dict:
         del model
         torch.cuda.empty_cache()
 
-    cfg = get_continuous_config(VP_CONFIG).replace(**{"model.dropout": 0.0})
-    weights = seeded_weights(create_model(cfg), seed=0).state_dict()
-    sde = make_sde(cfg)
-    pgen = torch.Generator().manual_seed(3)
-    B, size = VP_PARITY_BATCH, cfg.data.image_size
-    x = torch.rand(B, size, size, 3, generator=pgen) * 2 - 1
-    t = torch.rand(B, generator=pgen) * (sde.T - 1e-5) + 1e-5
-    z = torch.randn(B, size, size, 3, generator=pgen)
+    cfg = parity_cfg
     with float32_exact():
         loss_gpu, g_gpu = step_pair(cfg, weights, x, t, z, device)
-        loss_cpu, g_cpu = step_pair(cfg, weights, x, t, z, "cpu")
+    # joined before the control halves the FIR backward
+    loss_cpu, g_cpu = step_cpu.result()
     loss16, g16 = step_pair(cfg, weights, x, t, z, device, torch.bfloat16)
     loss32, g32 = step_pair(cfg, weights, x, t, z, device)
     with fir_backward_scaled(fk, 0.5):
@@ -2704,8 +2884,9 @@ def sense_phase(fk, fl, device="cuda") -> dict:
     with SingleCoil and the SENSE script guided (seg UNet from seed 0), at
     SENSE_SIDE_SAMPLES chains; the cuFFT pair against the pair DFT at 256
     px; the complex sampler against the pair reconstructor on
-    acdc_problem's geometry, same weights, CG iterations and noise, float32
-    mode, level by level; the complex sampler card vs CPU at 32 px (ngf 8,
+    acdc_problem's geometry (its ladder cut to SENSE_CHECK_LEVELS), same
+    weights, CG iterations and noise, float32 mode, level by level; the
+    complex sampler card vs CPU at 32 px (ngf 8,
     2 levels); SENSE's adjointness on the card. Launches no K1, K2 or K4."""
     from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
     from inverseproblemwithdiffusionmodel_tpu_torch.models import (
@@ -2783,7 +2964,8 @@ def sense_phase(fk, fl, device="cuda") -> dict:
 
     # The complex sampler against the pair reconstructor, level by level
     model = model.to(device)
-    lin_pair, prox_pair, sigmas, yr, yi = acdc_problem(cfg, device)
+    lin_pair, prox_pair, sigmas, yr, yi = acdc_problem(
+        cfg, device, levels=SENSE_CHECK_LEVELS)
     sense = SENSE(base=RandomUndersamplingFourier(mask=lin_pair.mask),
                   sens_maps=torch.complex(lin_pair.sens_re, lin_pair.sens_im))
     prox = L2Penalty(lin_tfm=sense, num_iters=ACDC_CG_ITERS)
@@ -2810,7 +2992,7 @@ def sense_phase(fk, fl, device="cuda") -> dict:
     numbers["complex_vs_pair_rel_l2"] = dict(
         by_level=by_level, final=rel_l2(torch.view_as_real(x_complex),
                                         torch.view_as_real(x_pair)))
-    if len(by_level) != ACDC_LEVELS or not (
+    if len(by_level) != SENSE_CHECK_LEVELS or not (
             by_level[SENSE_GATE_LEVEL] <= MODEL_REL_L2):
         raise AssertionError(f"complex vs pair form: rel L2 by level "
                              f"{by_level}")
@@ -3680,7 +3862,7 @@ def quickstart_3d_phase(fk, fl, device="cuda") -> dict:
     with torch.inference_mode():
         run = lambda: score(x, labels)
         flop = conv_flop(net, run)
-        ms, host = cuda_ms(run, reps=3, host=True)
+        ms, host = cuda_ms(run, reps=2, host=True, warmup=1)
         prof = profile_calls(run, 1)
     numbers["forward_3d"] = dict(
         batch=tubes_b, device_ms=ms, host_ms=host,
@@ -4727,27 +4909,16 @@ def report_migrate(mg: dict, t: float, sense_cps: float) -> None:
         f"{smi}")
 
 
-def tiny_ode_card_vs_cpu(cfg, gate, tol: float, gen, device="cuda"
-                         ) -> dict:
-    """The probability-flow ODE sampler (denoise on, rtol = atol = `tol`)
-    on a tiny NCSN++ of the leaf `cfg` (nf 16, FIR, 16 px, 2 samples,
-    weights from seed 1) from one x_init, on the card and on the CPU in the
-    float32 mode: both evaluation counts, the card's rejected steps, the
-    samples' rel L2, gated at `gate` (None: reported only); where the
-    counts part, the first step the two decide differently and both error
-    ratios there. Where it is not gated, a control: the CPU solve again
-    with its score perturbed by 1e-7 of itself, how far float32 rounding
-    alone moves this solve."""
+def tiny_ode_setup(cfg, gen) -> dict:
+    """A tiny NCSN++ of the leaf `cfg` (nf 16, FIR, 16 px, weights from
+    seed 1, on the CPU), its SDE and one x_init of 2 samples drawn from
+    `gen`, for tiny_ode_solve."""
     from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
         make_sde)
     from inverseproblemwithdiffusionmodel_tpu_torch.models import (
         create_model)
-    from inverseproblemwithdiffusionmodel_tpu_torch.sde import (
-        get_ode_sampler, get_score_fn)
     from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
         seeded_weights)
-    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
-        float32_exact)
     tiny = cfg.replace(**{"data.image_size": 16, "model.nf": 16,
                           "model.ch_mult": (1, 2, 2),
                           "model.num_res_blocks": 1,
@@ -4756,32 +4927,42 @@ def tiny_ode_card_vs_cpu(cfg, gate, tol: float, gen, device="cuda"
     shape = (2, 16, 16, 3)
     x_init = sde.prior_sampling(
         lambda s: torch.randn(tuple(s), generator=gen), shape)
-    net = seeded_weights(create_model(tiny), seed=1).eval()
-    runs = {}
-    for dev in (device, "cpu") + (() if gate else ("control",)):
-        net.to("cpu" if dev == "control" else dev)
-        score = get_score_fn(sde, net)
-        if dev == "control":
-            noise = torch.Generator().manual_seed(5)
-            plain = score
-            score = lambda x, t: plain(x, t) * (1 + 1e-7 * torch.randn(
-                x.shape, generator=noise))
-        st = {}
-        with torch.no_grad(), float32_exact():
-            x, _ = get_ode_sampler(sde, shape, denoise=True, rtol=tol,
-                                   atol=tol, device="cpu"
-                                   if dev == "control" else dev)(
-                score, x_init=x_init.to("cpu" if dev == "control" else dev),
-                stats=st)
-        runs[str(dev)] = (x.cpu(), st)
-    (card, c_st), (cpu, p_st) = runs[str(device)], runs["cpu"]
+    return dict(sde=sde, shape=shape, x_init=x_init,
+                net=seeded_weights(create_model(tiny), seed=1).eval())
+
+
+def tiny_ode_solve(setup: dict, net, tol: float, dev) -> tuple:
+    """The probability-flow ODE sampler (denoise on, rtol = atol = `tol`)
+    on tiny_ode_setup's problem with `net` on `dev` (on the card in the
+    float32 mode; on the CPU no CUDA call, so it may run on a thread of
+    its own): the samples on the CPU and odeint's counts."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.sde import (
+        get_ode_sampler, get_score_fn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    sde = setup["sde"]
+    net.to(dev)
+    st = {}
+    mode = contextlib.nullcontext() if str(dev) == "cpu" else float32_exact()
+    with torch.no_grad(), mode:
+        x, _ = get_ode_sampler(sde, setup["shape"], denoise=True, rtol=tol,
+                               atol=tol, device=dev)(
+            get_score_fn(sde, net), x_init=setup["x_init"].to(dev),
+            stats=st)
+    return x.cpu(), st
+
+
+def tiny_ode_check(name: str, card: tuple, cpu: tuple, gate: float) -> dict:
+    """tiny_ode_solve's card and CPU runs of one problem: both evaluation
+    counts, the card's rejected steps, the samples' rel L2, gated at
+    `gate`; where the counts part, the first step the two decide
+    differently and both error ratios there."""
+    (card, c_st), (cpu, p_st) = card, cpu
     check = dict(card_nfe=c_st["nfe"], cpu_nfe=p_st["nfe"],
                  rejected=c_st["rejected"], rel_l2=rel_l2(card, cpu),
                  gate=gate)
-    if "control" in runs:
-        check["cpu_perturbed_rel_l2"] = rel_l2(runs["control"][0], cpu)
     if not (torch.isfinite(card).all() and torch.isfinite(cpu).all()):
-        raise AssertionError(f"tiny ODE {cfg.training.sde}: not finite")
+        raise AssertionError(f"tiny ODE {name}: not finite")
     if c_st["nfe"] != p_st["nfe"]:
         part = next(i for i, (a, b) in enumerate(zip(
             c_st["ratios"] + [None], p_st["ratios"] + [None]))
@@ -4789,9 +4970,8 @@ def tiny_ode_card_vs_cpu(cfg, gate, tol: float, gen, device="cuda"
         check.update(parted_at_step=part, ratios_there=[
             r[part] if part < len(r) else None
             for r in (c_st["ratios"], p_st["ratios"])])
-    if gate is not None and not check["rel_l2"] <= check["gate"]:
-        raise AssertionError(f"tiny ODE card vs CPU, {cfg.training.sde}: "
-                             f"{check}")
+    if not check["rel_l2"] <= gate:
+        raise AssertionError(f"tiny ODE card vs CPU, {name}: {check}")
     return check
 
 
@@ -4810,9 +4990,9 @@ def natural_phase(fk, fl, device="cuda") -> dict:
     launches equal to the per-forward count times (evaluations + the
     first forward), the sampler's evaluations/s alone, wall s, peak. A
     tiny NCSN++ ODE (nf 16, FIR, 16 px, 2 samples) from one x_init on the
-    card and on the CPU, float32 mode (tiny_ode_card_vs_cpu): the VP leaf
-    at the sampler's rtol 1e-5 (reported beside the control), and at
-    ODE_VP_CHECK_TOL, and a VE leaf at 1e-5, each gated at ODE_REL_L2.
+    card and on the CPU, float32 mode (tiny_ode_solve, tiny_ode_check):
+    the VP leaf at ODE_VP_CHECK_TOL and a VE leaf at 1e-5, each gated at
+    ODE_REL_L2.
 
     NCSN v1 (NATURAL_V1_CONFIG, ngf 128, 32 px): pc_sampling.main at
     NATURAL_SAMPLES samples over the leaf's 10 levels x NATURAL_V1_STEPS_EACH
@@ -4941,13 +5121,17 @@ def natural_phase(fk, fl, device="cuda") -> dict:
             integrator_ms_per_step=1e3 * (time.perf_counter() - t_lin)
             / lin["steps"])
 
-        out["ode_tiny_card_vs_cpu"] = {
-            f"{leaf} rtol {tol:g}": tiny_ode_card_vs_cpu(
-                get_continuous_config(leaf), gate, tol, gen, device)
-            for leaf, gate, tol in (
-                (NATURAL_ODE_CONFIG, None, 1e-5),
-                (NATURAL_ODE_CONFIG, ODE_REL_L2, ODE_VP_CHECK_TOL),
-                (ODE_VE_CONFIG, ODE_REL_L2, 1e-5))}
+        # the tiny ODEs, card then CPU (a solve is host-bound: on a thread
+        # of its own it would hold the interpreter from the card's work)
+        out["ode_tiny_card_vs_cpu"] = tiny = {}
+        for leaf, tol in ((NATURAL_ODE_CONFIG, ODE_VP_CHECK_TOL),
+                          (ODE_VE_CONFIG, 1e-5)):
+            setup = tiny_ode_setup(get_continuous_config(leaf), gen)
+            name = f"{leaf} rtol {tol:g}"
+            tiny[name] = tiny_ode_check(
+                name, tiny_ode_solve(setup, copy.deepcopy(setup["net"]),
+                                     tol, device),
+                tiny_ode_solve(setup, setup["net"], tol, "cpu"), ODE_REL_L2)
 
         # -- NCSN v1: sampling, the forward, training -------------------------
         v1 = get_continuous_config(NATURAL_V1_CONFIG).replace(
@@ -5363,7 +5547,215 @@ def int8_forward_table(ik, quant, net, run, what: str) -> dict:
                 per_forward=per)
 
 
-def int8_phase(fk, fl, ik, serve_bf16, cine_bf16, device="cuda") -> dict:
+def same_float(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bits, or both NaN (whose bits may differ: the card's NaN is
+    not torch's CPU one)."""
+    a, b = a.float().reshape(-1), b.float().reshape(-1)
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (a.isnan() & b.isnan())).all())
+
+
+def int8_edge_checks(ik, quant, device="cuda", k5_profile=None) -> dict:
+    """K5-K7 on inputs a forward does not give them, each against the
+    plain versions on the same input: raises on the first that differs.
+    - Non-finite: a NaN, a +inf, a -inf, or all three in x, at
+      INT8_EDGE_CASES in float32 and bf16: amax and scale equal (NaN to
+      NaN), the codes equal, K7's output and the whole quant.int8_conv NaN
+      and non-finite where the plain chain's is (everywhere); K5 alone at
+      the largest NCSNv2Deepest input (batch 32, 128 x 256 x 256, bf16)
+      with a NaN in the last block, then an inf.
+    - Tiny and misaligned: K5 at INT8_TINY elements, x starting
+      INT8_OFFSETS bytes past a 16-byte boundary, with the largest value
+      and then a NaN in the head and in the tail, bit for bit.
+    - Repeated: two calls in a row on different tensors, each right, and
+      the ticket back at 0 after each; the same two captured in a CUDA
+      graph and replayed twice.
+    - One kernel a call: torch.profiler's device events of one call, in a
+      process of its own (k5_kernels_of_one_call; `k5_profile`, where
+      given, is that process, started earlier)."""
+    gen = torch.Generator().manual_seed(0)
+    f32, bf = torch.float32, torch.bfloat16
+    rows, checked = [], 0
+    for case in INT8_EDGE_CASES:
+        N, C, spatial, O, k, dil, pre, ndim = case
+        for dtype in (f32, bf):
+            for kind, values in INT8_NON_FINITE.items():
+                x = torch.randn((N, C) + spatial, generator=gen) * 3
+                w = torch.randn((O, C) + (k,) * ndim, generator=gen)
+                at = torch.randperm(x.numel(), generator=gen)[:len(values)]
+                x.view(-1)[at] = torch.tensor(values)
+                x, w = x.to(device, dtype), w.to(device, dtype)
+                qw = quant.QuantWeight.of(w)
+                g = quant.geometry(x, qw, (k // 2) * dil, dil, ndim, pre)
+                amax = ik.absmax(x)
+                codes, sx = ik.quantize_s8(x, amax, g.Cp)
+                codes = codes.reshape(g.N, g.H, g.W, g.Cp)
+                y = ik.conv_s8s8s32(codes, sx, qw.kernel, qw.scale, g, dtype)
+                amax_p = ik.absmax_plain(x)
+                codes_p, sx_p = ik.quantize_s8_plain(x, amax_p, g.Cp)
+                y_p = ik.conv_s8s8s32_plain(codes_p.reshape(codes.shape),
+                                            sx_p, qw.kernel, qw.scale, g,
+                                            dtype)
+                whole = quant.int8_conv(x, qw, padding=(k // 2) * dil,
+                                        dilation=dil, ndim=ndim, pre_pad=pre)
+                row = dict(
+                    geometry=f"{N}x{C}x{spatial} O={O} k={k}",
+                    dtype=str(dtype), kind=kind, amax=amax.item(),
+                    amax_plain=amax_p.item(), scale=sx.item(),
+                    codes_differ=int((codes != codes_p.reshape(
+                        codes.shape)).sum()),
+                    nan_differ=int((y.isnan() != y_p.isnan()).sum()),
+                    finite_differ=int((y.isfinite() != y_p.isfinite())
+                                      .sum()),
+                    whole_nan_differ=int((whole.isnan() != y_p.reshape(
+                        whole.shape).isnan()).sum()),
+                    all_nan=bool(y.isnan().all()))
+                rows.append(row)
+                if not (same_float(amax, amax_p) and same_float(sx, sx_p)
+                        and row["codes_differ"] == row["nan_differ"]
+                        == row["finite_differ"] == row["whole_nan_differ"]
+                        == 0 and row["all_nan"]):
+                    raise AssertionError(f"int8 chain on non-finite input "
+                                         f"differs from the plain chain: "
+                                         f"{row}")
+    big = torch.randn(32 * 128 * 256 * 256, device=device, dtype=bf)
+    for value in (math.nan, math.inf):
+        big[-3] = value
+        got = ik.absmax(big)
+        if not same_float(got, ik.absmax_plain(big)):
+            raise AssertionError(f"K5 at {big.numel()} elements with "
+                                 f"{value} in the last block: {got.item()}")
+        rows.append(dict(kind=f"{value} at {big.numel()} bf16 elements",
+                         amax=got.item()))
+    del big
+    for dtype in (f32, bf):
+        size = torch.finfo(dtype).bits // 8
+        for n in INT8_TINY:
+            buf = torch.randn(n + 16, generator=gen).to(device, dtype)
+            for off in INT8_OFFSETS:
+                if off % size:
+                    continue
+                x = buf[off // size:off // size + n]
+                if x.data_ptr() % 16 != off:
+                    raise AssertionError(f"offset {off}: {x.data_ptr()}")
+                for at, value in ((0, None), (0, 1e4), (n - 1, -1e4),
+                                  (0, math.nan), (n - 1, math.nan)):
+                    saved = x[at].clone()
+                    if value is not None:
+                        x[at] = value
+                    got, ref = ik.absmax(x), ik.absmax_plain(x)
+                    if not same_float(got, ref):
+                        raise AssertionError(
+                            f"K5 at {n} {dtype} elements, offset {off}, "
+                            f"{value} at {at}: {got.item()} vs {ref.item()}")
+                    x[at] = saved
+                    checked += 1
+    # two calls in a row; the ticket back at 0; in a graph, replayed
+    a = torch.randn(40 * 2 ** 20, generator=gen).to(device, bf)
+    b = torch.randn(3 * 2 ** 20 + 7, generator=gen).to(device, f32) * 0.5
+    scratch = ik._ABSMAX_DEVICE[a.get_device()][1]
+    tickets = []
+    for t in (a, b, a):
+        got = ik.absmax(t)
+        tickets.append(int(scratch[0].item()))
+        if not same_float(got, ik.absmax_plain(t)):
+            raise AssertionError(f"K5 repeated: {got.item()} vs "
+                                 f"{ik.absmax_plain(t).item()}")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ga, gb = ik.absmax(a), ik.absmax(b)
+    for _ in range(2):
+        ga.zero_()
+        gb.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (same_float(ga, ik.absmax_plain(a))
+                and same_float(gb, ik.absmax_plain(b))):
+            raise AssertionError(f"K5 in a replayed graph: {ga.item()}, "
+                                 f"{gb.item()}")
+    tickets.append(int(scratch[0].item()))
+    if any(tickets):
+        raise AssertionError(f"K5 left its ticket at {tickets}")
+    kernels = k5_kernels_of_one_call(k5_profile)
+    if len(kernels) != 1 or "absmax" not in kernels[0]:
+        raise AssertionError(f"one K5 call ran {kernels} on the card")
+    return dict(non_finite=rows, tiny_checks=checked, tickets=tickets,
+                kernels_per_call=len(kernels), kernel=kernels[0])
+
+
+K5_PROFILED = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from inverseproblemwithdiffusionmodel_tpu_torch.ops import int8_kernels as ik
+x = torch.randn(40 * 2 ** 20, device="cuda", dtype=torch.bfloat16)
+ik.absmax(x)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    ik.absmax(x)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in p.events() if e.device_type.name == "CUDA"]))
+"""
+
+
+def k5_profile_start() -> subprocess.Popen:
+    """Start the process that profiles one K5 call (K5_PROFILED): a
+    process of its own, since in a process that has run profiler sessions
+    before, a new session can record no device events at all (read in the
+    whole smoke, where the recon and cine phases profile first). main()
+    starts it after the build, so that it runs beside the early phases;
+    it is killed at exit if still running."""
+    proc = subprocess.Popen([sys.executable, "-c", K5_PROFILED],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    atexit.register(proc.kill)
+    return proc
+
+
+def k5_kernels_of_one_call(proc=None) -> list:
+    """The names of the CUDA kernels one K5 call runs, read from the
+    profiling process `proc` (started here where None)."""
+    proc = proc or k5_profile_start()
+    out, err = proc.communicate()
+    if proc.returncode:
+        raise AssertionError(f"the K5 profiling process exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def int8_sigmas(cfg) -> torch.Tensor:
+    """The int8 phase's ladder: ACDC_LEVELS of the config's, geometric."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        sigma_ladder)
+    return torch.as_tensor(np.asarray(sigma_ladder(
+        cfg.model.sigma_begin, cfg.model.sigma_end, ACDC_LEVELS,
+        "geometric")), dtype=torch.float32)
+
+
+def int8_cpu_reference() -> tuple:
+    """The CPU's int8 score (the plain K5-K7) of one chain (Re, Im) at the
+    first and the last level, on a thread of its own (Background): main()
+    starts it before the guided phase, so that it runs beside the card's
+    work of two phases; int8_phase holds the card's int8 score to it.
+    Returns the input x2, its levels l2 and the Background."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        make_score_fn)
+    cfg, model_cpu = acdc_model()
+    sigmas = int8_sigmas(cfg)
+    size = cfg.data.image_size
+    x2 = torch.rand(2, size, size, 1,
+                    generator=torch.Generator().manual_seed(1))
+    l2 = torch.tensor([0, ACDC_LEVELS - 1])
+
+    def score():
+        with torch.inference_mode():
+            return make_score_fn(model_cpu, sigmas, "int8")(x2, l2)
+
+    return x2, l2, Background(score)
+
+
+def int8_phase(fk, fl, ik, serve_bf16, cine_bf16, device="cuda",
+               cpu_ref=None, k5_profile=None) -> dict:
     """The int8 serving mode at full width (ops/quant.py, K5-K7 of
     ops/csrc/int8conv.cu). K5/K6/K7 against their plain versions bit for
     bit at every convolution geometry of one NCSNv2Deepest forward (256
@@ -5374,8 +5766,9 @@ def int8_phase(fk, fl, ik, serve_bf16, cine_bf16, device="cuda") -> dict:
     against float32 (float32 mode) and bf16 on the same weights and input
     (gate INT8_VS_F32; not equal to bf16); its launches per forward; the
     batch-32 forward's device ms in int8, bf16 and f32; one chain (batch
-    2) card against CPU, the CPU side in a thread beside the card's work
-    (the tables time the card alone). Then the main path:
+    2) card against CPU, the CPU side `cpu_ref` (int8_cpu_reference, made
+    here where None; main() starts it two phases ahead). Then the main
+    path:
     serve_recon.build_engine --dtype int8 at acdc_problem's geometry,
     SERVE_LEVELS levels (warm-up, 3 requests over HTTP, 1 in-process),
     beside the serve phase's bf16 engine of the same geometry and depth
@@ -5383,7 +5776,9 @@ def int8_phase(fk, fl, ik, serve_bf16, cine_bf16, device="cuda") -> dict:
     request), --workload cine --dtype int8 at the cine phase's geometry
     (warm-up, 1 request over HTTP, 1 in-process; beside the cine phase's
     bf16 chain-steps/s, `cine_bf16`), with the launch counts cleared
-    before and read after: K5-K7 launched, K1, K2 and K4 not."""
+    before and read after: K5-K7 launched, K1, K2 and K4 not. Last
+    int8_edge_checks, `k5_profile` its profiling process (started where
+    None)."""
     from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
     from inverseproblemwithdiffusionmodel_tpu_torch.models import NCSN1D
     from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
@@ -5393,8 +5788,6 @@ def int8_phase(fk, fl, ik, serve_bf16, cine_bf16, device="cuda") -> dict:
     from inverseproblemwithdiffusionmodel_tpu_torch.operators.masks import (
         generate_mask)
     from inverseproblemwithdiffusionmodel_tpu_torch.ops import quant
-    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
-        sigma_ladder)
     from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
         serve_recon)
     from inverseproblemwithdiffusionmodel_tpu_torch.serving import (
@@ -5406,35 +5799,18 @@ def int8_phase(fk, fl, ik, serve_bf16, cine_bf16, device="cuda") -> dict:
     from inverseproblemwithdiffusionmodel_tpu_torch.utils.profiling import (
         timed)
     numbers = {}
-    cfg, model_cpu = acdc_model()
-    model = copy.deepcopy(model_cpu).to(device)
-    sigmas = torch.as_tensor(np.asarray(sigma_ladder(
-        cfg.model.sigma_begin, cfg.model.sigma_end, ACDC_LEVELS,
-        "geometric")), dtype=torch.float32)
+    # one chain (Re, Im) at the first and last level: the CPU's int8 score
+    # on a thread of its own while the card works
+    x2, l2, worker = cpu_ref or int8_cpu_reference()
+    cfg, model = acdc_model()
+    model = model.to(device)
+    sigmas = int8_sigmas(cfg)
     size = cfg.data.image_size
     gen = torch.Generator().manual_seed(0)
     nb = 2 * ACDC_CHAINS
     xb = torch.rand(nb, size, size, 1, generator=gen).to(device)
     lb = (torch.arange(nb) % ACDC_LEVELS).to(device)
     bf = torch.bfloat16
-    # one chain (Re, Im) at the first and last level: the CPU's int8 score
-    # in a thread while the card works
-    x2 = torch.rand(2, size, size, 1, generator=gen)
-    l2 = torch.tensor([0, ACDC_LEVELS - 1])
-    cpu_side = {}
-
-    def cpu_int8():
-        try:
-            t_cpu = time.perf_counter()
-            with torch.inference_mode():
-                cpu_side["q8"] = make_score_fn(model_cpu, sigmas, "int8")(
-                    x2, l2)
-            cpu_side["s"] = time.perf_counter() - t_cpu
-        except BaseException as err:     # re-raised on the main thread
-            cpu_side["error"] = err
-
-    worker = threading.Thread(target=cpu_int8)
-    worker.start()
 
     # K5-K7 at every geometry of one full-width forward of each net
     fk.LAUNCHES.clear()
@@ -5477,10 +5853,7 @@ def int8_phase(fk, fl, ik, serve_bf16, cine_bf16, device="cuda") -> dict:
         q8 = make_score_fn(model, sigmas, "int8")(x2.to(device),
                                                    l2.to(device))
         torch.cuda.synchronize()
-    worker.join()
-    if "error" in cpu_side:
-        raise cpu_side["error"]
-    q8_cpu, cpu_s = cpu_side["q8"], cpu_side["s"]
+    q8_cpu, cpu_s = worker.result(), worker.seconds
     net_checks = dict(
         int8_vs_f32=rel_l2(q8.cpu(), f32.cpu()),
         bf16_vs_f32=rel_l2(b16.cpu(), f32.cpu()),
@@ -5506,7 +5879,7 @@ def int8_phase(fk, fl, ik, serve_bf16, cine_bf16, device="cuda") -> dict:
                              peak=torch.cuda.max_memory_allocated())
             del score, t
     numbers["forward_b32"] = fwd
-    del model, model_cpu
+    del model
     torch.cuda.empty_cache()
 
     # the main path: the int8 engines, counts cleared just before
@@ -5589,6 +5962,8 @@ def int8_phase(fk, fl, ik, serve_bf16, cine_bf16, device="cuda") -> dict:
             or min(launches.values()) <= 0):
         raise AssertionError(f"int8 engines launched {launches} of K5-K7 "
                              f"and {fir} of K1/K2/K4")
+    # K5-K7 on inputs a forward does not give them, after the counts
+    numbers["edges"] = int8_edge_checks(ik, quant, device, k5_profile)
     numbers["reduced"] = (f"ACDC {SERVE_LEVELS} of 2311 levels; cine "
                           f"{CINE_SERVE_LEVELS} of 1000 levels, "
                           f"{CINE_CHAINS} chains")
@@ -5639,7 +6014,11 @@ def report_int8(q: dict, t: float) -> None:
         f"int8 {e['cine_int8']['in_process']['chain_steps_per_s']:.2f} "
         f"(cine bf16 {e['cine_int8']['bf16_chain_steps_per_s']:.2f}); "
         f"reduced: {q['reduced']}; launches {q['launches']}; no K1/K2/K4 "
-        f"launch")
+        f"launch; K5-K7 on non-finite inputs as the plain chain "
+        f"({len(q['edges']['non_finite'])} cases), K5 bit for bit at "
+        f"{q['edges']['tiny_checks']} tiny or misaligned inputs, tickets "
+        f"{q['edges']['tickets']}, {q['edges']['kernels_per_call']} kernel "
+        f"a call ({q['edges']['kernel']})")
 
 
 def seeded_once(seeded_weights):
@@ -5666,6 +6045,35 @@ def seeded_once(seeded_weights):
         return model
 
     return seeded
+
+
+def parity_net(cfg, w0: dict):
+    """The NCSN++ of `cfg` holding the weights w0, on the CPU."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import create_model
+    net = create_model(cfg)
+    net.load_state_dict(w0)
+    return net
+
+
+def parity_step(net, cfg, sde, inp: tuple, device) -> tuple:
+    """train_parity's one continuous train step of `net` (NCSN++, the leaf
+    `cfg`) on inp = (x, t, z), moved to `device` (the card in the float32
+    mode; on the CPU no CUDA call, so it may run on a thread of its own):
+    the loss and the clipped gradients."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        TrainState, get_optimizer, make_continuous_score_train_step)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    x1, t1, z1 = inp
+    net.to(device)
+    st = TrainState.create(net, get_optimizer(cfg), ema_decay=None)
+    stp = make_continuous_score_train_step(
+        net, sde, reduce_mean=cfg.training.reduce_mean)
+    mode = contextlib.nullcontext() if device == "cpu" else float32_exact()
+    with mode:
+        _, loss = stp(st, x1, t=t1.to(device), z=z1.to(device))
+    return loss.item(), torch.cat([p.grad.reshape(-1).cpu() for p in
+                                   net.parameters() if p.grad is not None])
 
 
 def main() -> None:
@@ -5716,6 +6124,9 @@ def main() -> None:
         f"({'reused' if build.seconds == 0.0 else 'built'}) -> {build.path}")
     for line in ptxas:
         print(f"    {line}", flush=True)
+    # the int8 phase's one-kernel check: its profiling process runs now,
+    # beside the early phases
+    k5_profile = k5_profile_start()
 
     # 3. kernels --------------------------------------------------------------
     t = time.perf_counter()
@@ -5854,26 +6265,33 @@ def main() -> None:
     x = torch.rand(1, size, size, ch, generator=gen)
     sigma = torch.tensor([5.0])
     xc, sc = x.cuda(), sigma.cuda()
+    # Batch 2 in the float32 mode, where cuDNN's heuristics alone would
+    # pick the FFT convolution: card vs CPU, and the forward's time. The
+    # CPU's forwards run on a thread of their own beside the card's.
+    xe = torch.rand(BATCH, size, size, ch, generator=gen)
+    se = torch.tensor([5.0, 0.5])
+
+    def cpu_forwards():
+        with torch.no_grad():
+            return model_cpu(x, sigma), model_cpu(xe, se)
+
+    refs = Background(cpu_forwards)
     with torch.no_grad(), float32_exact():
         fk.LAUNCHES.clear()
         out = model(xc, sc)
         torch.cuda.synchronize()
         fwd_launches = dict(fk.LAUNCHES)
         fwd_ms = cuda_ms(lambda: model(xc, sc), reps=5)
-        ref = model_cpu(x, sigma)
-    # Batch 2 in the float32 mode, where cuDNN's heuristics alone would
-    # pick the FFT convolution: card vs CPU, and the forward's time.
-    xe = torch.rand(BATCH, size, size, ch, generator=gen)
-    se = torch.tensor([5.0, 0.5])
     with torch.no_grad(), float32_exact():
         out_e = model(xe.cuda(), se.cuda())
         exact_b_ms = cuda_ms(lambda: model(xe.cuda(), se.cuda()), reps=5)
-        rel_e = rel_l2(out_e.cpu(), model_cpu(xe, se))
     xb, sb = x.repeat(BATCH, 1, 1, 1).cuda(), sigma.repeat(BATCH).cuda()
     with torch.no_grad():
         fwd_b_ms, fwd_b_host_ms = cuda_ms(lambda: model(xb, sb), reps=5,
                                           host=True)
+    ref, ref_e = refs.result()
     rel = ((out.cpu() - ref).norm() / ref.norm()).item()
+    rel_e = rel_l2(out_e.cpu(), ref_e)
     per_forward = {name: len(rs) for name, rs in rows.items()}
     if fwd_launches != per_forward:
         raise AssertionError(f"one forward launched {fwd_launches}, "
@@ -5885,6 +6303,14 @@ def main() -> None:
     w0 = {name: v.detach().clone() for name, v in model_cpu.state_dict()
           .items()}
     del model_cpu, ref
+    # train_parity's CPU step runs beside the sample and train phases
+    sde = make_sde(cfg)
+    pgen = torch.Generator().manual_seed(3)
+    x1 = torch.rand(1, size, size, ch, generator=pgen)
+    t1 = torch.rand(1, generator=pgen) * (sde.T - 1e-5) + 1e-5
+    z1 = torch.randn(1, size, size, ch, generator=pgen)
+    parity_cpu = Background(parity_step, parity_net(cfg, w0), cfg, sde,
+                            (x1, t1, z1), "cpu")
     say("model", t, f"{CONFIG} NCSN++ {n_params} params, batch 1: card vs "
         f"CPU rel L2 {rel:.3g} (<= {MODEL_REL_L2}); forward {fwd_ms:.2f} ms "
         f"on the card, TF32 off; launches {fwd_launches}. Batch {BATCH}, "
@@ -5957,7 +6383,6 @@ def main() -> None:
 
     # 6. train ----------------------------------------------------------------
     t = time.perf_counter()
-    sde = make_sde(cfg)
     log_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         model.train()
@@ -6031,26 +6456,9 @@ def main() -> None:
 
         # 7. train_parity ---------------------------------------------------
         t = time.perf_counter()
-        pgen = torch.Generator().manual_seed(3)
-        x1 = torch.rand(1, size, size, ch, generator=pgen)
-        t1 = torch.rand(1, generator=pgen) * (sde.T - 1e-5) + 1e-5
-        z1 = torch.randn(1, size, size, ch, generator=pgen)
-        results = []
-        with float32_exact():
-            for device in ("cuda", "cpu"):
-                net = create_model(cfg)
-                net.load_state_dict(w0)
-                net.to(device)
-                st = TrainState.create(net, get_optimizer(cfg),
-                                       ema_decay=None)
-                stp = make_continuous_score_train_step(
-                    net, sde, reduce_mean=cfg.training.reduce_mean)
-                _, loss = stp(st, x1, t=t1.to(device), z=z1.to(device))
-                grads = torch.cat([p.grad.reshape(-1).cpu() for p in
-                                   net.parameters() if p.grad is not None])
-                results.append((loss.item(), grads))
-                del net, st, stp
-        (loss_gpu, g_gpu), (loss_cpu, g_cpu) = results
+        loss_gpu, g_gpu = parity_step(parity_net(cfg, w0), cfg, sde,
+                                      (x1, t1, z1), "cuda")
+        loss_cpu, g_cpu = parity_cpu.result()
         loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
         grad_rel = rel_l2(g_gpu, g_cpu)
         if not (loss_rel <= MODEL_REL_L2 and grad_rel <= MODEL_REL_L2):
@@ -6260,6 +6668,9 @@ def main() -> None:
     report_quickstart_3d(qs, t)
 
     # 17. guided --------------------------------------------------------------
+    # the int8 phase's CPU reference runs beside the guided and migrate
+    # phases' card work
+    int8_cpu = int8_cpu_reference()
     t = time.perf_counter()
     gd = guided_phase(fk, fl)
     launches["guided"] = {}
@@ -6274,7 +6685,8 @@ def main() -> None:
     # 19. int8 ----------------------------------------------------------------
     t = time.perf_counter()
     q8 = int8_phase(fk, fl, ik, srv["bf16"],
-                    cine["bf16"]["in_process"]["chain_steps_per_s"])
+                    cine["bf16"]["in_process"]["chain_steps_per_s"],
+                    cpu_ref=int8_cpu, k5_profile=k5_profile)
     report_int8(q8, t)
 
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "sense": sn,
@@ -6328,6 +6740,8 @@ def main() -> None:
             "per": "one NCSNv2Deepest forward at batch 32",
             "ncsn1d_forward": {k: p1d[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "err")}})
+        if key == "k5":
+            kernels[-1]["kernels_per_call"] = q8["edges"]["kernels_per_call"]
         if key == "k7":
             kernels[-1].update(int_mm_ms=p["int_mm_ms"],
                                int_mm_gemm_ms=p["int_mm_gemm_ms"])

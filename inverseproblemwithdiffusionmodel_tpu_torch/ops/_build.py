@@ -48,9 +48,11 @@ _ARGTYPES = {
     # csrc/flr.cu: x, bias, g, dx, rows, C, scale, scale * slope, stream.
     "flr_bwd_f32": [_PTR] * 4 + [_I64] * 2 + [_F32] * 2 + [_PTR],
     "flr_bwd_bf16": [_PTR] * 4 + [_I64] * 2 + [_F32] * 2 + [_PTR],
-    # csrc/int8conv.cu K5: x, numel, amax (float32, zeroed), stream.
-    "int8_absmax_f32": [_PTR, _I64, _PTR, _PTR],
-    "int8_absmax_bf16": [_PTR, _I64, _PTR, _PTR],
+    # csrc/int8conv.cu K5: x, amax (float32), scratch (the ticket and one
+    # partial per block), then int8_kernels.absmax_launch_args (head,
+    # body_bytes, tail, blocks), the scratch's words; stream.
+    "int8_absmax_f32": [_PTR] * 3 + [_I64] * 5 + [_PTR],
+    "int8_absmax_bf16": [_PTR] * 3 + [_I64] * 5 + [_PTR],
     # K6: x (N, C, P) contiguous, amax, codes, scale, N, C, P, Cp, stream.
     "int8_quantize_f32": [_PTR] * 4 + [_I64] * 4 + [_PTR],
     "int8_quantize_bf16": [_PTR] * 4 + [_I64] * 4 + [_PTR],

@@ -8,8 +8,10 @@
 // PyTorch call computes an s8 x s8 -> s32 convolution on a CUDA tensor, so
 // the port's int8 mode needs kernels of its own.
 //
-//   K5  absmax:      amax = max |x| over the whole tensor (the batch too)
-//   K6  quantize_s8: scale = max(amax, 1e-12) / 127 (float32),
+//   K5  absmax:      amax = max |x| over the whole tensor (the batch too),
+//                    NaN where x holds a NaN, as jnp.max
+//   K6  quantize_s8: scale = max(amax, 1e-12) / 127 (float32; NaN stays
+//                    NaN, as jnp.maximum keeps it),
 //                    q = clip(rint(x / scale), -127, 127), written
 //                    channels-last (N, H, W, Cp) with C padded by zero codes
 //                    to Cp, a multiple of 32
@@ -32,6 +34,30 @@
 // nets' 3x3 convolutions of 128 channels and more its 2 M O K operations on
 // the int8 tensor cores (1,979 TOP/s dense on an H100 SXM) outweigh its
 // bytes.
+//
+// K5 is one launch a call and writes amax itself (no zero fill): one wave
+// of blocks (8 of 256 threads on each SM, fewer for a small x, as
+// int8_kernels.absmax_plan says), each thread with eight independent
+// 16-byte loads in flight before it joins any (neighbouring threads on
+// neighbouring vectors, the grid striding over x), an integer max of
+// magnitude bits per thread, warp (redux) and block, then one partial per
+// block in a per-device scratch and a ticket: the block that draws the
+// last ticket, after a __threadfence, reduces the partials, writes amax and
+// sets the ticket back to 0. No block waits on another; the grid is one
+// wave for speed (no second, partly idle wave). The head and tail of a
+// misaligned or ragged x (under 16 bytes each) go through scalar loads of
+// block 0. Bound: one read of x at 3.35 TB/s. At NCSN1D's 6-13 MB inputs a
+// call is mostly fixed cost (a launch, a load's latency, the ticket's round
+// trips), which
+// the old form paid twice (a zero-fill kernel, then a grid of up to 2,112
+// blocks in two waves and 2,112 atomicMax on one word). A ring of 1-D bulk
+// copies (TMA) per block over a contiguous chunk measured slower at every
+// geometry (PERF.md section 6): its single issuing thread and per-stage
+// barriers cost more than they save on a read-only stream. K5 must not
+// run on two streams of one device at once: the calls would share the
+// ticket and mix their partials, and amax would come out wrong with no
+// error. The port launches K5 on one stream (each engine on the current
+// stream), and a CUDA graph replays its launches in order on its stream.
 //
 // K6 is a tiled transpose through shared memory: a block takes 32 channels
 // by 32 16-byte vectors of flattened pixels m = n P + p (256 bf16 or 128
@@ -103,54 +129,159 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 
 // -- K5: the per-tensor |x| maximum ----------------------------------------
 
-// The largest |value| of 16 bytes of float32 (4 values) or bf16 (8 values).
-__device__ __forceinline__ float absmax16(uint4 v, float) {
-  return fmaxf(fmaxf(fabsf(__uint_as_float(v.x)), fabsf(__uint_as_float(v.y))),
-               fmaxf(fabsf(__uint_as_float(v.z)), fabsf(__uint_as_float(v.w))));
-}
-__device__ __forceinline__ float absmax_bf2(unsigned int u) {
-  __nv_bfloat162 h;
-  *reinterpret_cast<unsigned int*>(&h) = u;
-  const float2 f = __bfloat1622float2(h);
-  return fmaxf(fabsf(f.x), fabsf(f.y));
-}
-__device__ __forceinline__ float absmax16(uint4 v, __nv_bfloat16) {
-  return fmaxf(fmaxf(absmax_bf2(v.x), absmax_bf2(v.y)),
-               fmaxf(absmax_bf2(v.z), absmax_bf2(v.w)));
-}
+// ops/int8_kernels.py K5_THREADS, K5_BLOCKS_PER_SM and K5_UNROLL hold the
+// same numbers for absmax_plan.
+constexpr int K5_THREADS = 256;
+constexpr int K5_BLOCKS_PER_SM = 8;   // 2,048 threads: 32 registers each
+constexpr int K5_UNROLL = 8;          // 16-byte loads in flight a thread
 
-// Grid-stride over 16-byte vectors, then the scalar tail; a warp and then
-// a block reduction, and one atomicMax per block on the float's bits (a
-// non-negative float orders as its int bits). amax starts at 0.
+// Magnitudes as bit patterns. With its sign bit cleared a float32 orders as
+// its unsigned bits, NaN above +inf, and so does a bf16 in 16 bits; an
+// integer max therefore keeps a NaN at every level, where fmaxf drops it
+// (jnp.max propagates NaN). bf16 words hold two magnitudes, kept as a pair
+// of 16-bit maxima (__vmaxu2) until finish() widens the larger one to the
+// float32 bits of the same value.
 template <typename T>
-__global__ void __launch_bounds__(256)
-absmax_kernel(const T* __restrict__ x, long long n, long long n_vec,
-              float* __restrict__ amax) {
-  constexpr int VEC = 16 / sizeof(T);
-  float m = 0.0f;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const uint4* xv = reinterpret_cast<const uint4*>(x);
-  for (long long i = first; i < n_vec; i += stride) {
-    m = fmaxf(m, absmax16(xv[i], T()));
+struct AbsBits;
+
+template <>
+struct AbsBits<float> {
+  static __device__ __forceinline__ unsigned int vec(uint4 v) {
+    return max(max(v.x & 0x7fffffffu, v.y & 0x7fffffffu),
+               max(v.z & 0x7fffffffu, v.w & 0x7fffffffu));
   }
-  for (long long i = n_vec * VEC + first; i < n; i += stride) {
-    m = fmaxf(m, fabsf(to_f32(x[i])));
+  static __device__ __forceinline__ unsigned int one(float v) {
+    return __float_as_uint(v) & 0x7fffffffu;
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  static __device__ __forceinline__ unsigned int join(unsigned int a,
+                                                      unsigned int b) {
+    return max(a, b);
   }
-  __shared__ float warp_max[32];
+  static __device__ __forceinline__ unsigned int finish(unsigned int a) {
+    return a;
+  }
+};
+
+template <>
+struct AbsBits<__nv_bfloat16> {
+  static __device__ __forceinline__ unsigned int vec(uint4 v) {
+    return __vmaxu2(__vmaxu2(v.x & 0x7fff7fffu, v.y & 0x7fff7fffu),
+                    __vmaxu2(v.z & 0x7fff7fffu, v.w & 0x7fff7fffu));
+  }
+  static __device__ __forceinline__ unsigned int one(__nv_bfloat16 v) {
+    return __bfloat16_as_ushort(v) & 0x7fffu;
+  }
+  static __device__ __forceinline__ unsigned int join(unsigned int a,
+                                                      unsigned int b) {
+    return __vmaxu2(a, b);
+  }
+  static __device__ __forceinline__ unsigned int finish(unsigned int a) {
+    return max(a & 0xffffu, a >> 16) << 16;
+  }
+};
+
+// The block's maximum of m over its threads, valid in thread 0.
+__device__ __forceinline__ unsigned int block_max(unsigned int m,
+                                                  unsigned int* warp_max) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  m = __reduce_max_sync(0xffffffffu, m);
   if (lane == 0) warp_max[warp] = m;
   __syncthreads();
   if (warp == 0) {
-    m = lane < (int)(blockDim.x >> 5) ? warp_max[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    }
-    if (lane == 0) atomicMax(reinterpret_cast<int*>(amax), __float_as_int(m));
+    m = lane < K5_THREADS / 32 ? warp_max[lane] : 0u;
+    m = __reduce_max_sync(0xffffffffu, m);
   }
+  return m;
+}
+
+// Block 0's share of x's head and tail (scalar loads), joined into m.
+template <typename T>
+__device__ __forceinline__ unsigned int head_tail(unsigned int m, const T* x,
+                                                  long long head,
+                                                  long long body_bytes,
+                                                  long long tail) {
+  using A = AbsBits<T>;
+  const int tid = threadIdx.x;
+  if (blockIdx.x == 0) {
+    if (tid < head) m = A::join(m, A::one(x[tid]));
+    if (tid < tail) {
+      m = A::join(m,
+                  A::one(x[head + body_bytes / (long long)sizeof(T) + tid]));
+    }
+  }
+  return m;
+}
+
+// The grid's finish: block b writes its partial to scratch[1 + b] and
+// takes a ticket (scratch[0]); the block that draws the last ticket
+// reduces the partials, writes amax and sets the ticket back to 0 for the
+// next launch.
+__device__ __forceinline__ void finish_absmax(unsigned int m,
+                                              unsigned int* scratch,
+                                              float* amax,
+                                              unsigned int* warp_max) {
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  m = block_max(m, warp_max);
+  if (tid == 0) {
+    scratch[1 + blockIdx.x] = m;
+    __threadfence();
+    last = atomicAdd(&scratch[0], 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();   // the other blocks' partials, fenced before their tickets
+  // eight independent loads a thread: one round trip to L2 for up to
+  // 2,048 partials (joining each before the next load would cost one
+  // round trip for each partial a thread reads)
+  m = 0;
+  for (int i0 = tid; i0 < (int)gridDim.x; i0 += 8 * K5_THREADS) {
+    unsigned int p[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j * K5_THREADS;
+      p[j] = i < (int)gridDim.x ? __ldcg(&scratch[1 + i]) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m = max(m, p[j]);
+  }
+  m = block_max(m, warp_max);
+  if (tid == 0) {
+    *amax = __uint_as_float(m);
+    scratch[0] = 0;
+  }
+}
+
+// x is head scalars, then body_bytes of 16-byte vectors from a 16-byte
+// boundary, then tail scalars (ops/int8_kernels.py absmax_plan). Thread g
+// of the grid's G threads reads vectors g, g + G, ... (neighbouring
+// threads on neighbouring vectors), K5_UNROLL independent 16-byte loads in
+// flight before it joins any of them; block 0 also takes the head and the
+// tail.
+template <typename T>
+__global__ void __launch_bounds__(K5_THREADS, K5_BLOCKS_PER_SM)
+absmax_kernel(const T* __restrict__ x, long long head, long long body_bytes,
+              long long tail, unsigned int* __restrict__ scratch,
+              float* __restrict__ amax) {
+  using A = AbsBits<T>;
+  __shared__ unsigned int warp_max[K5_THREADS / 32];
+  const uint4* v = reinterpret_cast<const uint4*>(x + head);
+  const long long n_vec = body_bytes / 16;
+  const long long stride = (long long)gridDim.x * K5_THREADS;
+  unsigned int m = 0;
+  for (long long i = (long long)blockIdx.x * K5_THREADS + threadIdx.x;
+       i < n_vec; i += K5_UNROLL * stride) {
+    uint4 r[K5_UNROLL];
+#pragma unroll
+    for (int j = 0; j < K5_UNROLL; ++j) {
+      const long long k = i + j * stride;
+      r[j] = k < n_vec ? __ldg(v + k) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < K5_UNROLL; ++j) m = A::join(m, A::vec(r[j]));
+  }
+  m = head_tail(m, x, head, body_bytes, tail);
+  finish_absmax(A::finish(m), scratch, amax, warp_max);
 }
 
 // -- K6: x -> channels-last int8 codes -------------------------------------
@@ -188,8 +319,12 @@ __device__ __forceinline__ unsigned int pick(uint4 v, int i) {
 // than 1e-4 from every half-integer (the only places rint and the clip at
 // +-127.5 can part, i.e. |c - rint(c)| < 0.4999), rint(c) equals rint of
 // the rounded quotient. Elsewhere (about 2e-4 of the values) it divides.
-// NaN and inf give what the division gives: the test is false for both,
-// and both forms clip to -127 / 127.
+// Non-finite x never reaches it: K5 makes amax NaN (a NaN in x) or +inf
+// (an inf and no NaN), so the scale is NaN or +inf, and then every code
+// of the plain version and of XLA is 0 (a NaN quotient casts to 0, a
+// finite v over +inf is 0), which quantize_kernel writes without
+// reading x. K7's output is then 0 * scale = NaN everywhere, as the JAX
+// package's.
 __device__ __forceinline__ int quantize(float v, float scale, float inv) {
   const float c = __fmul_rn(v, inv);
   float r = rintf(c);
@@ -218,21 +353,36 @@ __device__ __forceinline__ void unpack8(uint2 v, float (&f)[4]) {
 // get code 0. Block 0's first thread also writes the scale for K7.
 // vec: 2 where every image row of x is 16-byte aligned (16-byte loads),
 // 1 where it is 8-byte aligned (two 8-byte loads a lane, each half of the
-// lane's pixels in one row), 0 otherwise (scalar loads).
+// lane's pixels in one row), 0 otherwise (scalar loads). Four blocks an
+// SM hold it at 64 registers a thread; the bounds keep ptxas there (70
+// registers, three blocks, read 20 % slower at the score nets' inputs).
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, 4)
 quantize_kernel(const T* __restrict__ x, const float* __restrict__ amax,
                 int8_t* __restrict__ q, float* __restrict__ scale_out, int C,
                 long long P, long long M, int Cp, int vec) {
   constexpr int VEC = 16 / sizeof(T);   // pixels per 16-byte vector
   constexpr int PX = 32 * VEC;          // pixels per block
   __shared__ __align__(16) unsigned int tile[PX * 8];
-  const float scale = __fdiv_rn(fmaxf(*amax, 1e-12f), 127.0f);
-  const float inv = __frcp_rn(scale);
+  // max(amax, 1e-12) / 127 with jnp.maximum's NaN (fmaxf would drop it)
+  const float a = *amax;
+  const float scale = __fdiv_rn(a < 1e-12f ? 1e-12f : a, 127.0f);
   if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
   const int groups = Cp / 32;
   const int g = blockIdx.x % groups;
   const long long mx0 = (long long)(blockIdx.x / groups) * PX;
+  if (!isfinite(scale)) {
+    // amax NaN or +inf (x holds a NaN or an inf): every code is 0, as the
+    // division and the cast give (quantize's note); x is not read
+    for (int k = threadIdx.x; k < 2 * PX; k += blockDim.x) {
+      const long long m = mx0 + (k >> 1);
+      if (m >= M) break;
+      *reinterpret_cast<uint4*>(q + m * Cp + g * 32 + 16 * (k & 1)) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  const float inv = __frcp_rn(scale);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long m0 = mx0 + lane * VEC;
   const long long n0 = m0 / P;
@@ -801,23 +951,6 @@ conv_s8_wgmma(const __grid_constant__ CUtensorMap map_a,
 
 // -- host side ---------------------------------------------------------------
 
-int blocks_for(long long work, int threads) {
-  long long b = (work + threads - 1) / threads;
-  if (b > 132LL * 16) b = 132LL * 16;   // 16 blocks of 256 per SM, then loop
-  return b < 1 ? 1 : (int)b;
-}
-
-template <typename T>
-int launch_absmax(const void* x, long long n, void* amax, void* stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  const long long n_vec =
-      (reinterpret_cast<uintptr_t>(x) % 16 == 0) ? n / VEC : 0;
-  absmax_kernel<T><<<blocks_for(n_vec ? n_vec : n, 256), 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), n, n_vec, static_cast<float*>(amax));
-  return (int)cudaGetLastError();
-}
-
 template <typename T>
 int launch_quantize(const void* x, const void* amax, void* q, void* scale,
                     long long N, long long C, long long P, long long Cp,
@@ -846,6 +979,29 @@ constexpr int ERR_ENCODE_A = 1000;
 constexpr int ERR_ENCODE_B = 2000;
 constexpr int ERR_NO_INSTANCE = 4000;
 constexpr int ERR_BAD_PLAN = 5000;
+
+// K5 at the host plan's launch (ops/int8_kernels.py absmax_plan). The
+// launcher only checks that the plan covers x with its body on a 16-byte
+// boundary, and that the scratch of `scratch_words` holds the ticket and
+// one partial per block.
+template <typename T>
+int launch_absmax(const void* x, void* amax, void* scratch, long long head,
+                  long long body_bytes, long long tail, long long blocks,
+                  long long scratch_words, void* stream) {
+  constexpr long long VEC = 16 / sizeof(T);
+  const uintptr_t body =
+      reinterpret_cast<uintptr_t>(x) + (uintptr_t)head * sizeof(T);
+  if (blocks < 1 || blocks > scratch_words - 1 || head < 0 || head >= VEC ||
+      tail < 0 || tail >= VEC || body_bytes < 0 || body_bytes % 16 != 0 ||
+      (body_bytes > 0 && body % 16 != 0)) {
+    return ERR_BAD_PLAN;
+  }
+  absmax_kernel<T><<<(unsigned int)blocks, K5_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), head, body_bytes, tail,
+      static_cast<unsigned int*>(scratch), static_cast<float*>(amax));
+  return (int)cudaGetLastError();
+}
 
 void* driver_fn(const char* name) {
   void* fn = nullptr;
@@ -1000,13 +1156,18 @@ int launch_conv(const void* xq, const void* wq, const void* sx,
 // C launchers (ops/_build.py _ARGTYPES). Each returns a cudaError_t, or one
 // of the ERR_* codes above.
 
-extern "C" int int8_absmax_f32(const void* x, long long n, void* amax,
-                               void* stream) {
-  return launch_absmax<float>(x, n, amax, stream);
+#define INT8_ABSMAX_ARGS                                                    \
+  const void *x, void *amax, void *scratch, long long head,                 \
+      long long body_bytes, long long tail, long long blocks,               \
+      long long scratch_words, void *stream
+#define INT8_ABSMAX_PASS                                                    \
+  x, amax, scratch, head, body_bytes, tail, blocks, scratch_words, stream
+
+extern "C" int int8_absmax_f32(INT8_ABSMAX_ARGS) {
+  return launch_absmax<float>(INT8_ABSMAX_PASS);
 }
-extern "C" int int8_absmax_bf16(const void* x, long long n, void* amax,
-                                void* stream) {
-  return launch_absmax<__nv_bfloat16>(x, n, amax, stream);
+extern "C" int int8_absmax_bf16(INT8_ABSMAX_ARGS) {
+  return launch_absmax<__nv_bfloat16>(INT8_ABSMAX_PASS);
 }
 
 extern "C" int int8_quantize_f32(const void* x, const void* amax, void* q,

@@ -6,12 +6,15 @@ through XLA (inverseproblemwithdiffusionmodel_tpu/ops/quant.py:82-120).
 PyTorch has no s8 x s8 -> s32 convolution on a CUDA tensor, so the port
 has these three kernels:
 
-- `absmax` (K5): max |x| over the whole tensor, one float32 value;
+- `absmax` (K5): max |x| over the whole tensor, one float32 value, NaN
+  where x holds a NaN (as jnp.max); one launch a call, one wave of
+  blocks with eight 16-byte loads in flight a thread, the last block to
+  finish reducing the partials; `absmax_plan` is its host-side plan;
 - `quantize_s8` (K6, a tiled transpose through shared memory): x (N, C,
   *spatial), contiguous, to int8 codes clip(round(x / scale), -127, 127)
-  with scale = max(amax, 1e-12) / 127, written channels-last (N,
-  *spatial, Cp), the channels padded with zero codes to Cp, a multiple of
-  32;
+  with scale = max(amax, 1e-12) / 127 (NaN stays NaN), written
+  channels-last (N, *spatial, Cp), the channels padded with zero codes to
+  Cp, a multiple of 32; a NaN quotient (a non-finite scale) is code 0;
 - `conv_s8s8s32` (K7): the convolution of those codes with the weight
   codes (O, KH, KW, Cp) in int32, dequantized by scale * sw[o] and written
   channels-first (N, O, Ho, Wo) in float32 or bf16; optionally also the
@@ -26,8 +29,11 @@ runs its plain version (`absmax_plain`, `quantize_s8_plain`,
 `conv_s8s8s32_plain`), which the kernels are held against bit for bit.
 The plain convolution is a float64 convolution of the codes: exact, since
 |sum| <= 127^2 K is far below 2^53; on the card it runs with cuDNN off, so
-that no FFT or Winograd algorithm rounds it. Launches are counted in
-`LAUNCHES` ("absmax", "quantize_s8", "conv_s8s8s32").
+that no FFT or Winograd algorithm rounds it. A NaN anywhere in a
+convolution's input makes its output NaN everywhere, and an inf (with no
+NaN) too, as the JAX package's: the scale is NaN or inf, every code 0,
+and 0 times it NaN. Launches are counted in `LAUNCHES` ("absmax",
+"quantize_s8", "conv_s8s8s32").
 """
 from __future__ import annotations
 
@@ -245,23 +251,116 @@ def _check_float(name: str, x: torch.Tensor) -> str:
 
 # -- K5 ---------------------------------------------------------------------
 
+# K5's launch: the numbers of csrc/int8conv.cu's K5_THREADS, K5_UNROLL and
+# K5_BLOCKS_PER_SM (its launch bounds)
+K5_THREADS = 256
+K5_UNROLL = 8               # 16-byte loads in flight a thread
+K5_BLOCKS_PER_SM = 8        # 2,048 threads an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class AbsmaxPlan:
+    """K5's launch for one tensor. x is `head` elements up to its first
+    16-byte boundary (scalar loads, block 0), a body of `body_bytes` (a
+    multiple of 16) read as 16-byte vectors, and `tail` elements after it
+    (scalar loads, block 0). Thread g of the grid's G = blocks x
+    K5_THREADS reads vectors g, g + G, ..., K5_UNROLL loads in flight at a
+    time. `scratch_words` are the ticket and one partial per block.
+
+    The plan is the one owner of these numbers: `absmax_launch_args`
+    hands them to csrc/int8conv.cu's launcher, which takes them as they
+    are and only checks that they cover x."""
+    blocks: int
+    head: int
+    body_bytes: int
+    tail: int
+    scratch_words: int
+
+
+@functools.lru_cache(maxsize=4096)
+def absmax_plan(n: int, dtype: torch.dtype, ptr_offset: int,
+                sm_count: int) -> AbsmaxPlan:
+    """K5's plan for n elements of dtype starting `ptr_offset` bytes past a
+    16-byte boundary, on a card of `sm_count` SMs. One wave, for speed: at
+    most K5_BLOCKS_PER_SM blocks on each SM, fewer where x is small, as
+    many as give each thread one round of K5_UNROLL loads."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"absmax: the kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    size = torch.finfo(dtype).bits // 8
+    if n < 1 or ptr_offset % size or not 0 <= ptr_offset < 16:
+        raise ValueError(f"absmax: no plan for {n} elements at offset "
+                         f"{ptr_offset} (element size {size})")
+    head = min(n, (16 - ptr_offset) % 16 // size)
+    body_bytes = (n - head) * size // 16 * 16
+    blocks = max(1, min(sm_count * K5_BLOCKS_PER_SM,
+                        -(-body_bytes // (16 * K5_UNROLL * K5_THREADS))))
+    return AbsmaxPlan(blocks=blocks, head=head, body_bytes=body_bytes,
+                      tail=n - head - body_bytes // size,
+                      scratch_words=1 + blocks)
+
+
+def absmax_launch_args(p: AbsmaxPlan) -> Tuple[int, ...]:
+    """The plan's integers that K5's C launcher takes after its pointers
+    (_build._ARGTYPES); the scratch's size in words follows them."""
+    return (p.head, p.body_bytes, p.tail, p.blocks)
+
+
+# Per device: (its SM count, K5's ticket and partials). The scratch is
+# made zero at the device's first call and every launch leaves the ticket
+# at zero.
+_ABSMAX_DEVICE = {}
+
+
+def _absmax_device(index: int) -> Tuple[int, torch.Tensor]:
+    """The device's SM count and K5 scratch, made at its first call, which
+    must not fall inside a CUDA-graph capture (the zero fill would be
+    captured with the graph, and replayed). Every K5 call on the device
+    shares it (see `absmax`)."""
+    found = _ABSMAX_DEVICE.get(index)
+    if found is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "absmax: the first call on a device must come before any "
+                "CUDA-graph capture (it allocates and zeroes K5's ticket); "
+                "call it once outside the capture")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        found = (sms, torch.zeros(1 + sms * K5_BLOCKS_PER_SM,
+                                  dtype=torch.int32, device=f"cuda:{index}"))
+        _ABSMAX_DEVICE[index] = found
+    return found
+
+
 def absmax_plain(x: torch.Tensor) -> torch.Tensor:
-    """K5's plain version: max |x| as a float32 tensor of shape (1,)."""
+    """K5's plain version: max |x| as a float32 tensor of shape (1,); a NaN
+    anywhere makes it NaN, as jnp.max does."""
     return x.float().abs().amax().reshape(1)
 
 
 def absmax(x: torch.Tensor) -> torch.Tensor:
-    """max |x| over the whole tensor, float32 (1,): K5 on a contiguous
-    CUDA tensor, the plain version on a CPU one."""
+    """max |x| over the whole tensor, float32 (1,), NaN where x holds a NaN:
+    K5 (one launch, no fill) on a contiguous CUDA tensor, the plain version
+    on a CPU one.
+
+    K5 must not run on two streams of one device at once. Every call on a
+    device shares one ticket and one array of partials (`_absmax_device`),
+    so two calls in flight together mix their partials, the wrong block can
+    draw the last ticket, and amax comes out wrong with no error, as can
+    every later call if a ticket is left over. The port launches it on one
+    stream: each engine on the current stream, a CUDA graph's replays in
+    order on the graph's stream."""
     if x.device.type == "cpu":
         return absmax_plain(x)
     suffix = _check_float("absmax", x)
     if not x.is_contiguous():
         raise ValueError("absmax: the kernel takes a contiguous tensor")
-    amax = torch.zeros(1, dtype=torch.float32, device=x.device)
     with _guard(x):
-        _call(f"int8_absmax_{suffix}", x.data_ptr(), x.numel(),
-              amax.data_ptr())
+        sms, scratch = _absmax_device(x.get_device())
+        plan = absmax_plan(x.numel(), x.dtype, x.data_ptr() % 16, sms)
+        amax = torch.empty(1, dtype=torch.float32, device=x.device)
+        _call(f"int8_absmax_{suffix}", x.data_ptr(), amax.data_ptr(),
+              scratch.data_ptr(), *absmax_launch_args(plan),
+              scratch.numel())
     LAUNCHES["absmax"] += 1
     return amax
 

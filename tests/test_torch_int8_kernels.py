@@ -146,7 +146,11 @@ def test_cuda_kernels_equal_their_plain_versions():
     """K5, K6 and K7 on the card against their plain versions, bit for
     bit (amax, scale, codes, int32 sums, dequantized output), float32 and
     bf16, one launch of each per int8_conv, at CASES: every K7 instance
-    and each tail (test_cases_reach_every_instance_and_tail)."""
+    and each tail (test_cases_reach_every_instance_and_tail). Then
+    chip_smoke.int8_edge_checks: the chain on inputs with a NaN, a +inf or
+    a -inf (NaN where the plain chain is), K5 at tiny and misaligned
+    inputs, two calls in a row and in a replayed CUDA graph (the ticket
+    back at 0), one kernel a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     for case in CASES:
@@ -175,3 +179,5 @@ def test_cuda_kernels_equal_their_plain_versions():
             assert dict(ik.LAUNCHES) == {"absmax": 1, "quantize_s8": 1,
                                          "conv_s8s8s32": 1}
             assert torch.equal(whole, quant.int8_conv_plain(x, qw, **kw))
+    import chip_smoke    # the repository's root, where pytest runs
+    chip_smoke.int8_edge_checks(ik, quant)

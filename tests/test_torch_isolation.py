@@ -31,6 +31,7 @@ def _sources():
     yield os.path.join(ROOT, "fir_ab.py")
     yield os.path.join(ROOT, "int8_ab.py")
     yield os.path.join(ROOT, "guided_gate.py")
+    yield os.path.join(ROOT, "smoke_profile.py")
 
 
 def _imported_roots(path):
