@@ -82,13 +82,15 @@ phases, each printing one line with its own seconds:
    first and last levels.
 10b. sense: the README's headline ACDC SENSE CLI,
    scripts.acdc_SENSE_real_img.main, at full width (NCSNv2Deepest 256 px,
-   ngf 128, seed 0; 16 chains, R = 8, 4 coils, the complex64 SENSE
-   operator on cuFFT, CG 8, lr_scaled 5.0, --override
+   ngf 128, seed 0; 16 chains, R = 8, 4 coils, its chains in pair form
+   (make_stepped_pair_reconstructor, CG 8 on the normal kernel; the
+   operator built from the complex64 SENSE), lr_scaled 5.0, --override
    recons.num_classes=4: the 348 -> 0.01 ladder cut from 2311 levels to
    4), torch's defaults: chain-steps/s of the sampler alone (between CUDA
    synchronizations, the set-up apart), wall s, peak memory, the NRMSE and
    SSIM it prints (finite; the weights are random), its artifacts; the
-   single-coil script with SingleCoil and the SENSE script guided
+   single-coil script with SingleCoil (the complex sampler on cuFFT) and
+   the SENSE script guided
    (--seg_start_time 0.5, the seg UNet from seed 0), 4 chains each. Then,
    in the float32 mode: cuFFT's i2k / k2i against the pair DFT at 256 px;
    samplers.ald.ald_inverse_seg_proximal_real_imag against
@@ -293,6 +295,35 @@ phases, each printing one line with its own seconds:
    largest NCSNv2Deepest input, K5 bit for bit at tiny and misaligned
    inputs, two calls in a row and in a replayed CUDA graph (K5's ticket
    back at 0), and one CUDA kernel a K5 call (torch.profiler).
+   int8_ncsn3d: the int8 score of the 3-D temporal prior (CINE127_1D
+   NCSN3DShallow, ngf 128, seed 0), whose rank-3 convolutions K7 does not
+   take: at batch 2 every convolution the unfold path (K5, K6, unfold,
+   torch._int_mm) runs, held bit for bit to int8_conv_plain on the CPU;
+   then the forward at the cine CLI's 2,048 tubes, int8 against bf16, and
+   the unfold path's device ms within it (CUDA events around each call),
+   with the launch counts cleared before and read after; its first call
+   of each geometry held bit for bit to int8_conv_plain on the card.
+20. parallel: the data axis on one card, run last. An NCCL process group
+   of world 1 on 127.0.0.1 (parallel.initialize_distributed), cuDNN
+   deterministic for the phase. train_ncsn --use_mesh (ACDC, the deployed
+   NCSNv2Deepest at full width, seeded weights, batch 3) for
+   PARALLEL_STEPS steps against the same run without the mesh: every
+   parameter and loss equal bit for bit (a second run without the mesh as
+   the control, should they differ); s/step of each, and the gradient
+   all_reduce's device ms by CUDA events (the step's one bucket, and
+   dist.all_reduce alone). acdc_SENSE_real_img --use_mesh and
+   serve_recon --data_shards -1 at acdc_problem's geometry (16 chains, 4
+   coils, R = 8) for PARALLEL_LEVELS levels against their runs without a
+   mesh: the reconstructions equal bit for bit; the engines'
+   chain-steps/s. Then the sharded code itself, on a mesh of two entries
+   of the card: acdc_SENSE_real_img --use_mesh
+   (TWO_ENTRY_CHAINS chains, PARALLEL_LEVELS levels of one inner step)
+   and the ACDC (TWO_ENTRY_CHAINS chains) and cine (CINE_CHAINS) engines
+   (serve_recon's, f32, PARALLEL_LEVELS levels of one inner step) within
+   rel L2 SHARDED of their runs without a mesh, with their walls and
+   chain-steps/s; TF32 off and cuDNN's algorithms from its heuristics (not
+   timed), so that both runs round alike. No K1-K7 launch. The group is
+   destroyed at the end.
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -541,6 +572,13 @@ INT8_NON_FINITE = {"nan": [math.nan], "+inf": [math.inf],
 INT8_TINY = (1, 2, 3, 7, 8, 9, 15, 17, 1001, 4099, 65539, 3 * 2 ** 20 + 5)
 INT8_OFFSETS = (0, 2, 4, 8)
 INT8_TAGS = ("absmax", "quantize_s8", "conv_s8s8s32")
+INT8_3D_TUBES = 2048       # the cine CLI's tube batch: Re and Im of 4
+                           # chains x 256 tubes (quickstart_3d's)
+PARALLEL_STEPS = 3         # train_ncsn runs of the parallel phase
+PARALLEL_LEVELS = 2        # the mesh CLIs' and engines' levels
+SHARDED = 1e-6             # rel L2, a run on two shards vs without a mesh
+                           # (tests/test_torch_parallel.py's bound)
+TWO_ENTRY_CHAINS = 8       # chains of the two-entry SENSE and ACDC runs
 QUANT = "inverseproblemwithdiffusionmodel_tpu/ops/quant.py"
 INT8_REPLACES = {"absmax": f"{QUANT}:93", "quantize_s8": f"{QUANT}:93",
                  "conv_s8s8s32": f"{QUANT}:102"}
@@ -2876,13 +2914,15 @@ def timed_cli(module, argv: list, owner=None,
 
 
 def sense_phase(fk, fl, device="cuda") -> dict:
-    """The complex64 reconstruction path from the README's headline CLI
-    down: scripts.acdc_SENSE_real_img.main at full width (the ACDC
+    """The README's headline CLI and the complex64 reconstruction path:
+    scripts.acdc_SENSE_real_img.main at full width (the ACDC
     NCSNv2Deepest, 256 px, ngf 128, weights from seed 0; SENSE_SAMPLES
     chains, R = 8, 4 coils, CG 8, lr_scaled 5.0, the ladder cut to
-    SENSE_LEVELS levels) with torch's defaults, then the single-coil script
-    with SingleCoil and the SENSE script guided (seg UNet from seed 0), at
-    SENSE_SIDE_SAMPLES chains; the cuFFT pair against the pair DFT at 256
+    SENSE_LEVELS levels; its chains in pair form, the CG on the normal
+    kernel) with torch's defaults, then the single-coil script with
+    SingleCoil (the complex sampler) and the SENSE script guided (seg UNet
+    from seed 0), at SENSE_SIDE_SAMPLES chains, each timed around its
+    sampler call; the cuFFT pair against the pair DFT at 256
     px; the complex sampler against the pair reconstructor on
     acdc_problem's geometry (its ladder cut to SENSE_CHECK_LEVELS), same
     weights, CG iterations and noise, float32 mode, level by level; the
@@ -2930,7 +2970,11 @@ def sense_phase(fk, fl, device="cuda") -> dict:
             "--lr_scaled", str(ACDC_LR_SCALED), "--seg_start_time", "0.5"]),
     }
     for name, (module, chains, flags) in runs.items():
-        r = timed_cli(module, flags + common + ["--num_samples", str(chains)])
+        # the SENSE CLI's chains run in pair form (its `reconstruct`), the
+        # single-coil CLI's through the complex sampler
+        r = timed_cli(module, flags + common + ["--num_samples", str(chains)],
+                      name=("reconstruct" if module is sense_script else
+                            "ald_inverse_seg_proximal_real_imag"))
         recons = r.pop("recons")
         del r["call"]
         if not (isinstance(recons, np.ndarray)
@@ -3072,7 +3116,8 @@ def report_sense(sn: dict, t: float, recon_f32: float) -> None:
     cp = sn["complex_vs_pair_rel_l2"]
     say("sense", t, f"acdc_SENSE_real_img.main at full width (NCSNv2Deepest "
         f"256 px, ngf 128, seed 0), {SENSE_SAMPLES} chains, R = {ACDC_R}, "
-        f"{ACDC_COILS} coils, CG 8, lr_scaled {ACDC_LR_SCALED}, "
+        f"{ACDC_COILS} coils, pair form, CG 8 on the normal kernel, "
+        f"lr_scaled {ACDC_LR_SCALED}, "
         f"recons.num_classes={SENSE_LEVELS} (the 348 -> 0.01 ladder cut from "
         f"2311 levels to {SENSE_LEVELS}) x 3 steps, cuDNN TF32 "
         f"{torch.backends.cudnn.allow_tf32}: "
@@ -4715,7 +4760,7 @@ def migrate_phase(fk, fl, device="cuda") -> dict:
                     "--lr_scaled", str(ACDC_LR_SCALED), "--override",
                     f"recons.num_classes={MIGRATE_LEVELS}", "--seed", "0",
                     "--device", str(device), "--num_samples",
-                    str(SENSE_SAMPLES)])
+                    str(SENSE_SAMPLES)], name="reconstruct")
                 recons = cli.pop("recons")
                 del cli["call"]
                 if not (recons.shape == (SENSE_SAMPLES, d.image_size,
@@ -6021,6 +6066,444 @@ def report_int8(q: dict, t: float) -> None:
         f"a call ({q['edges']['kernel']})")
 
 
+def int8_ncsn3d_numbers(ik, device="cuda") -> dict:
+    """The int8 score of the 3-D temporal prior (Diffusion3D's
+    NCSN3DShallow on CINE127_1D, ngf 128, seed 0), whose rank-3
+    convolutions K7 does not take. At batch 2 (tubes) every call of the
+    unfold path (ops/quant.int8_conv_unfold: K5, K6, unfold,
+    torch._int_mm) is held bit for bit to int8_conv_plain on the CPU. At
+    the cine CLI's INT8_3D_TUBES tubes: the first call of each geometry
+    held bit for bit to int8_conv_plain on the card (its float64
+    convolution, cuDNN off: exact), which covers the block split of the
+    unfold rows (UNFOLD_BYTES) and _int_mm's padding at the sizes the
+    forward gives them; the launches of one forward (the counts cleared
+    before it), the unfold path's device ms within one forward (CUDA
+    events around each call), the int8 and bf16 forwards' device ms, and
+    int8 against bf16 (a reading)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.models import registry
+    from inverseproblemwithdiffusionmodel_tpu_torch.ops import quant
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        get_sigmas)
+    cfg = load_config("CINE127_1D", "real-imag")
+    net, _ = registry.load_model(cfg, "Diffusion3D", seed=0)
+    net = net.to(device).eval()
+    T, kk = cfg.data.image_size, cfg.data.channels
+    sigmas = get_sigmas(cfg, "recons")
+    score8 = registry.make_score_fn(net, sigmas, "int8")
+    score16 = registry.make_score_fn(net, sigmas, torch.bfloat16)
+    gen = torch.Generator().manual_seed(4)
+    inner = quant.int8_conv_unfold
+    calls, events, big = [], [], {}
+
+    def key(x, qw, kw):
+        return (tuple(x.shape[1:]), tuple(qw.codes.shape), kw["stride"],
+                kw["dilation"], kw["padding"], kw["pre_pad"])
+
+    def recorded(x, qw, **kw):
+        out = inner(x, qw, **kw)
+        calls.append((x.detach().cpu(), qw.to("cpu"), kw,
+                      out.detach().cpu()))
+        return out
+
+    def sampled(x, qw, **kw):
+        out = inner(x, qw, **kw)
+        big.setdefault(key(x, qw, kw), (x.detach().clone(), qw, kw,
+                                        out.detach().clone()))
+        return out
+
+    def timed(x, qw, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(x, qw, **kw)
+        b.record()
+        events.append((a, b))
+        return out
+
+    x2 = torch.rand(2, T, kk, generator=gen).to(device)
+    xb = torch.rand(INT8_3D_TUBES, T, kk, generator=gen).to(device)
+    lab2 = torch.tensor([0, 5], device=device)
+    labb = torch.full((INT8_3D_TUBES,), 5, device=device)
+    try:
+        quant.int8_conv_unfold = recorded
+        with torch.inference_mode():
+            score8(x2, lab2)
+        quant.int8_conv_unfold = sampled
+        ik.LAUNCHES.clear()
+        with torch.inference_mode():
+            out8 = score8(xb, labb)
+            torch.cuda.synchronize()
+            launches = dict(ik.LAUNCHES)
+            quant.int8_conv_unfold = timed
+            score8(xb, labb)
+            torch.cuda.synchronize()
+            quant.int8_conv_unfold = inner
+            unfold_ms = sum(a.elapsed_time(b) for a, b in events)
+            ms8 = cuda_ms(lambda: score8(xb, labb), reps=2, warmup=0)
+            out16 = score16(xb, labb)
+            ms16 = cuda_ms(lambda: score16(xb, labb), reps=2, warmup=0)
+    finally:
+        quant.int8_conv_unfold = inner
+    geometries, differ = set(), 0
+    for x, qw, kw, out in calls:
+        geometries.add(key(x, qw, kw))
+        want = quant.int8_conv_plain(x, qw, **kw)
+        differ += int((out.float().view(torch.int32)
+                       != want.float().view(torch.int32)).sum())
+    convs = len(events)
+    if differ or not calls:
+        raise AssertionError(f"int8 NCSN3D: the unfold path differs from "
+                             f"int8_conv_plain in {differ} elements over "
+                             f"{len(calls)} calls")
+    # the INT8_3D_TUBES calls, one a geometry, on the card
+    t_big, differ_big, rows = time.perf_counter(), 0, {}
+    with torch.inference_mode():
+        for g, (x, qw, kw, out) in big.items():
+            want = quant.int8_conv_plain(x, qw, **kw)
+            differ_big += int((out.float().view(torch.int32)
+                               != want.float().view(torch.int32)).sum())
+            # the unfold path's im2col bytes and its blocks of samples
+            lo, hi = quant._pads(kw["padding"], kw["pre_pad"])
+            k = qw.codes.shape[2:]
+            per = math.prod(k) * -(-x.shape[1] // ik.CHANNEL_ALIGN) * (
+                ik.CHANNEL_ALIGN) * math.prod(
+                (n + lo + hi - kw["dilation"] * (kk - 1) - 1)
+                // kw["stride"] + 1 for n, kk in zip(x.shape[2:], k))
+            rows[str(g)] = [x.shape[0] * per, -(-x.shape[0] // max(
+                1, quant.UNFOLD_BYTES // per))]
+            del want
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t_big
+    if differ_big or set(big) != geometries:
+        raise AssertionError(f"int8 NCSN3D at {INT8_3D_TUBES} tubes: the "
+                             f"unfold path differs from int8_conv_plain in "
+                             f"{differ_big} elements over {len(big)} "
+                             f"geometries (batch 2 had {len(geometries)})")
+    big.clear()
+    if launches != {"absmax": convs, "quantize_s8": convs} or not \
+            torch.isfinite(out8).all():
+        raise AssertionError(f"int8 NCSN3D forward: launches {launches} "
+                             f"for {convs} unfold convolutions, finite "
+                             f"{bool(torch.isfinite(out8).all())}")
+    return dict(calls_checked=len(calls), geometries=len(geometries),
+                differ=differ, tubes=INT8_3D_TUBES, convs_per_forward=convs,
+                tubes_checked=len(rows), tubes_differ=differ_big,
+                tubes_check_s=big_s, unfold_bytes=quant.UNFOLD_BYTES,
+                im2col_bytes=rows,
+                launches_per_forward=launches, int8_ms=ms8, bf16_ms=ms16,
+                unfold_ms=unfold_ms, unfold_share=unfold_ms / ms8,
+                int8_vs_bf16_rel_l2=rel_l2(out8.float(), out16.float()),
+                params=sum(p.numel() for p in net.parameters()))
+
+
+def report_int8_ncsn3d(n: dict, t: float) -> None:
+    say("int8_ncsn3d", t, f"NCSN3DShallow ({n['params']} params) in int8: "
+        f"the unfold path (K5, K6, unfold, torch._int_mm) bit for bit "
+        f"int8_conv_plain at all {n['geometries']} geometries K7 refuses "
+        f"({n['calls_checked']} calls at batch 2, {n['differ']} elements "
+        f"differ) and at {n['tubes']} tubes ({n['tubes_checked']} calls, one "
+        f"a geometry, {n['tubes_differ']} elements differ, checked on the "
+        f"card in {n['tubes_check_s']:.2f} s; [im2col bytes, blocks] a "
+        f"call {json.dumps(n['im2col_bytes'])}, UNFOLD_BYTES "
+        f"{n['unfold_bytes']}); at {n['tubes']} tubes: int8 forward "
+        f"{n['int8_ms']:.2f} ms "
+        f"(bf16 {n['bf16_ms']:.2f}), the unfold path {n['unfold_ms']:.2f} ms "
+        f"of it ({n['unfold_share']:.3f}) over {n['convs_per_forward']} "
+        f"convolutions; launches {n['launches_per_forward']}; int8 vs bf16 "
+        f"rel L2 {n['int8_vs_bf16_rel_l2']:.3g}")
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms, benchmark mode off, for runs that
+    are compared bit for bit."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def parallel_phase(fk, fl, ik, device="cuda", override=()) -> dict:
+    """The data axis on one card (docstring item 20): an NCCL group of
+    world 1; train_ncsn, acdc_SENSE_real_img and serve_recon with and
+    without the mesh, compared bit for bit; s/step, the gradient
+    all_reduce's ms and the engines' chain-steps/s. Then the sharded code
+    itself (samplers/ald_pair.ShardedReconstructor, the CG's dot products
+    summed over shards, the scattered noise and rolls): acdc_SENSE_real_img
+    --use_mesh and both engines (ACDC, cine) on a mesh of two entries of
+    the card, TF32 off, held to their runs without a mesh at SHARDED, with
+    their walls and chain-steps/s. `override` adds
+    --override flags to the ACDC CLIs (a rehearsal at a tiny size)."""
+    import torch.distributed as dist
+    from unittest import mock
+    from inverseproblemwithdiffusionmodel_tpu_torch.parallel import (
+        initialize_distributed, make_mesh)
+    from inverseproblemwithdiffusionmodel_tpu_torch.parallel.distributed \
+        import all_reduce_sum_
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_matmul)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        acdc_SENSE_real_img, serve_recon, train_ncsn)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts._common import (
+        apply_overrides)
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    numbers = {}
+    over = [f for kv in override for f in ("--override", kv)]
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=device,
+                           timeout=300)
+    root = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    ik.LAUNCHES.clear()
+    try:
+        numbers["group"] = dict(backend=dist.get_backend(),
+                                world=dist.get_world_size())
+        data_root = os.path.join(root, "no_data")
+        os.makedirs(data_root)
+        watch = "end_conv.bias"
+
+        def train(name, flags):
+            rec = {}
+            torch.cuda.synchronize()
+            with timed_fit(train_ncsn, rec, watch), warnings_quiet():
+                state = train_ncsn.main([
+                    "--ds_name", "ACDC", "--task_name", "Diffusion",
+                    "--mode", "real-imag", "--device", device,
+                    "--batch_size", "3", "--log_dir",
+                    os.path.join(root, name), "--data_root", data_root,
+                    "--override", f"training.n_iters={PARALLEL_STEPS}"]
+                    + flags + over)
+            if state.step != PARALLEL_STEPS or not np.isfinite(
+                    rec["losses"]).all():
+                raise AssertionError(f"train_ncsn {name}: step "
+                                     f"{state.step}, losses {rec['losses']}")
+            return state, rec
+
+        def differ(a, b) -> dict:
+            n = sum(int((a.params[k] != b.params[k]).sum()) for k in
+                    a.params)
+            return dict(params_differ=n, rel_l2=rel_l2(
+                torch.cat([v.detach().reshape(-1) for v in a.params.values()]),
+                torch.cat([v.detach().reshape(-1) for v in b.params.values()])))
+
+        with cudnn_deterministic():
+            plain, rec_p = train("plain", [])
+            meshed, rec_m = train("mesh", ["--use_mesh"])
+            same = differ(meshed, plain)
+            same["losses_equal"] = rec_m["losses"] == rec_p["losses"]
+            control = None
+            if same["params_differ"] or not same["losses_equal"]:
+                again, _ = train("plain_again", [])
+                control = differ(again, plain)
+                del again
+            grads = [p.grad for p in meshed.model.parameters()
+                     if p.grad is not None]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            bucket_ms = cuda_ms(lambda: all_reduce_sum_(grads), reps=10)
+            nccl_ms = cuda_ms(lambda: dist.all_reduce(flat), reps=10)
+            numbers["train_ncsn"] = dict(
+                steps=PARALLEL_STEPS, batch=3, mesh_vs_plain=same,
+                control=control, losses=rec_m["losses"],
+                s_per_step=dict(plain=float(np.mean(rec_p["step_s"][1:])),
+                                mesh=float(np.mean(rec_m["step_s"][1:]))),
+                step_s=dict(plain=rec_p["step_s"], mesh=rec_m["step_s"]),
+                all_reduce=dict(bytes=flat.numel() * 4,
+                                bucket_ms=bucket_ms, nccl_ms=nccl_ms))
+            del plain, meshed, grads, flat
+            torch.cuda.empty_cache()
+            ok = (same["params_differ"] == 0 and same["losses_equal"]) or (
+                control is not None and same["rel_l2"]
+                <= 3 * control["rel_l2"] and control["rel_l2"] > 0)
+            if not ok:
+                raise AssertionError(f"train_ncsn --use_mesh vs without: "
+                                     f"{same}, control {control}")
+
+            # acdc_SENSE_real_img: 16 chains, PARALLEL_LEVELS levels
+            argv = ["--device", device, "--num_samples", str(ACDC_CHAINS),
+                    "--R", str(ACDC_R), "--num_sens", str(ACDC_COILS),
+                    "--override", f"recons.num_classes={PARALLEL_LEVELS}",
+                    "--data_root", data_root] + over
+            # two entries of the card: the sharded code on it (Mesh allows
+            # a repeated device), TF32 off and cuDNN's algorithms chosen by
+            # its heuristics, not timed (benchmark mode times them afresh
+            # in every process and may pick another summation order for a
+            # shard's half batch), so that both runs round alike
+            card = torch.device(device)
+            if card.type == "cuda" and card.index is None:
+                card = torch.device("cuda", torch.cuda.current_device())
+            two = make_mesh(devices=[card, card])
+
+            @contextlib.contextmanager
+            def exact():
+                with torch.backends.cudnn.flags(
+                        enabled=True, benchmark=False, deterministic=True,
+                        allow_tf32=False), float32_matmul():
+                    yield
+            sense = {}
+            # the two-entry comparison at TWO_ENTRY_CHAINS chains and one
+            # inner step a level: its cost is cuDNN's benchmark search
+            cut = ["--num_samples", str(TWO_ENTRY_CHAINS),
+                   "--num_steps_each", "1"]
+            for name, flags, mode, mesh in (
+                    ("plain", [], contextlib.nullcontext, None),
+                    ("mesh", ["--use_mesh"], contextlib.nullcontext, None),
+                    ("f32", cut, exact, None),
+                    ("two", ["--use_mesh"] + cut, exact, two)):
+                torch.cuda.synchronize()
+                t_run = time.perf_counter()
+                patch = (mock.patch.object(acdc_SENSE_real_img,
+                                           "script_mesh", lambda _: mesh)
+                         if mesh is not None else contextlib.nullcontext())
+                with contextlib.redirect_stdout(io.StringIO()), \
+                        warnings_quiet(), patch, mode():
+                    sense[name] = acdc_SENSE_real_img.main(argv + flags + [
+                        "--save_dir", os.path.join(root, f"sense_{name}")])
+                torch.cuda.synchronize()
+                sense[f"{name}_wall_s"] = time.perf_counter() - t_run
+            sense_equal = bool(np.array_equal(sense["plain"], sense["mesh"]))
+            sense_two = rel_l2(*(torch.view_as_real(torch.from_numpy(
+                sense[k])) for k in ("two", "f32")))
+            if (not sense_equal or sense_two > SHARDED
+                    or not np.isfinite(sense["two"]).all()):
+                raise AssertionError(
+                    f"acdc_SENSE_real_img --use_mesh vs without: equal "
+                    f"{sense_equal} on one entry, rel L2 {sense_two} on two "
+                    f"(<= {SHARDED})")
+            numbers["sense"] = dict(
+                equal=sense_equal, shape=list(sense["mesh"].shape),
+                two_entries_rel_l2=sense_two,
+                two_entries_shape=list(sense["two"].shape),
+                wall_s={k: sense[f"{k}_wall_s"] for k in
+                        ("plain", "mesh", "f32", "two")})
+
+            # serve_recon --data_shards -1
+            cfg = apply_overrides(load_config("ACDC", "real-imag"), override)
+            _, _, _, yr, yi = acdc_problem(cfg, device, PARALLEL_LEVELS)
+            y_re, y_im = (v[:, 0, ..., 0].cpu().numpy() for v in (yr, yi))
+            engines = {}
+            for name, flags in (("plain", []),
+                                ("mesh", ["--data_shards", "-1"])):
+                argv = serve_argv("bf16")
+                argv[argv.index("--levels") + 1] = str(PARALLEL_LEVELS)
+                argv[argv.index("--device") + 1] = device
+                eng = serve_recon.build_engine(serve_recon.parse_args(
+                    argv + ["--no_warmup"] + flags + over))
+                eng.warmup()
+                runs = [eng.reconstruct(y_re, y_im, seed=0) for _ in
+                        range(2)]
+                engines[name] = dict(
+                    x_re=runs[0].x_re, mesh=eng.stats()["mesh"],
+                    chain_steps_per_s=max(r.chain_steps_per_s for r in runs))
+                del eng
+            engines_equal = bool(np.array_equal(engines["plain"]["x_re"],
+                                                engines["mesh"]["x_re"]))
+            if not engines_equal or engines["mesh"]["mesh"] != {
+                    "data": 1, "model": 1}:
+                raise AssertionError(f"serve_recon --data_shards -1: equal "
+                                     f"{engines_equal}, mesh "
+                                     f"{engines['mesh']['mesh']}")
+            numbers["serve"] = dict(
+                equal=engines_equal, levels=PARALLEL_LEVELS,
+                chains=ACDC_CHAINS, mesh=engines["mesh"]["mesh"],
+                chain_steps_per_s={k: v["chain_steps_per_s"]
+                                   for k, v in engines.items()})
+
+            # both engines, f32, without a mesh and on the two entries, at
+            # PARALLEL_LEVELS levels of one inner step (the ACDC engine at
+            # TWO_ENTRY_CHAINS chains, the cine engine at CINE_CHAINS). A
+            # ladder of one level would end on the denoising step at sigma
+            # 348, which scales the score's rounding by sigma^2.
+            ccfg = load_config("CINE127", "real-imag")
+            _, _, c_re, c_im = cine_problem(ccfg.data.image_size,
+                                            CINE_FRAMES)
+            numbers["engines_two"] = {}
+            for workload, argv, ys, chains in (
+                    ("acdc", serve_argv("f32") + over, (y_re, y_im),
+                     TWO_ENTRY_CHAINS),
+                    ("cine", cine_argv("f32"), (c_re, c_im), CINE_CHAINS)):
+                argv[argv.index("--levels") + 1] = str(PARALLEL_LEVELS)
+                argv[argv.index("--chains") + 1] = str(chains)
+                argv[argv.index("--device") + 1] = device
+                argv += ["--num_steps_each", "1", "--no_warmup"]
+                runs = {}
+                for name, mesh in (("plain", None), ("two", two)):
+                    t_run = time.perf_counter()
+                    with mock.patch.object(serve_recon, "_serving_mesh",
+                                           lambda _: mesh), exact():
+                        eng = serve_recon.build_engine(
+                            serve_recon.parse_args(argv))
+                        eng.warmup()
+                        res = eng.reconstruct(*ys, seed=0)
+                    runs[name] = dict(
+                        x=np.concatenate([res.x_re.ravel(),
+                                          res.x_im.ravel()]),
+                        mesh=eng.stats()["mesh"],
+                        chain_steps_per_s=res.chain_steps_per_s,
+                        wall_s=time.perf_counter() - t_run)
+                    del eng
+                    torch.cuda.empty_cache()
+                err = rel_l2(torch.from_numpy(runs["two"]["x"]),
+                             torch.from_numpy(runs["plain"]["x"]))
+                if (err > SHARDED or not np.isfinite(runs["two"]["x"]).all()
+                        or runs["two"]["mesh"] != {"data": 2, "model": 1}):
+                    raise AssertionError(
+                        f"{workload} engine on two entries vs without a "
+                        f"mesh: rel L2 {err} (<= {SHARDED}), mesh "
+                        f"{runs['two']['mesh']}")
+                numbers["engines_two"][workload] = dict(
+                    rel_l2=err, chains=chains, levels=PARALLEL_LEVELS,
+                    steps_each=1,
+                    chain_steps_per_s={k: v["chain_steps_per_s"]
+                                       for k, v in runs.items()},
+                    wall_s={k: v["wall_s"] for k, v in runs.items()})
+        launches = {**fk.LAUNCHES, **fl.LAUNCHES, **ik.LAUNCHES}
+        if any(launches.values()):
+            raise AssertionError(f"the parallel paths launched {launches}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return numbers
+
+
+def report_parallel(p: dict, t: float) -> None:
+    tn = p["train_ncsn"]
+    say("parallel", t, f"{p['group']['backend']} group of world "
+        f"{p['group']['world']}; train_ncsn --use_mesh (ACDC, full "
+        f"width, batch {tn['batch']}, {tn['steps']} steps, cuDNN "
+        f"deterministic) vs without: {json.dumps(tn['mesh_vs_plain'])} "
+        f"(control {json.dumps(tn['control'])}); s/step "
+        f"{json.dumps(tn['s_per_step'])}; gradient all_reduce "
+        f"{tn['all_reduce']['bytes']} bytes: the step's bucket "
+        f"{tn['all_reduce']['bucket_ms']:.3f} ms, dist.all_reduce alone "
+        f"{tn['all_reduce']['nccl_ms']:.3f} ms; acdc_SENSE_real_img "
+        f"--use_mesh equal {p['sense']['equal']} (walls "
+        f"{json.dumps(p['sense']['wall_s'])}); serve_recon --data_shards -1 "
+        f"equal {p['serve']['equal']}, mesh {p['serve']['mesh']}, "
+        f"chain-steps/s {json.dumps(p['serve']['chain_steps_per_s'])} "
+        f"({p['serve']['chains']} chains, {p['serve']['levels']} levels); on "
+        f"two entries of the card (TF32 off, cuDNN heuristics) vs without "
+        f"a mesh: "
+        f"acdc_SENSE_real_img --use_mesh ({TWO_ENTRY_CHAINS} chains, "
+        f"{PARALLEL_LEVELS} levels x 1 step) rel L2 "
+        f"{p['sense']['two_entries_rel_l2']:.3g}, engines "
+        f"{json.dumps(p['engines_two'])} (<= {SHARDED}); no K1-K7 launch")
+
+
 def seeded_once(seeded_weights):
     """utils/convert.seeded_weights drawing each architecture's weights for
     a seed once per process: a later net with the same modules, parameter
@@ -6688,13 +7171,24 @@ def main() -> None:
                     cine["bf16"]["in_process"]["chain_steps_per_s"],
                     cpu_ref=int8_cpu, k5_profile=k5_profile)
     report_int8(q8, t)
+    t = time.perf_counter()
+    q3 = int8_ncsn3d_numbers(ik)
+    report_int8_ncsn3d(q3, t)
+    launches["int8_ncsn3d"] = q3["launches_per_forward"]
+
+    # 20. parallel -------------------------------------------------------------
+    t = time.perf_counter()
+    par = parallel_phase(fk, fl, ik)
+    launches["parallel"] = {}
+    report_parallel(par, t)
 
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "sense": sn,
                       "map_tv": mt, "serve": srv, "cine": cine,
                       "cine_complex": cc, "train_ncsn": tn,
                       "train_bf16": tb, "sample_vp": sv,
                       "quickstart_3d": qs, "guided": gd, "natural": nt,
-                      "migrate": mg, "int8": q8}, default=str), flush=True)
+                      "migrate": mg, "int8": q8, "int8_ncsn3d": q3,
+                      "parallel": par}, default=str), flush=True)
 
     for name, row in nt["ode_kernels"].items():
         summary[name]["err"] = max(summary[name]["err"], row["err"])
@@ -6728,12 +7222,15 @@ def main() -> None:
             kernels[-1]["host_us_per_launch"] = host_us[name]
     for tag, key in zip(INT8_TAGS, ("k5", "k6", "k7")):
         p, p1d = (q8[net]["per_forward"][key] for net in ("ncsnv2", "ncsn1d"))
+        by_path = {"int8": q8["launches"][tag]}
+        if q3["launches_per_forward"].get(tag):
+            by_path["int8_ncsn3d"] = q3["launches_per_forward"][tag]
         kernels.append({
             "name": f"int8_{tag}", "route": "cuda",
             "source": f"{CSRC}/int8conv.cu", "replaces": INT8_REPLACES[tag],
             "replaces_note": "an XLA op in the JAX package, not a TPU kernel",
-            "launches": q8["launches"][tag],
-            "launches_by_path": {"int8": q8["launches"][tag]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(p["err"], p1d["err"]), "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
             "bound_by": p["bound_by"], "library_ms": p["library_ms"],

@@ -22,6 +22,39 @@ def _expand(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape[0], *([1] * (like.ndim - 1)))
 
 
+def dsm_draws(samples: torch.Tensor, num_levels: int,
+              generator: Optional[torch.Generator] = None,
+              labels: Optional[torch.Tensor] = None,
+              noise: Optional[torch.Tensor] = None):
+    """The discrete loss's draws, in order, each kept where given: labels ~
+    U{0..num_levels-1} of shape (B,), then noise ~ N(0, 1) shaped like
+    the samples. A data-parallel step draws them for the global batch and
+    takes its rows (training/train.py)."""
+    if labels is None:
+        labels = torch.randint(0, num_levels, (samples.shape[0],),
+                               generator=generator, device=samples.device)
+    if noise is None:
+        noise = torch.randn(samples.shape, generator=generator,
+                            dtype=samples.dtype, device=samples.device)
+    return labels, noise
+
+
+def continuous_draws(samples: torch.Tensor, T: float, eps: float = 1e-5,
+                     generator: Optional[torch.Generator] = None,
+                     t: Optional[torch.Tensor] = None,
+                     z: Optional[torch.Tensor] = None):
+    """The continuous loss's draws, in order, each kept where given: t ~
+    U(eps, T) of shape (B,), then z ~ N(0, 1) shaped like the samples."""
+    if t is None:
+        t = torch.rand(samples.shape[0], generator=generator,
+                       dtype=samples.dtype, device=samples.device) * (
+                           T - eps) + eps
+    if z is None:
+        z = torch.randn(samples.shape, generator=generator,
+                        dtype=samples.dtype, device=samples.device)
+    return t, z
+
+
 def anneal_dsm_score_estimation(
     score_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     samples: torch.Tensor,
@@ -42,12 +75,8 @@ def anneal_dsm_score_estimation(
     foreground filter of the 1-D tubes.
     """
     B = samples.shape[0]
-    if labels is None:
-        labels = torch.randint(0, sigmas.shape[0], (B,), generator=generator,
-                               device=samples.device)
-    if noise is None:
-        noise = torch.randn(samples.shape, generator=generator,
-                            dtype=samples.dtype, device=samples.device)
+    labels, noise = dsm_draws(samples, sigmas.shape[0], generator, labels,
+                              noise)
     used_sigmas = _expand(sigmas[labels], samples)
     noise = noise * used_sigmas
     target = -noise / used_sigmas ** 2
@@ -78,12 +107,7 @@ def continuous_dsm_loss(
     sigma^2-weighted convention (`training.reduce_mean=False`).
     """
     B = samples.shape[0]
-    if t is None:
-        t = torch.rand(B, generator=generator, dtype=samples.dtype,
-                       device=samples.device) * (sde.T - eps) + eps
-    if z is None:
-        z = torch.randn(samples.shape, generator=generator,
-                        dtype=samples.dtype, device=samples.device)
+    t, z = continuous_draws(samples, sde.T, eps, generator, t, z)
     mean, std = sde.marginal_prob(samples, t)
     std = _expand(std, z)
     perturbed = mean + z * std

@@ -46,6 +46,21 @@ _MODELS = {
 }
 
 
+def register_model(cls=None, *, name: Optional[str] = None):
+    """Register a model class under `name` (default its class name), as a
+    bare decorator or with name= (reference: models/utils.py:27-44); a
+    name already taken raises ValueError. create_model then builds it
+    from a config naming it."""
+    def _register(cls):
+        local_name = name if name is not None else cls.__name__
+        if local_name in _MODELS:
+            raise ValueError(
+                f"Already registered model with name: {local_name}")
+        _MODELS[local_name] = cls
+        return cls
+    return _register(cls) if cls is not None else _register
+
+
 def get_model(name: str):
     if name not in _MODELS:
         raise NotImplementedError(

@@ -173,7 +173,9 @@ class PairL2Penalty(_Tensors):
             return rr.sum(0), ri.sum(0)
         return _apply_line_kernel(self.kernel_re, self.kernel_im, vr, vi)
 
-    def __call__(self, zr, zi, yr, yi, alpha, lamda) -> Pair:
+    def _system(self, zr, zi, yr, yi, alpha, lamda):
+        """(op, br, bi): the normal operator v -> (I + c A^H A) v and the
+        right-hand side z + c A^H y of this solve."""
         c = alpha / lamda
         if self.ahy_re is not None:
             ar, ai = self.ahy_re, self.ahy_im
@@ -190,21 +192,52 @@ class PairL2Penalty(_Tensors):
                 fr, fi = self.lin_tfm(vr, vi)
                 gr, gi = self.lin_tfm.conj_op(fr, fi)
                 return vr + c * gr, vi + c * gi
+        return op, br, bi
 
-        # CG on the pair: a complex Hermitian system solved in R^2n. The
-        # step sizes stay on the device; both divisions are guarded.
-        xr, xi = zr, zi
+    def __call__(self, zr, zi, yr, yi, alpha, lamda) -> Pair:
+        return cg_shards([self], [(zr, zi, yr, yi)], [alpha], lamda)[0]
+
+
+def cg_shards(proximals, args, alphas, lamda):
+    """PairL2Penalty's CG over the shards of one batch: shard k is
+    proximals[k] on (zr, zi, yr, yi) = args[k] with weight alphas[k], on
+    its own device. The dot products are summed over the shards (on the
+    first shard's device) and the step sizes sent back to each, so the
+    iterates are those of one CG over the whole batch, whose dot products
+    span every chain. Returns the (xr, xi) of each shard."""
+    systems = [p._system(*a, alpha, lamda)
+               for p, a, alpha in zip(proximals, args, alphas)]
+    home = args[0][0].device
+
+    def dot(us, vs):
+        total = None
+        for (ur, ui), (vr, vi) in zip(us, vs):
+            d = _pair_dot(ur, ui, vr, vi).to(home)
+            total = d if total is None else total + d
+        return total
+
+    def on(t, like):
+        return t.to(like.device)
+
+    # CG on the pair: a complex Hermitian system solved in R^2n. The
+    # step sizes stay on the device; both divisions are guarded.
+    xs = [(a[0], a[1]) for a in args]
+    rs_ = []
+    for (op, br, bi), (xr, xi) in zip(systems, xs):
         opr, opi = op(xr, xi)
-        rr, ri = br - opr, bi - opi
-        pr, pi = rr, ri
-        rs = _pair_dot(rr, ri, rr, ri)
-        for _ in range(self.num_iters):
-            apr, api = op(pr, pi)
-            a = rs / torch.clamp_min(_pair_dot(pr, pi, apr, api), 1e-30)
-            xr, xi = xr + a * pr, xi + a * pi
-            rr, ri = rr - a * apr, ri - a * api
-            rs_new = _pair_dot(rr, ri, rr, ri)
-            beta = rs_new / torch.clamp_min(rs, 1e-30)
-            pr, pi = rr + beta * pr, ri + beta * pi
-            rs = rs_new
-        return xr, xi
+        rs_.append((br - opr, bi - opi))
+    ps = rs_
+    rs = dot(rs_, rs_)
+    for _ in range(proximals[0].num_iters):
+        aps = [op(pr, pi) for (op, _, _), (pr, pi) in zip(systems, ps)]
+        a = rs / torch.clamp_min(dot(ps, aps), 1e-30)
+        xs = [(xr + on(a, xr) * pr, xi + on(a, xr) * pi)
+              for (xr, xi), (pr, pi) in zip(xs, ps)]
+        rs_ = [(rr - on(a, rr) * apr, ri - on(a, rr) * api)
+               for (rr, ri), (apr, api) in zip(rs_, aps)]
+        rs_new = dot(rs_, rs_)
+        beta = rs_new / torch.clamp_min(rs, 1e-30)
+        ps = [(rr + on(beta, rr) * pr, ri + on(beta, rr) * pi)
+              for (rr, ri), (pr, pi) in zip(rs_, ps)]
+        rs = rs_new
+    return xs

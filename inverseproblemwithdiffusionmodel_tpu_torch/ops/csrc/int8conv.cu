@@ -42,8 +42,9 @@
 // neighbouring vectors, the grid striding over x), an integer max of
 // magnitude bits per thread, warp (redux) and block, then one partial per
 // block in a per-device scratch and a ticket: the block that draws the
-// last ticket, after a __threadfence, reduces the partials, writes amax and
-// sets the ticket back to 0. No block waits on another; the grid is one
+// last ticket, after a __threadfence, reduces the partials and writes
+// amax; the ticket (atomicInc, limit gridDim.x - 1) wraps back to 0 by
+// itself at that draw. No block waits on another; the grid is one
 // wave for speed (no second, partly idle wave). The head and tail of a
 // misaligned or ragged x (under 16 bytes each) go through scalar loads of
 // block 0. Bound: one read of x at 3.35 TB/s. At NCSN1D's 6-13 MB inputs a
@@ -56,7 +57,8 @@
 // barriers cost more than they save on a read-only stream. K5 must not
 // run on two streams of one device at once: the calls would share the
 // ticket and mix their partials, and amax would come out wrong with no
-// error. The port launches K5 on one stream (each engine on the current
+// error (the wrapping ticket keeps such a fault to the calls that
+// overlapped). The port launches K5 on one stream (each engine on the current
 // stream), and a CUDA graph replays its launches in order on its stream.
 //
 // K6 is a tiled transpose through shared memory: a block takes 32 channels
@@ -214,8 +216,10 @@ __device__ __forceinline__ unsigned int head_tail(unsigned int m, const T* x,
 
 // The grid's finish: block b writes its partial to scratch[1 + b] and
 // takes a ticket (scratch[0]); the block that draws the last ticket
-// reduces the partials, writes amax and sets the ticket back to 0 for the
-// next launch.
+// reduces the partials and writes amax. The ticket is drawn by atomicInc
+// with the limit gridDim.x - 1, so the last draw wraps it to 0 for the
+// next launch by itself: a ticket left over by a launch that never
+// finished spoils at most the one launch after it.
 __device__ __forceinline__ void finish_absmax(unsigned int m,
                                               unsigned int* scratch,
                                               float* amax,
@@ -226,7 +230,7 @@ __device__ __forceinline__ void finish_absmax(unsigned int m,
   if (tid == 0) {
     scratch[1 + blockIdx.x] = m;
     __threadfence();
-    last = atomicAdd(&scratch[0], 1u) == gridDim.x - 1;
+    last = atomicInc(&scratch[0], gridDim.x - 1u) == gridDim.x - 1u;
   }
   __syncthreads();
   if (!last) return;
@@ -246,10 +250,7 @@ __device__ __forceinline__ void finish_absmax(unsigned int m,
     for (int j = 0; j < 8; ++j) m = max(m, p[j]);
   }
   m = block_max(m, warp_max);
-  if (tid == 0) {
-    *amax = __uint_as_float(m);
-    scratch[0] = 0;
-  }
+  if (tid == 0) *amax = __uint_as_float(m);
 }
 
 // x is head scalars, then body_bytes of 16-byte vectors from a 16-byte

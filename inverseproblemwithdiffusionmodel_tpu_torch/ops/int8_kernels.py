@@ -307,8 +307,8 @@ def absmax_launch_args(p: AbsmaxPlan) -> Tuple[int, ...]:
 
 
 # Per device: (its SM count, K5's ticket and partials). The scratch is
-# made zero at the device's first call and every launch leaves the ticket
-# at zero.
+# made zero at the device's first call; the ticket wraps back to zero at
+# each launch's last draw (atomicInc).
 _ABSMAX_DEVICE = {}
 
 
@@ -345,10 +345,12 @@ def absmax(x: torch.Tensor) -> torch.Tensor:
     K5 must not run on two streams of one device at once. Every call on a
     device shares one ticket and one array of partials (`_absmax_device`),
     so two calls in flight together mix their partials, the wrong block can
-    draw the last ticket, and amax comes out wrong with no error, as can
-    every later call if a ticket is left over. The port launches it on one
-    stream: each engine on the current stream, a CUDA graph's replays in
-    order on the graph's stream."""
+    draw the last ticket, and amax comes out wrong with no error. The
+    ticket wraps to 0 at each launch's last draw (atomicInc), so a ticket
+    left over spoils no more than the next call. The port launches it on
+    one stream: each engine, sharded or not, from the one thread on each
+    device's current stream, a CUDA graph's replays in order on the
+    graph's stream."""
     if x.device.type == "cpu":
         return absmax_plain(x)
     suffix = _check_float("absmax", x)

@@ -21,12 +21,15 @@ Padding zeros come after the quantization and do not move amax.
 
 `int8_conv` runs K5 (absmax), K6 (quantize_s8) and K7 (conv_s8s8s32) of
 ops/int8_kernels.py: on a CUDA tensor the kernels, on a CPU tensor their
-plain versions. K7 covers the score nets' convolutions: kernel size 1 and
-3, stride 1, dilation 1, 2 and 4, symmetric padding plus `pre_pad`, ndim 1
-and 2; on the card any other geometry raises NotImplementedError, naming
-it, and nothing falls back to the plain version. On the CPU such a
-geometry runs `int8_conv_plain`, the whole op in one float64 convolution
-of the codes.
+plain versions. K7 covers the served nets' convolutions: kernel size 1
+and 3, stride 1, dilation 1, 2 and 4, symmetric padding plus `pre_pad`,
+ndim 1 and 2, where its plan maps. Any other geometry (the 3-D temporal
+prior's strided (1, 1, 4) convolution among them) takes
+`int8_conv_unfold`: K5 and K6 as before, then the s8 x s8 -> s32 product
+as an unfold of the codes and one integer matmul (`torch._int_mm` on the
+card; the JAX package computes it as an XLA convolution, no TPU
+kernel), dequantized as K7 does; bit for bit `int8_conv_plain`, the whole
+op in one float64 convolution of the codes.
 
 `models/layers.Conv` switches to this path per module (`enable_int8`, which
 `models/registry.make_score_fn(..., "int8")` applies to its copy of the
@@ -36,6 +39,7 @@ round has none.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -46,6 +50,7 @@ from . import int8_kernels as ik
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 KERNEL_SIZES = (1, 3)
 DILATIONS = (1, 2, 4)
+UNFOLD_BYTES = 2 ** 30     # int8_conv_unfold's im2col rows at a time
 
 
 def quantize_per_tensor(x: torch.Tensor) -> Tuple[torch.Tensor,
@@ -157,32 +162,104 @@ def int8_conv_plain(x: torch.Tensor, weight: Union[torch.Tensor,
     return (sums.float() * scale).to(x.dtype)
 
 
+def _int_mm_s32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) int8 @ b (K, N) int8 -> int32 (M, N), exact: torch._int_mm
+    (cuBLASLt) on a CUDA tensor, with M, K and N padded by zero rows to
+    what it takes (M > 16, K and N multiples of 8); a float64 matmul
+    (exact: |sum| <= 127^2 K) on a CPU one."""
+    if a.device.type == "cpu":
+        return (a.double() @ b.double()).to(torch.int32)
+    M, K = a.shape
+    N = b.shape[1]
+    Mp, Kp, Np = max(-(-M // 8) * 8, 24), -(-K // 8) * 8, -(-N // 8) * 8
+    if (Mp, Kp) != (M, K):
+        a = F.pad(a, (0, Kp - K, 0, Mp - M))
+    # cuBLASLt takes the right operand column-major: b as the transpose
+    # of a contiguous (Np, Kp)
+    bt = F.pad(b.t(), (0, Kp - K, 0, Np - N)).contiguous()
+    return torch._int_mm(a.contiguous(), bt.t())[:M, :N]
+
+
+def _unfold_codes(codes: torch.Tensor, k: Sequence[int], stride: int,
+                  dilation: int, lo: int, hi: int) -> torch.Tensor:
+    """Channels-last codes (N, *spatial, Cp) -> the im2col rows (N
+    prod(out), prod(k) Cp), at any rank: each spatial axis padded with
+    zero codes by (lo, hi), then unfolded into its windows."""
+    nd = len(k)
+    x = F.pad(codes, (0, 0) + (lo, hi) * nd)
+    for axis, kk in enumerate(k):
+        span = dilation * (kk - 1) + 1
+        # (N, o1.., Cp, w1..): the window of axis `axis` appended last
+        x = x.unfold(1 + axis, span, stride)[..., ::dilation]
+    # (N, *out, Cp, *k) -> (N, *out, *k, Cp)
+    x = x.movedim(1 + nd, -1)
+    rows = math.prod(x.shape[1:1 + nd])
+    return x.reshape(x.shape[0] * rows, -1), tuple(x.shape[1:1 + nd])
+
+
+def int8_conv_unfold(x: torch.Tensor, qw: QuantWeight, *, stride: int = 1,
+                     padding: int = 0, dilation: int = 1, ndim: int = 2,
+                     pre_pad=None) -> torch.Tensor:
+    """The int8 convolution at any rank, stride, dilation and kernel: the
+    activation quantized by K5 and K6 (their plain versions on the CPU)
+    into channels-last codes, unfolded (`_unfold_codes`, a block of
+    samples at a time, at most UNFOLD_BYTES of rows), multiplied with the
+    weight codes in int32 (`_int_mm_s32`), dequantized by scale *
+    sw[o] in float32 and rounded once to x's dtype, as K7 does. Bit for
+    bit `int8_conv_plain`."""
+    if qw.codes.device != x.device:
+        qw = qw.to(x.device)
+    O, C = qw.codes.shape[:2]
+    if x.shape[1] != C:
+        raise ValueError(f"int8_conv: x has {x.shape[1]} channels, the "
+                         f"weight {C}")
+    cp = -(-C // ik.CHANNEL_ALIGN) * ik.CHANNEL_ALIGN
+    x = x.contiguous()
+    codes, sx = ik.quantize_s8(x, ik.absmax(x), cp)
+    lo, hi = _pads(padding, pre_pad)
+    k = tuple(qw.codes.shape[2:])
+    w = F.pad(qw.codes.movedim(1, -1), (0, cp - C)).reshape(O, -1)
+    # the im2col rows are prod(k) times the codes: at most UNFOLD_BYTES of
+    # them at a time, a block of samples each
+    per_sample = math.prod(k) * cp * math.prod(
+        (n + lo + hi - dilation * (kk - 1) - 1) // stride + 1
+        for n, kk in zip(x.shape[2:], k))
+    block = max(1, UNFOLD_BYTES // per_sample)
+    parts = []
+    for n0 in range(0, x.shape[0], block):
+        a, out = _unfold_codes(codes[n0:n0 + block], k, stride, dilation,
+                               lo, hi)
+        parts.append(_int_mm_s32(a, w.t()).reshape(-1, *out, O))
+    sums = torch.cat(parts).movedim(-1, 1)
+    scale = (sx * qw.scale).reshape(-1, *[1] * ndim)
+    return (sums.float() * scale).to(x.dtype)
+
+
 def int8_conv(x: torch.Tensor, weight: Union[torch.Tensor, QuantWeight], *,
               stride: int = 1, padding: int = 0, dilation: int = 1,
               ndim: int = 2, pre_pad=None) -> torch.Tensor:
     """The int8 convolution of x (N, C, *spatial), channels first, with a
     weight (O, C, *k) or its QuantWeight: both quantized, summed in int32,
     dequantized to x's dtype (N, O, *spatial_out). `padding` zeros on each
-    side and `pre_pad` (lo, hi) more on every axis. On a CUDA tensor K5,
-    K6 and K7, or NotImplementedError where K7 does not take the geometry;
-    on a CPU tensor their plain versions (int8_conv_plain where K7 would
-    refuse)."""
+    side and `pre_pad` (lo, hi) more on every axis. K5, K6 and K7 where K7
+    takes the geometry, else `int8_conv_unfold`; on a CPU tensor their
+    plain versions."""
     qw = weight if isinstance(weight, QuantWeight) else QuantWeight.of(
         weight)
-    refusal = kernel_refusal(x, qw, stride, dilation, ndim)
-    if refusal is not None:
+    g = None
+    if kernel_refusal(x, qw, stride, dilation, ndim) is None:
+        g = geometry(x, qw, padding, dilation, ndim, pre_pad)
         if x.device.type != "cpu":
-            raise NotImplementedError(
-                f"int8_conv: the s8 x s8 -> s32 kernel does not take "
-                f"{refusal}; it takes kernel size {KERNEL_SIZES}, stride 1, "
-                f"dilation {DILATIONS}, ndim 1 or 2")
-        return int8_conv_plain(x, qw, stride=stride, padding=padding,
-                               dilation=dilation, ndim=ndim, pre_pad=pre_pad)
+            try:
+                ik.conv_plan(g)        # raises where K7's plan cannot map g
+            except NotImplementedError:
+                g = None
+    if g is None:
+        return int8_conv_unfold(x, qw, stride=stride, padding=padding,
+                                dilation=dilation, ndim=ndim,
+                                pre_pad=pre_pad)
     if qw.kernel.device != x.device:
         qw = qw.to(x.device)
-    g = geometry(x, qw, padding, dilation, ndim, pre_pad)
-    if x.device.type != "cpu":
-        ik.conv_plan(g)      # a geometry K7 cannot map raises before K5
     x = x.contiguous()
     codes, sx = ik.quantize_s8(x, ik.absmax(x), g.Cp)
     codes = codes.reshape(g.N, g.H, g.W, g.Cp)     # 1-D: height 1

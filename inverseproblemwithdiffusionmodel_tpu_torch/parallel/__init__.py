@@ -1,6 +1,16 @@
-"""Reconstruction ensembles: the host half of the JAX package's
-parallel/ (chain sharding over devices is not ported yet; ROADMAP Slice
-P)."""
-from .ensemble import ensemble_mean_std, repeat_measurement
+"""The device mesh, chain sharding and the process group of data-parallel
+training: the JAX package's parallel/, tensor parallelism apart."""
+from .mesh import (DATA_AXIS, MODEL_AXIS, Mesh, make_mesh, data_sharding,
+                   replicated, shard_batch, replicate, pad_to_multiple)
+from .ensemble import (repeat_measurement, ensemble_keys, shard_chain_axis,
+                       run_sharded_ensemble, ensemble_mean_std)
+from .distributed import (initialize_distributed, is_primary,
+                          local_batch_slice)
 
-__all__ = ["ensemble_mean_std", "repeat_measurement"]
+__all__ = [
+    "DATA_AXIS", "MODEL_AXIS", "make_mesh", "data_sharding", "replicated",
+    "shard_batch", "replicate", "pad_to_multiple", "repeat_measurement",
+    "ensemble_keys", "shard_chain_axis", "run_sharded_ensemble",
+    "ensemble_mean_std", "initialize_distributed", "is_primary",
+    "local_batch_slice",
+]

@@ -14,7 +14,8 @@ chain adds a temporal step between the two (see
 
 In the JAX package the scanned form is one compiled program and the
 stepped form loops over levels on the host; here both are the same host
-loop (`SteppedPairReconstructor`), and they give equal results. Each inner
+loop (`ShardedReconstructor`, whose one-shard case is a stepped
+reconstructor's call), and they give equal results. Each inner
 step draws its noise Re first, then Im, as the JAX key schedule does
 (`key, k_re, k_im = split(key, 3)`), so a test can replay JAX's stream
 through the `noise` hook.
@@ -29,6 +30,7 @@ torch.no_grad, since its gradient needs autograd.
 """
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Callable, Optional, Tuple, Union
 
@@ -37,9 +39,10 @@ import torch
 from .ald import (ALDConfig, ScoreFn, _labels, _langevin_update,
                   compute_seg_grad, setup_2d_time_ladders)
 from .sigmas import get_lh_weights
-from ..models.registry import make_score_fn
+from ..models.registry import make_score_fn, make_seg_fn
 from ..operators.finite_diff import FiniteDiff
-from ..operators.pair import PairL2Penalty
+from ..operators.pair import PairL2Penalty, cg_shards
+from ..parallel.ensemble import scatter_noise, scatter_shift
 from ..utils.device import (Noise, Shift, gaussian_noise,
                             random_shift, resolve_device)
 from ..utils.misc import stack_parts, unstack_parts
@@ -109,26 +112,48 @@ class SteppedPairReconstructor:
         xr, xi = self.lin_tfm.conj_op(yr, yi)
         return xr, xi, _bake_ahy(self.proximal, xr, xi)
 
-    def level_step(self, prox, xr, xi, yr, yi, c: int, noise: Noise
-                   ) -> Pair:
-        """The n_steps_each inner steps of noise level c."""
+    @property
+    def num_levels(self) -> int:
+        return self.sigmas.shape[0]
+
+    def grad_mode(self):
+        """torch.inference_mode, or torch.no_grad for a guided chain."""
+        return (torch.inference_mode() if self.seg_fn is None
+                else torch.no_grad())
+
+    def langevin_step(self, xr, xi, c: int, noise: Noise, shift=None
+                      ) -> Pair:
+        """An inner step of level c up to the proximal: the score (and
+        guidance) forward and the Langevin update (`shift` is unused)."""
         cfg = self.config
         sigma = self.sigmas[c]
         step_size = cfg.step_lr * (sigma / self.sigmas[-1]) ** 2
-        for _ in range(cfg.n_steps_each):
-            stacked = stack_parts(xr, xi)
-            grads = self.score_fn(stacked, _labels(stacked, c))
-            if self.seg_fn is not None:
-                g_seg = compute_seg_grad(self.seg_fn, stacked,
-                                         self.seg_label2, self.seg_mode)
-                grads = grads + g_seg / sigma * (self.lh_weights[c]
-                                                 * self.seg_lamda)
-            g_re, g_im = unstack_parts(grads)
-            xr = _langevin_update(xr, g_re, step_size, noise(xr.shape))
-            xi = _langevin_update(xi, g_im, step_size, noise(xi.shape))
-            xr, xi = prox(xr, xi, yr, yi, cfg.step_lr * self.lr_sched[c],
-                          1.0)
+        stacked = stack_parts(xr, xi)
+        grads = self.score_fn(stacked, _labels(stacked, c))
+        if self.seg_fn is not None:
+            g_seg = compute_seg_grad(self.seg_fn, stacked,
+                                     self.seg_label2, self.seg_mode)
+            grads = grads + g_seg / sigma * (self.lh_weights[c]
+                                             * self.seg_lamda)
+        g_re, g_im = unstack_parts(grads)
+        xr = _langevin_update(xr, g_re, step_size, noise(xr.shape))
+        xi = _langevin_update(xi, g_im, step_size, noise(xi.shape))
         return xr, xi
+
+    def prox_weight(self, c: int) -> torch.Tensor:
+        return self.config.step_lr * self.lr_sched[c]
+
+    def level_step(self, prox, xr, xi, yr, yi, c: int, noise: Noise
+                   ) -> Pair:
+        """The n_steps_each inner steps of noise level c."""
+        for _ in range(self.config.n_steps_each):
+            xr, xi = self.langevin_step(xr, xi, c, noise)
+            xr, xi = prox(xr, xi, yr, yi, self.prox_weight(c), 1.0)
+        return xr, xi
+
+    def finish(self, xr, xi) -> Pair:
+        """The denoising step where the config asks for it."""
+        return self.denoise(xr, xi) if self.config.denoise else (xr, xi)
 
     def denoise(self, xr, xi) -> Pair:
         """x + sigma_L^2 * score(x, L - 1)."""
@@ -139,24 +164,12 @@ class SteppedPairReconstructor:
         s2 = self.sigmas[-1] ** 2
         return xr + s2 * g_re, xi + s2 * g_im
 
+    def level_sigma(self, c: int) -> float:
+        return float(self.sigmas[c])
+
     def __call__(self, yr: torch.Tensor, yi: torch.Tensor, seed: int = 0,
                  noise: Optional[Noise] = None) -> Pair:
-        if noise is None:
-            noise = gaussian_noise(seed, self.device)
-        cfg = self.config
-        grad_mode = (torch.inference_mode() if self.seg_fn is None
-                     else torch.no_grad())
-        with grad_mode:
-            yr, yi = yr.to(self.device), yi.to(self.device)
-            xr, xi, prox = self.start(yr, yi)
-            for c in range(self.sigmas.shape[0]):
-                xr, xi = self.level_step(prox, xr, xi, yr, yi, c, noise)
-                if (self.snapshot_fn is not None and cfg.snapshot_every > 0
-                        and c % cfg.snapshot_every == 0):
-                    self.snapshot_fn(c, float(self.sigmas[c]), xr, xi)
-            if cfg.denoise:
-                xr, xi = self.denoise(xr, xi)
-        return xr, xi
+        return ShardedReconstructor([self])(yr, yi, seed=seed, noise=noise)
 
 
 def ald_inverse_proximal_pair(
@@ -209,25 +222,36 @@ def make_stepped_pair_reconstructor(
     snapshot_fn: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
     device="cuda",
-) -> SteppedPairReconstructor:
+    mesh=None,
+):
     """The reconstruction as a user calls it: an NCSNv2-family `model`
     (moved to `device`, eval mode) over the ladder `sigmas`. Returns
     `recon(yr, yi, seed=0, noise=None) -> (xr, xi)`; the JAX form takes
     the params and a PRNG key instead. compute_dtype=torch.bfloat16 runs
     the net in bf16 (make_score_fn), everything else in float32, the
-    segmentation guidance included. With `seg_params`, the guidance calls
-    seg_fn(seg_params, x), else seg_fn(x); seg_fn's net is the caller's to
-    place on `device`."""
-    device = resolve_device(device)
-    model = model.to(device).eval()
-    score_fn = make_score_fn(model, sigmas, compute_dtype)
+    segmentation guidance included. seg_fn is the seg net (an nn.Module,
+    placed as `model` is and called through make_seg_fn) or a function:
+    with `seg_params`, the guidance calls seg_fn(seg_params, x), else
+    seg_fn(x), and the function's net is the caller's to place. With a
+    `mesh` (parallel/mesh.py) it returns a ShardedReconstructor over the
+    mesh's data axis (`device` unused; the chains split evenly over it,
+    seg_label with them; a seg function, unlike a seg net, must run on
+    every shard's device)."""
     if seg_fn is not None and seg_params is not None:
         seg_fn = functools.partial(seg_fn, seg_params)
-    return SteppedPairReconstructor(
-        score_fn, sigmas, lin_tfm, proximal, config, lr_scaled, snapshot_fn,
-        device, seg_fn=seg_fn, seg_label=seg_label, seg_lamda=seg_lamda,
-        seg_start_time=seg_start_time, seg_step_type=seg_step_type,
-        seg_mode=seg_mode)
+
+    def build(device, shard, place):
+        score_fn = make_score_fn(place(model).eval(), sigmas, compute_dtype)
+        sfn = (make_seg_fn(place(seg_fn)) if isinstance(
+            seg_fn, torch.nn.Module) else seg_fn)
+        label = seg_label if seg_label is None else shard(seg_label)
+        return SteppedPairReconstructor(
+            score_fn, sigmas, shard(lin_tfm), shard(proximal), config,
+            lr_scaled, snapshot_fn, device, seg_fn=sfn, seg_label=label,
+            seg_lamda=seg_lamda, seg_start_time=seg_start_time,
+            seg_step_type=seg_step_type, seg_mode=seg_mode)
+
+    return _build_shards(build, device, mesh)
 
 
 # -- 2D+time (cine) ---------------------------------------------------------
@@ -282,15 +306,21 @@ def _pair_2d_time_inner(score_S: Optional[ScoreFn],
 
         return apply_in_tube_space(tube_update, (xr, xi), win_size, shift)
 
+    def langevin(xr, xi, c, label_T, sigma, sigma_T, active_T, lamda_T,
+                 noise, shift):
+        xr, xi = spatial_step(xr, xi, c, sigma, noise)
+        return temporal_step(xr, xi, label_T, sigma_T, active_T, lamda_T,
+                             noise, shift)
+
     def inner(prox, xr, xi, yr, yi, c, label_T, sigma, sigma_T, active_T,
               lr_scaled, lamda_T, noise, shift):
-        xr, xi = spatial_step(xr, xi, c, sigma, noise)
-        xr, xi = temporal_step(xr, xi, label_T, sigma_T, active_T, lamda_T,
-                               noise, shift)
+        xr, xi = langevin(xr, xi, c, label_T, sigma, sigma_T, active_T,
+                          lamda_T, noise, shift)
         fr, fi = prox(xr.flatten(0, 1), xi.flatten(0, 1), yr, yi,
                       config.step_lr * lr_scaled, 1.0)
         return fr.reshape(xr.shape), fi.reshape(xi.shape)
 
+    inner.langevin = langevin
     return inner
 
 
@@ -351,35 +381,49 @@ class Stepped2DTimePairReconstructor:
         shape = (xr.shape[0] // T, T) + tuple(xr.shape[1:])
         return xr.reshape(shape), xi.reshape(shape), prox
 
+    def _level(self, c: int):
+        return (c, int(self.labels_T[c]), self.sigmas[c], self.sigmas_T[c],
+                bool(self.sigmas_T_host[c] > 0))
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.levels)
+
+    def grad_mode(self):
+        return torch.inference_mode()
+
+    def langevin_step(self, xr, xi, c: int, noise: Noise,
+                      shift: Optional[Shift] = None) -> Pair:
+        """An inner step of level c up to the proximal: the spatial and
+        temporal steps."""
+        shift = shift if self.if_random_shift else None
+        return self.inner.langevin(xr, xi, *self._level(c), self.lamda_T,
+                                   noise, shift)
+
+    def prox_weight(self, c: int) -> torch.Tensor:
+        return self.config.step_lr * self.lr_scaled
+
+    def finish(self, xr, xi) -> Pair:
+        return xr, xi
+
     def level_step(self, prox, xr, xi, yr, yi, c: int, noise: Noise,
                    shift: Optional[Shift] = None) -> Pair:
         """The n_steps_each inner steps of level c."""
-        level = (c, int(self.labels_T[c]), self.sigmas[c], self.sigmas_T[c],
-                 bool(self.sigmas_T_host[c] > 0))
+        level = self._level(c)
         shift = shift if self.if_random_shift else None
         for _ in range(self.config.n_steps_each):
             xr, xi = self.inner(prox, xr, xi, yr, yi, *level,
                                 self.lr_scaled, self.lamda_T, noise, shift)
         return xr, xi
 
+    def level_sigma(self, c: int) -> float:
+        return float(self.levels[c])
+
     def __call__(self, yr: torch.Tensor, yi: torch.Tensor, seed: int = 0,
                  noise: Optional[Noise] = None,
                  shift: Optional[Shift] = None) -> Pair:
-        if noise is None:
-            noise = gaussian_noise(seed, self.device)
-        if shift is None and self.if_random_shift:
-            shift = random_shift(seed)
-        cfg = self.config
-        with torch.inference_mode():
-            yr, yi = yr.to(self.device), yi.to(self.device)
-            xr, xi, prox = self.start(yr, yi)
-            for c in range(len(self.levels)):
-                xr, xi = self.level_step(prox, xr, xi, yr, yi, c, noise,
-                                         shift)
-                if (self.snapshot_fn is not None and cfg.snapshot_every > 0
-                        and c % cfg.snapshot_every == 0):
-                    self.snapshot_fn(c, float(self.levels[c]), xr, xi)
-        return xr, xi
+        return ShardedReconstructor([self])(yr, yi, seed=seed, noise=noise,
+                                            shift=shift)
 
 
 def ald_2d_time_pair(
@@ -432,21 +476,152 @@ def make_stepped_2d_time_pair_reconstructor(
     snapshot_fn: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
     device="cuda",
-) -> Stepped2DTimePairReconstructor:
+    mesh=None,
+):
     """The cine reconstruction as a user calls it: the spatial NCSNv2
     `model_S` over `sigmas` and the 1-D temporal `model_T` (models/
     ncsn1d.py) over its RAW ladder `sigmas_T`, both moved to `device` in
     eval mode (model_T may be None where mode_T has no 'diffusion1d').
     Returns `recon(yr, yi, seed=0, noise=None, shift=None) -> (xr, xi)`;
     the JAX form takes both nets' params and a PRNG key instead.
-    compute_dtype=torch.bfloat16 runs both nets in bf16."""
-    device = resolve_device(device)
-    score_S = make_score_fn(model_S.to(device).eval(), sigmas, compute_dtype)
-    score_T = None
-    if model_T is not None:
-        score_T = make_score_fn(model_T.to(device).eval(), sigmas_T,
-                                compute_dtype)
-    return Stepped2DTimePairReconstructor(
-        score_S, score_T, sigmas, sigmas_T, lin_tfm, proximal, config,
-        lr_scaled, mode_T, lamda_T, if_random_shift, win_size, num_frames,
-        snapshot_fn, device)
+    compute_dtype=torch.bfloat16 runs both nets in bf16. With a `mesh`, a
+    ShardedReconstructor over its data axis, as
+    make_stepped_pair_reconstructor's."""
+
+    def build(device, shard, place):
+        score_S = make_score_fn(place(model_S).eval(), sigmas, compute_dtype)
+        score_T = None
+        if model_T is not None:
+            score_T = make_score_fn(place(model_T).eval(), sigmas_T,
+                                    compute_dtype)
+        return Stepped2DTimePairReconstructor(
+            score_S, score_T, sigmas, sigmas_T, shard(lin_tfm),
+            shard(proximal), config, lr_scaled, mode_T, lamda_T,
+            if_random_shift, win_size, num_frames, snapshot_fn, device)
+
+    return _build_shards(build, device, mesh)
+
+
+# -- chains split over a mesh -------------------------------------------------
+
+def shard_rows(x, n: int, d: int):
+    """Shard d of n of what a reconstructor holds per chain row: a tensor
+    split evenly along axis 0 (a leading 1 stays whole: it broadcasts over
+    every row), or an operator or proximal (operators/pair.py) with its
+    per-row mask and pinned A^H y split so. Anything else stays whole."""
+    if x is None or n == 1:
+        return x
+    if isinstance(x, torch.Tensor):
+        return x if x.shape[0] == 1 else x.chunk(n)[d]
+    if isinstance(x, PairL2Penalty):
+        return x.replace(lin_tfm=shard_rows(x.lin_tfm, n, d),
+                         ahy_re=shard_rows(x.ahy_re, n, d),
+                         ahy_im=shard_rows(x.ahy_im, n, d))
+    if hasattr(x, "mask") and hasattr(x, "replace"):
+        return x.replace(mask=shard_rows(x.mask, n, d))
+    return x
+
+
+def replica_placer(device: torch.device, cache: dict):
+    """place(model): the model on `device` without moving it off another:
+    the model itself where it lives on `device`, else one copy per model
+    and device, kept in `cache`."""
+    def place(model: torch.nn.Module) -> torch.nn.Module:
+        if next(model.parameters()).device == device:
+            return model
+        key = (id(model), device)
+        if key not in cache:
+            cache[key] = copy.deepcopy(model).to(device)
+        return cache[key]
+    return place
+
+
+def _build_shards(build, device, mesh):
+    """build(device, shard, place) for one device (mesh None: the models
+    move there) or for each data-axis device of a mesh, shard(x) giving
+    that device's rows of x and place(model) the model's replica there."""
+    if mesh is None:
+        device = resolve_device(device)
+        return build(device, lambda x: x, lambda m: m.to(device))
+    devices = [resolve_device(d) for d in mesh.data_devices]
+    n, cache = len(devices), {}
+    return ShardedReconstructor([
+        build(dev, lambda x, d=d: shard_rows(x, n, d),
+              replica_placer(dev, cache))
+        for d, dev in enumerate(devices)])
+
+
+def _prox_shards(shards, proxes, xs, ys, c: int):
+    """Every shard's proximal step at level c, on the images (B, H, W, C)
+    (a 2D+time chain's frames flattened). A PairL2Penalty solves over all
+    shards at once (operators/pair.cg_shards), since its CG's step sizes
+    span the whole ensemble; any other proximal acts per chain."""
+    flat = lambda x: x.reshape(-1, *x.shape[-3:])
+    weights = [s.prox_weight(c) for s in shards]
+    if len(shards) == 1 or not isinstance(proxes[0], PairL2Penalty):
+        solved = [p(flat(xr), flat(xi), *y, w, 1.0) for p, (xr, xi), y, w
+                  in zip(proxes, xs, ys, weights)]
+    else:
+        solved = cg_shards(proxes, [(flat(xr), flat(xi), *y) for
+                                    (xr, xi), y in zip(xs, ys)], weights, 1.0)
+    return [(fr.reshape(xr.shape), fi.reshape(xi.shape))
+            for (fr, fi), (xr, xi) in zip(solved, xs)]
+
+
+class ShardedReconstructor:
+    """`recon(yr, yi, seed=0, noise=None, shift=None) -> (xr, xi)`: the
+    level loop of stepped reconstructors (pair or 2D+time), one for each
+    data-axis device of a mesh, each over an equal block of the chains,
+    all driven by the one host thread: every inner step runs the Langevin
+    update on each device in turn, then the proximal of all of them
+    (`_prox_shards`). One shard is a stepped reconstructor's own call. The
+    noise is drawn for the whole ensemble and each shard takes its rows
+    (parallel/ensemble.scatter_noise), the cine rolls likewise, so the
+    result is the unsharded chain's: bit for bit on one shard, and up to
+    the order of the CG's sums over several. The chains divide evenly
+    over the shards (the engines check it; parallel.run_sharded_ensemble
+    pads them). The output, and each snapshot's state, is gathered on the
+    first shard's device."""
+
+    def __init__(self, shards):
+        self.shards = list(shards)
+        self.device = self.shards[0].device
+
+    def _gather(self, xs) -> Pair:
+        if len(xs) == 1:
+            return xs[0]
+        return tuple(torch.cat([x[k].to(self.device) for x in xs])
+                     for k in (0, 1))
+
+    def __call__(self, yr: torch.Tensor, yi: torch.Tensor, seed: int = 0,
+                 noise: Optional[Noise] = None,
+                 shift: Optional[Shift] = None) -> Pair:
+        shards, lead = self.shards, self.shards[0]
+        n, cfg = len(shards), lead.config
+        devices = [s.device for s in shards]
+        noises = scatter_noise(noise if noise is not None
+                               else gaussian_noise(seed, self.device),
+                               devices)
+        shifts = [None] * n
+        if getattr(lead, "if_random_shift", False):
+            shifts = scatter_shift(shift if shift is not None
+                                   else random_shift(seed), n)
+        ax = yr.ndim - 4                 # SENSE measurements lead with coils
+        ys = [(r.to(dev), i.to(dev)) for r, i, dev in
+              zip(yr.chunk(n, ax), yi.chunk(n, ax), devices)]
+        with lead.grad_mode():
+            starts = [s.start(*y) for s, y in zip(shards, ys)]
+            xs = [(xr, xi) for xr, xi, _ in starts]
+            proxes = [p for _, _, p in starts]
+            for c in range(lead.num_levels):
+                for _ in range(cfg.n_steps_each):
+                    xs = [s.langevin_step(xr, xi, c, nz, sh) for
+                          s, (xr, xi), nz, sh in
+                          zip(shards, xs, noises, shifts)]
+                    xs = _prox_shards(shards, proxes, xs, ys, c)
+                if (lead.snapshot_fn is not None and cfg.snapshot_every > 0
+                        and c % cfg.snapshot_every == 0):
+                    lead.snapshot_fn(c, lead.level_sigma(c),
+                                     *self._gather(xs))
+            xs = [s.finish(*x) for s, x in zip(shards, xs)]
+        return self._gather(xs)

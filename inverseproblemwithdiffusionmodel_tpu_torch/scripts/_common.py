@@ -5,14 +5,14 @@ Port of `save_artifacts`, `reload_model`, `add_common_args` and
 `apply_overrides` from inverseproblemwithdiffusionmodel_tpu/scripts/
 _common.py. Override values are parsed as Python literals, falling back to
 the raw string. Checkpoints are the port's own (training/checkpoint.py);
-the JAX package's orbax checkpoints are not read.
+a JAX orbax checkpoint is converted to one first, on a host with orbax
+(convert_orbax_checkpoint.py at the repository's root).
 """
 from __future__ import annotations
 
 import ast
 import json
 import os
-from datetime import datetime
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -21,6 +21,7 @@ import torch
 from ..config import Config
 from ..models.registry import load_model
 from ..training.checkpoint import Checkpointer
+from ..utils.misc import get_timestamp
 
 
 def save_artifacts(save_dir: str, args: Optional[Dict[str, Any]] = None,
@@ -29,8 +30,7 @@ def save_artifacts(save_dir: str, args: Optional[Dict[str, Any]] = None,
     under save_dir; returns that directory. args.json also records the
     datasets this process loaded (`data_provenance`), as in the JAX
     package."""
-    run_dir = os.path.join(save_dir,
-                           datetime.now().strftime("%Y_%m_%d_%H_%M_%S_%f"))
+    run_dir = os.path.join(save_dir, get_timestamp())
     os.makedirs(run_dir, exist_ok=True)
     for name, arr in arrays.items():
         if arr is not None:
@@ -113,3 +113,10 @@ def apply_overrides(config: Config, overrides) -> Config:
         key, _, value = item.partition("=")
         updates[key] = _parse_value(value)
     return config.replace(**updates)
+
+
+def script_mesh(device: torch.device):
+    """--use_mesh's mesh: every card torch sees on the data axis, or the
+    one CPU device for --device cpu."""
+    from ..parallel import make_mesh
+    return make_mesh(devices=None if device.type == "cuda" else [device])

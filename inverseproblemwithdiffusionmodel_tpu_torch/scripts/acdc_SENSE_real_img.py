@@ -14,8 +14,17 @@ draws (the synthetic phase, the chains' noise) come from torch.Generators
 seeded with --seed, so they differ from the JAX script's. --ckpt_dir and
 --seg_ckpt_dir are training/checkpoint.Checkpointer directories; without
 them the nets take weights drawn from a seed, with a loud warning.
-Not ported: chain sharding with --use_mesh (ROADMAP: Slice P), which
-raises NotImplementedError.
+The chains run in the pair form of the serving engines
+(samplers/ald_pair.make_stepped_pair_reconstructor, PairSENSE and the
+pair CG of the L2Penalty proximal on the normal kernel; `reconstruct`). --use_mesh splits them
+over every card torch sees (the one CPU device with --device cpu) as the
+JAX script shards them: parallel.run_sharded_ensemble pads the
+measurement's chain axis (1) to a multiple of the cards with copies of
+the last chain, the reconstructor advances every card's block in step
+with the unsharded run's noise and CG dot products that span the whole
+ensemble (samplers/ald_pair.ShardedReconstructor), and the padding chains
+are dropped. Without padding the result is the run's without the mesh, up
+to the order of the CG's sums.
 """
 from __future__ import annotations
 
@@ -23,17 +32,55 @@ import argparse
 
 import torch
 
-from ._common import apply_overrides, add_common_args, save_artifacts, reload_model
+from ._common import (apply_overrides, add_common_args, reload_model,
+                      save_artifacts, script_mesh)
 from ..config import load_config
 from ..data import load_data
-from ..models.registry import make_score_fn, make_seg_fn
-from ..operators import make_sense, get_proximal
-from ..parallel import repeat_measurement, ensemble_mean_std
-from ..samplers.ald import ALDConfig, ald_inverse_seg_proximal_real_imag
+from ..operators import make_sense
+from ..operators.pair import PairL2Penalty, PairSENSE
+from ..parallel import (ensemble_mean_std, repeat_measurement,
+                        run_sharded_ensemble)
+from ..samplers.ald import ALDConfig
+from ..samplers.ald_pair import make_stepped_pair_reconstructor
 from ..samplers.sigmas import check_ladder_stability, get_sigmas
 from ..utils.device import resolve_device
 from ..utils.metrics import nrmse, ssim
 from ..utils.misc import add_phase, undersample_seg_mask
+
+
+def reconstruct(model, sigmas, measurement: torch.Tensor, lin_tfm,
+                config: ALDConfig, num_samples: int, seed: int = 0,
+                lr_scaled: float = 5.0, num_iters: int = 8, seg_model=None,
+                seg_label=None, seg_lamda: float = 1.0,
+                seg_start_time: float = 1.0, seg_step_type: str = "linear",
+                seg_mode: str = "full", device="cuda", mesh=None,
+                noise=None) -> torch.Tensor:
+    """`num_samples` ALD chains from the complex SENSE `measurement` (S,
+    1, H, W, C) with the CG L2Penalty proximal (`num_iters` iterations),
+    in pair form (the CG on the line mask's normal kernel, as the serving
+    engines run it): complex64 (num_samples, H, W, C). seg_model (the seg
+    net) and seg_label (1, H, W) turn the guidance on. With a `mesh` the
+    chains split over its data axis (padded to a multiple of it, the
+    padding dropped). `noise(shape)` overrides the draws seeded with
+    `seed`."""
+    op = PairSENSE(lin_tfm.base.mask, lin_tfm.sens_maps.real.contiguous(),
+                   lin_tfm.sens_maps.imag.contiguous())
+    prox = PairL2Penalty.with_normal_kernel(op, num_iters=num_iters)
+
+    def sampler(y, key):
+        label = (None if seg_label is None
+                 else repeat_measurement(seg_label, y.shape[1]))
+        recon = make_stepped_pair_reconstructor(
+            model, sigmas, op, prox, config, lr_scaled, seg_fn=seg_model,
+            seg_label=label, seg_lamda=seg_lamda,
+            seg_start_time=seg_start_time, seg_step_type=seg_step_type,
+            seg_mode=seg_mode, device=device, mesh=mesh)
+        xr, xi = recon(y.real.contiguous(), y.imag.contiguous(), seed=key,
+                       noise=noise)
+        return torch.complex(xr, xi)
+
+    return run_sharded_ensemble(sampler, measurement, num_samples, seed,
+                                mesh, measurement_batch_axis=1)
 
 
 def main(argv=None):
@@ -63,8 +110,7 @@ def main(argv=None):
                         "acdc_SENSE_real_img.py:92)")
     p.add_argument("--seg_ckpt_dir", default=None)
     p.add_argument("--use_mesh", action="store_true",
-                   help="shard the ensemble chains over all local devices "
-                        "(not ported yet: raises)")
+                   help="shard the ensemble chains over all local devices")
     p.add_argument("--sample_idx", "--ds_idx", type=int, default=0,
                    help="test-set slice index (reference name: --ds_idx)")
     p.add_argument("--data_root", default=None)
@@ -75,9 +121,6 @@ def main(argv=None):
                    help="inner steps per noise level (defaults to the "
                         "config's sampling.n_steps_each)")
     args = p.parse_args(argv)
-    if args.use_mesh:
-        raise NotImplementedError("--use_mesh: chain sharding over devices "
-                                  "is not ported yet (ROADMAP: Slice P)")
     device = resolve_device(args.device)   # no card: raise before any work
 
     config = apply_overrides(load_config(args.ds_name, "real-imag"),
@@ -103,32 +146,31 @@ def main(argv=None):
     model, _ = reload_model(config, "Diffusion", args.ckpt_dir)
     model = model.to(device).eval()
     sigmas = get_sigmas(config, "recons")
+    if args.proximal_type != "L2Penalty":
+        # as in the JAX package, SENSE has no k-space projection
+        raise ValueError(f"--proximal_type {args.proximal_type} needs the "
+                         "operator's k-space projection, which SENSE lacks;"
+                         " use L2Penalty")
 
-    use_seg = args.seg_start_time < 1.0
-    seg_fn = seg_label_b = None
-    if use_seg:
+    seg_model = None
+    if args.seg_start_time < 1.0:
         seg_model, _ = reload_model(config, "Seg", args.seg_ckpt_dir)
-        seg_fn = make_seg_fn(seg_model.to(device).eval().requires_grad_(
-            False))
+        seg_model = seg_model.to(device).eval().requires_grad_(False)
         if args.seg_fraction < 1.0:
             seg_label = undersample_seg_mask(seg_label, args.seg_fraction,
                                              gen)
-        seg_label_b = repeat_measurement(seg_label, args.num_samples)
 
     cfg = ALDConfig(
         n_steps_each=args.num_steps_each or config.sampling.n_steps_each,
         step_lr=args.step_lr or config.sampling.step_lr)
     check_ladder_stability(sigmas, cfg.n_steps_each, cfg.step_lr)
-    y_b = repeat_measurement(measurement, args.num_samples, batch_axis=1)
-    proximal = get_proximal(args.proximal_type)(lin_tfm=lin_tfm)
-
-    recons = ald_inverse_seg_proximal_real_imag(
-        make_score_fn(model, sigmas), sigmas, y_b, lin_tfm, proximal,
-        seed=args.seed, config=cfg, lr_scaled=args.lr_scaled, seg_fn=seg_fn,
-        seg_label=seg_label_b, seg_lamda=args.lamda,
-        seg_start_time=args.seg_start_time,
+    recons = reconstruct(
+        model, sigmas, measurement, lin_tfm, cfg, args.num_samples,
+        args.seed, args.lr_scaled, seg_model=seg_model,
+        seg_label=None if seg_model is None else seg_label,
+        seg_lamda=args.lamda, seg_start_time=args.seg_start_time,
         seg_step_type=args.seg_step_type, seg_mode=args.seg_mode,
-        device=device)
+        device=device, mesh=script_mesh(device) if args.use_mesh else None)
 
     mean_mag, std_mag = ensemble_mean_std(recons)
     truth_mag = torch.abs(x_true[0])

@@ -21,19 +21,22 @@ Checkpointer directories; without them the nets take weights drawn from a
 seed, with a loud warning. --seg_ckpt_dir builds a seg-guided 2-D engine.
 --dtype int8 runs both workloads' score nets in bf16 with int8
 convolutions (ops/quant.py; on the card K5-K7 of ops/csrc/int8conv.cu).
-Not ported: chain sharding with --data_shards (ROADMAP: parallel/), which
-raises NotImplementedError.
+--data_shards N splits the chains over N cards (-1: every card torch
+sees; --device cpu counts as one device), driven level by level from the
+serving thread (serving/engine.py).
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 from ._common import apply_overrides, reload_model
 from ..config import load_config
 from ..operators.fourier import MASK_PRESETS, _exp_sens_map
 from ..operators.masks import generate_mask
+from ..parallel.mesh import make_mesh
 from ..samplers.sigmas import check_ladder_stability, get_sigmas, sigma_ladder
 from ..serving import (CineEngineSpec, CineReconstructionEngine,
                        EngineSpec, ReconstructionEngine)
@@ -60,7 +63,7 @@ def _synth_sens(args, size: int):
     return maps[..., None]
 
 
-def build_cine_engine(args) -> CineReconstructionEngine:
+def build_cine_engine(args, mesh=None) -> CineReconstructionEngine:
     """The 2D+time engine: the spatial prior of --ds_name, the temporal
     1-D prior of --ds_name_T on pixel tubes (where --mode_T uses it),
     per-frame R masks."""
@@ -93,17 +96,37 @@ def build_cine_engine(args) -> CineReconstructionEngine:
                           mode=args.mode)
     return CineReconstructionEngine(
         model_S, sigmas_S, spec=spec, model_T=model_T, sigmas_T=sigmas_T,
-        mask=mask, sens_re=_synth_sens(args, size), device=args.device)
+        mask=mask, sens_re=_synth_sens(args, size), mesh=mesh,
+        device=args.device)
+
+
+def _serving_mesh(args):
+    """The chain-sharding mesh of --data_shards N over N devices' `data`
+    axis (-1: all of them), or None for 0 and 1. A count above the
+    devices, or one that does not divide --chains, exits."""
+    n = args.data_shards
+    if n in (0, 1):
+        return None
+    device = resolve_device(args.device)
+    available = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n == -1:
+        n = available
+    if n > available:
+        raise SystemExit(f"--data_shards {n} exceeds the {available} "
+                         "available devices")
+    if args.chains % n:
+        raise SystemExit(f"--chains {args.chains} must be a multiple of "
+                         f"--data_shards {n}")
+    devices = ([torch.device("cuda", i) for i in range(n)]
+               if device.type == "cuda" else [device])
+    return make_mesh(n_data=n, n_model=1, devices=devices)
 
 
 def build_engine(args):
-    if args.data_shards not in (0, 1):
-        raise NotImplementedError(f"--data_shards {args.data_shards}: chain "
-                                  "sharding is not ported yet (ROADMAP: "
-                                  "parallel/)")
     resolve_device(args.device)        # no card: raise before building
+    mesh = _serving_mesh(args)
     if args.workload == "cine":
-        return build_cine_engine(args)
+        return build_cine_engine(args, mesh)
     config = apply_overrides(load_config(args.ds_name, "real-imag"),
                              args.override)
     size = config.data.image_size
@@ -133,7 +156,7 @@ def build_engine(args):
                       seg_mode=args.seg_mode)
     return ReconstructionEngine(model, sigmas, spec=spec, mask=mask,
                                 sens_re=sens_re, seg_model=seg_model,
-                                device=args.device)
+                                mesh=mesh, device=args.device)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -180,7 +203,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--chains", type=int, default=16,
                    help="ensemble chains per request (the batch)")
     p.add_argument("--data_shards", type=int, default=1,
-                   help="chain sharding over devices: not ported, 0 or 1")
+                   help="shard the chain ensemble over this many devices' "
+                        "`data` mesh axis (-1 = all; must divide --chains)")
     p.add_argument("--levels", type=int, default=0,
                    help="override the recons ladder length (0 = config)")
     p.add_argument("--num_steps_each", type=int, default=None)

@@ -33,7 +33,13 @@ from. The stop is `training.n_iters` (or 2 steps with --train_mode debug).
 Batches come from the native C++ prefetch batcher (data/native_loader.py)
 where g++ builds it, else from numpy; --no_native_loader takes numpy.
 --num_workers is accepted for the reference CLI's sake and unused, as in
-the JAX script. Not ported: --use_mesh (ROADMAP: Slice P), which raises.
+the JAX script. --use_mesh makes the step data-parallel
+(training/train.py): over the ranks of a process group where a launcher
+such as torchrun names one (parallel.initialize_distributed), each rank
+on its own card with the same seeded batches and draws, else over this
+one process, where the step is the step without --use_mesh. Under a
+group rank 0 writes the run's directory, every other rank r its own copy
+in <run>/rank<r>.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from ._common import apply_overrides
 from ..config import load_config
 from ..data import load_data
 from ..models.registry import load_model
+from ..parallel import initialize_distributed, is_primary, make_mesh
 from ..samplers.sigmas import get_sigmas
 from ..training import (FitConfig, MultiSteps, TrainState, batch_iterator,
                         fit, get_optimizer, make_score_eval_step,
@@ -115,10 +122,13 @@ def to3d(tubes: np.ndarray) -> np.ndarray:
 
 def main(argv=None) -> TrainState:
     args = parse_args(argv)
-    if args.use_mesh:
-        raise NotImplementedError("--use_mesh: data-parallel training is not "
-                                  "ported yet (ROADMAP: Slice P)")
     device = resolve_device(args.device)     # no card: raise before work
+    mesh = None
+    if args.use_mesh:
+        initialize_distributed(device=device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh(devices=[device])
     config = apply_overrides(load_config(args.ds_name, args.mode),
                              args.override)
     if args.filter_th is None:
@@ -155,7 +165,7 @@ def main(argv=None) -> TrainState:
     step = make_score_train_step(
         module, sigmas, data_mode=args.mode,
         anneal_power=config.training.anneal_power,
-        filter_th=args.filter_th, remat=args.remat,
+        mesh=mesh, filter_th=args.filter_th, remat=args.remat,
         compute_dtype=torch.bfloat16 if args.bf16 else None,
         if_centering=args.if_centering)
     eval_step = make_score_eval_step(
@@ -165,6 +175,11 @@ def main(argv=None) -> TrainState:
 
     log_dir = os.path.join(args.log_dir,
                            f"{args.ds_name}_{args.task_name}_{args.mode}")
+    if not is_primary():
+        # every rank holds the same state; rank 0 writes log_dir, the
+        # others their own copies beside it
+        log_dir = os.path.join(log_dir,
+                               f"rank{torch.distributed.get_rank()}")
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, "desc.txt"), "w") as wf:
         for k, v in sorted(vars(args).items()):

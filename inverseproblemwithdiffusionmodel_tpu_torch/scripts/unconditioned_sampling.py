@@ -16,7 +16,13 @@ volume as sample0.gif, as the JAX script does (utils/visualizations:
 matplotlib and Pillow, imported only then). It prints the
 sampler's network evaluations per second between CUDA synchronizations
 (the config, model and weight set-up apart) and the wall seconds.
---use_mesh raises (ROADMAP: Slice P): the chains run on one device.
+--use_mesh splits the chains over every card torch sees (the one CPU
+device with --device cpu) as the JAX script shards them: the start is
+padded to a multiple of the cards with copies of the last chain
+(parallel.run_sharded_ensemble), which are dropped, and every net
+evaluation runs each card's block of chains on that card's replica of the
+net. The sampler's loop, its noise and its updates stay the run's without
+the mesh, so the samples are that run's where no chain was padded.
 """
 from __future__ import annotations
 
@@ -25,15 +31,51 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from ._common import (add_common_args, apply_overrides, reload_model,
-                      save_artifacts)
+                      save_artifacts, script_mesh)
 from ..config import load_config
 from ..models.ncsn3d import tube_window
 from ..models.registry import make_score_fn
+from ..parallel import run_sharded_ensemble
 from ..samplers.ald import ALDConfig, ald_unconditional_sampler
+from ..samplers.ald_pair import replica_placer
 from ..samplers.sigmas import check_ladder_stability, get_sigmas
 from ..utils.device import resolve_device, synchronize
+
+def _mesh_score_fn(model, sigmas, mesh):
+    """make_score_fn over the mesh's data axis: a replica of the net on
+    each device takes its block of the batch, and the scores are gathered
+    on the batch's device. The blocks run in step, one net evaluation at a
+    time."""
+    devices, cache = mesh.data_devices, {}
+    fns = [make_score_fn(replica_placer(d, cache)(model), sigmas)
+           for d in devices]
+    n = len(fns)
+
+    def score_fn(x, labels):
+        outs = [fn(xc.to(d), lc.to(d)) for fn, d, xc, lc in
+                zip(fns, devices, x.chunk(n), labels.chunk(n))]
+        return torch.cat([o.to(x.device) for o in outs])
+
+    return fns[0] if n == 1 else score_fn
+
+
+def _sharded_samples(model, sigmas, shape, cfg, seed: int, device):
+    """--use_mesh: the start U(0, 1) and the noise drawn as the unsharded
+    sampler draws them, the chains padded for the mesh and sampled with
+    the net split over it, the padding dropped."""
+    mesh = script_mesh(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    x_init = torch.rand(shape, generator=gen, device=device)
+    noise = lambda s: torch.randn(tuple(s), generator=gen, device=device)
+    return run_sharded_ensemble(
+        lambda x0, _: ald_unconditional_sampler(
+            _mesh_score_fn(model, sigmas, mesh), sigmas, x0.shape,
+            config=cfg, x_init=x0, noise=noise, device=device),
+        x_init, 1, seed, mesh)
+
 
 def sample_shape(config, task_name: str, num_samples: int) -> tuple:
     """The channel-last shape the task's net samples (the JAX script's
@@ -63,9 +105,6 @@ def main(argv=None):
     p.add_argument("--if_save_as_gif", action="store_true")
     p.add_argument("--use_mesh", action="store_true")
     args = p.parse_args(argv)
-    if args.use_mesh:
-        raise NotImplementedError("--use_mesh: chain sharding over devices "
-                                  "is not ported yet (ROADMAP: Slice P)")
     device = resolve_device(args.device)   # no card: raise before any work
 
     config = apply_overrides(load_config(args.ds_name, args.mode),
@@ -82,9 +121,13 @@ def main(argv=None):
 
     synchronize(device)
     t_run = time.perf_counter()
-    samples = ald_unconditional_sampler(
-        make_score_fn(model, sigmas), sigmas, shape, seed=args.seed,
-        config=cfg, device=device)
+    if args.use_mesh:
+        samples = _sharded_samples(model, sigmas, shape, cfg, args.seed,
+                                   device)
+    else:
+        samples = ald_unconditional_sampler(
+            make_score_fn(model, sigmas), sigmas, shape, seed=args.seed,
+            config=cfg, device=device)
     synchronize(device)
     sampler_s = time.perf_counter() - t_run
     nfe = len(sigmas) * cfg.n_steps_each + int(cfg.denoise)

@@ -29,8 +29,6 @@ from .sde_lib import SDE, VESDE, VPSDE, ReverseSDE, Noise, ScoreFn, \
     _expand, linspace_f32, subVPSDE
 from ..utils.device import gaussian_noise
 
-_NOT_PORTED = "is not ported yet (ROADMAP, Queue 1)"
-
 
 def get_score_fn(sde: SDE, model_fn: Callable[[torch.Tensor, torch.Tensor],
                                                 torch.Tensor],
@@ -212,15 +210,35 @@ _CORRECTORS = {"langevin": LangevinCorrector,
                "ald": AnnealedLangevinDynamics, "none": NoneCorrector}
 
 
+def register_predictor(cls=None, *, name=None):
+    """Register a predictor class under `name` (default its class name),
+    as a bare decorator or with name= (reference: sde/sampling.py:38-54);
+    get_predictor and get_pc_sampler then find it by name."""
+    def _register(cls):
+        _PREDICTORS[name or cls.__name__] = cls
+        return cls
+    return _register(cls) if cls is not None else _register
+
+
+def register_corrector(cls=None, *, name=None):
+    """`register_predictor` for correctors."""
+    def _register(cls):
+        _CORRECTORS[name or cls.__name__] = cls
+        return cls
+    return _register(cls) if cls is not None else _register
+
+
 def get_predictor(name: str):
     if name not in _PREDICTORS:
-        raise NotImplementedError(f"predictor {name!r} {_NOT_PORTED}")
+        raise KeyError(f"unknown predictor {name!r}; registered: "
+                       f"{sorted(_PREDICTORS)}")
     return _PREDICTORS[name]
 
 
 def get_corrector(name: str):
     if name not in _CORRECTORS:
-        raise NotImplementedError(f"corrector {name!r} {_NOT_PORTED}")
+        raise KeyError(f"unknown corrector {name!r}; registered: "
+                       f"{sorted(_CORRECTORS)}")
     return _CORRECTORS[name]
 
 

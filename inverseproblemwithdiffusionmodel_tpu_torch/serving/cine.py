@@ -13,7 +13,9 @@ request's operator and normal kernel are built on the host, the kernel
 collapsed to (T, W, W) whatever the chain count
 (PairL2Penalty.with_normal_kernel); `stats()["input_signatures"]` counts
 the level step's input signatures, one per spec. The chain ensemble is
-the batch: chains x frames rows. Duck-typed for serving.server.
+the batch: chains x frames rows. `mesh` splits the chains over its data
+axis as the 2-D engine's does (serving/engine.py). Duck-typed for
+serving.server.
 """
 from __future__ import annotations
 
@@ -25,12 +27,15 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .engine import ReconResult, _make_arg_score_fn, _signature, _validate_mesh
+from .engine import (ReconResult, _make_arg_score_fn, _mesh_devices,
+                     _mesh_stats, _signature, _validate_mesh)
 from ..operators.pair import (PairL2Penalty, PairRandomUndersamplingFourier,
                               PairSENSE)
 from ..samplers.ald import ALDConfig, setup_2d_time_ladders
-from ..samplers.ald_pair import Stepped2DTimePairReconstructor
-from ..utils.device import Noise, Shift, resolve_device
+from ..samplers.ald_pair import (ShardedReconstructor,
+                                 Stepped2DTimePairReconstructor,
+                                 replica_placer, shard_rows)
+from ..utils.device import Noise, Shift
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,23 +87,25 @@ class CineReconstructionEngine:
                              "score model (model_T, sigmas_T)")
         self.mesh = mesh
         self.spec = spec
-        device = resolve_device(device)
-        if device.type == "cuda" and device.index is None:
-            # requests run on server threads, whose current device need
-            # not be this one
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
+        self.devices = _mesh_devices(mesh, device)
+        device = self.device = self.devices[0]
         self.sigmas_S = torch.as_tensor(sigmas_S, dtype=torch.float32)
         self.sigmas_T = torch.as_tensor(
             [1.0] if sigmas_T is None else sigmas_T, dtype=torch.float32)
         self.model_S = model_S.to(device).eval()
-        self._score_S = _make_arg_score_fn(self.model_S, self.sigmas_S,
-                                           spec.dtype)
-        self.model_T = self._score_T = None
+        self.model_T = None
         if model_T is not None:
             self.model_T = model_T.to(device).eval()
-            self._score_T = _make_arg_score_fn(self.model_T, self.sigmas_T,
-                                               spec.dtype)
+        # each device's score functions, built once
+        self._scores, cache = [], {}
+        for dev in self.devices:
+            place = replica_placer(dev, cache)
+            self._scores.append((
+                _make_arg_score_fn(place(self.model_S), self.sigmas_S,
+                                   spec.dtype),
+                None if self.model_T is None else _make_arg_score_fn(
+                    place(self.model_T), self.sigmas_T, spec.dtype)))
+        self._score_S, self._score_T = self._scores[0]
         self.ald_config = ALDConfig(n_steps_each=spec.n_steps_each,
                                     step_lr=spec.step_lr)
         self._lock = threading.Lock()
@@ -151,14 +158,17 @@ class CineReconstructionEngine:
 
     # -------------------------------------------------------------- chain
 
-    def _reconstructor(self, lin_tfm, proximal, lr_scaled, lamda_T
+    def _reconstructor(self, lin_tfm, proximal, lr_scaled, lamda_T, d=0
                        ) -> Stepped2DTimePairReconstructor:
-        s = self.spec
+        """Device d's reconstructor over its block of the chains."""
+        s, n = self.spec, len(self.devices)
+        score_S, score_T = self._scores[d]
         return Stepped2DTimePairReconstructor(
-            self._score_S, self._score_T, self.sigmas_S, self.sigmas_T,
-            lin_tfm, proximal, self.ald_config, lr_scaled, s.mode_T,
-            lamda_T, s.if_random_shift, s.win_size, s.frames,
-            device=self.device)
+            score_S, score_T, self.sigmas_S, self.sigmas_T,
+            shard_rows(lin_tfm, n, d), shard_rows(proximal, n, d),
+            self.ald_config, lr_scaled, s.mode_T, lamda_T,
+            s.if_random_shift, s.win_size, s.frames,
+            device=self.devices[d])
 
     def _broadcast_chains(self, y: torch.Tensor) -> torch.Tensor:
         """(coils?, T, H, W, C) single copy -> (coils?, chains T, H, W, C)
@@ -174,7 +184,9 @@ class CineReconstructionEngine:
              shift: Optional[Shift] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         yr, yi = self._broadcast_chains(yr), self._broadcast_chains(yi)
-        recon = self._reconstructor(lin_tfm, proximal, lr_scaled, lamda_T)
+        shards = [self._reconstructor(lin_tfm, proximal, lr_scaled, lamda_T,
+                                      d) for d in range(len(self.devices))]
+        recon = shards[0]
         # what the level step receives besides the chain state: the
         # measurement, the operator, the normal kernel, the two weights
         lin = recon.lin_tfm
@@ -182,7 +194,8 @@ class CineReconstructionEngine:
             yr, yi, lin.mask, getattr(lin, "sens_re", None),
             getattr(lin, "sens_im", None), recon.proximal.kernel_re,
             recon.proximal.kernel_im, recon.lr_scaled, recon.lamda_T))
-        return recon(yr, yi, seed=seed, noise=noise, shift=shift)
+        return ShardedReconstructor(shards)(yr, yi, seed=seed, noise=noise,
+                                            shift=shift)
 
     # ------------------------------------------------------------- public
 
@@ -276,5 +289,5 @@ class CineReconstructionEngine:
                                if self._requests else None),
             # distinct (shape, dtype) signatures the level step has seen
             "input_signatures": len(self._signatures),
-            "mesh": None,
+            "mesh": _mesh_stats(self.mesh),
         }

@@ -27,10 +27,18 @@ serving/engine.py.
 - mode "scan" and "steps" are both the host loop over noise levels (the
   JAX package's whole-chain program and its stepped form give equal
   results; the port has only the loop).
-- Chain sharding over a device mesh is not ported (ROADMAP: parallel/);
-  `mesh` must be None.
-- Requests are serialized behind a lock: one engine is one device's
-  worth of work.
+- `mesh` (parallel/mesh.py) splits the chains evenly over its data
+  axis: each device holds a replica of the nets and runs its block of
+  chains, all driven level by level from the one thread that serves the
+  request (samplers/ald_pair.ShardedReconstructor; no extra threads or
+  streams, so K5's per-device call state is never shared by two calls
+  at once). The chains' noise is the unsharded engine's, so the result
+  is too (bit for bit on a mesh of one device; the CG proximal's sums in
+  another order on several). One difference from the JAX engine: int8's
+  per-tensor activation scale spans a shard's chains, not the whole
+  batch.
+- Requests are serialized behind a lock: one engine is one mesh's (or
+  one device's) worth of work.
 
 The reference counterpart of the math is ALDInvSegProximalRealImag
 (ncsn/models/ALD_optimizers.py:161-327) in pair form, with its
@@ -49,8 +57,11 @@ import torch
 from ..models.registry import make_score_fn, make_seg_fn
 from ..operators.pair import (PairL2Penalty, PairRandomUndersamplingFourier,
                               PairSENSE)
+from ..parallel.mesh import DATA_AXIS
 from ..samplers.ald import ALDConfig
-from ..samplers.ald_pair import SteppedPairReconstructor
+from ..samplers.ald_pair import (ShardedReconstructor,
+                                 SteppedPairReconstructor, replica_placer,
+                                 shard_rows)
 from ..utils.device import Noise, resolve_device
 
 
@@ -115,12 +126,36 @@ def _make_arg_score_fn(model: torch.nn.Module, sigmas: torch.Tensor,
 
 
 def _validate_mesh(mesh, chains: int) -> None:
-    """The JAX engine shards the chains over a mesh's `data` axis; the
-    port serves on one device."""
+    """A serving mesh shards the chain ensemble over its `data` axis, so
+    the chains must divide evenly (every device runs chains / n_data
+    whole chains; no padding rows in a long-lived engine)."""
+    if mesh is None:
+        return
+    names = getattr(mesh, "axis_names", ())
+    if DATA_AXIS not in names:
+        raise ValueError(f"serving mesh needs a {DATA_AXIS!r} axis, got "
+                         f"{names}")
+    n_data = mesh.shape[DATA_AXIS]
+    if chains % n_data:
+        raise ValueError(f"spec.chains={chains} must be a multiple of the "
+                         f"mesh data axis ({n_data} devices)")
+
+
+def _mesh_devices(mesh, device) -> list:
+    """The devices an engine runs on: the mesh's data axis, or `device`
+    with its CUDA index pinned (requests run on server threads, whose
+    current device need not be this one)."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"chain sharding over a mesh ({chains} chains) is not ported "
-            "yet (ROADMAP: parallel/); pass mesh=None")
+        return [resolve_device(d) for d in mesh.data_devices]
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return [device]
+
+
+def _mesh_stats(mesh) -> Optional[Dict[str, int]]:
+    return None if mesh is None else {k: int(v)
+                                      for k, v in mesh.shape.items()}
 
 
 def _signature(*tensors: Optional[torch.Tensor]) -> Tuple:
@@ -140,8 +175,10 @@ class ReconstructionEngine:
     models/registry.build_seg_unet) turns the segmentation guidance on.
     Both move to `device` (default "cuda"; without a card that raises
     unless device="cpu"), in eval mode, and the seg net's parameters stop
-    requiring grad. The engine owns a default operator (mask + coil maps);
-    requests may override any of them as long as shapes match the spec.
+    requiring grad. With a `mesh` they move to its first data-axis device
+    instead, and each other device gets a copy. The engine owns a default
+    operator (mask + coil maps); requests may override any of them as long
+    as shapes match the spec.
     """
 
     def __init__(self, model: torch.nn.Module, sigmas, *, spec: EngineSpec,
@@ -159,25 +196,27 @@ class ReconstructionEngine:
         _validate_mesh(mesh, spec.chains)
         self.mesh = mesh
         self.spec = spec
-        device = resolve_device(device)
-        if device.type == "cuda" and device.index is None:
-            # pin the index: requests run on server threads, whose current
-            # device need not be this one
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
+        self.devices = _mesh_devices(mesh, device)
+        device = self.device = self.devices[0]
         self.model = model.to(device).eval()
         self.sigmas = torch.as_tensor(sigmas, dtype=torch.float32)
         self.ald_config = ALDConfig(n_steps_each=spec.n_steps_each,
                                     step_lr=spec.step_lr,
                                     denoise=spec.denoise)
-        # built once: the bf16 copy of the net is made here, not per request
-        self._score_fn = _make_arg_score_fn(self.model, self.sigmas,
-                                            spec.dtype)
         self.seg_model = None
         if seg_model is not None:
             self.seg_model = seg_model.to(device).eval().requires_grad_(False)
-            self._seg_fn = make_seg_fn(self.seg_model)
         self._has_seg = self.seg_model is not None
+        # built once per device: the bf16 copy of the net is made here,
+        # not per request
+        self._score_fns, self._seg_fns, cache = [], [], {}
+        for dev in self.devices:
+            place = replica_placer(dev, cache)
+            self._score_fns.append(_make_arg_score_fn(
+                place(self.model), self.sigmas, spec.dtype))
+            self._seg_fns.append(make_seg_fn(place(self.seg_model))
+                                 if self._has_seg else None)
+        self._score_fn = self._score_fns[0]
         self.default_seg_label = (None if seg_label is None
                                   else self._canon_seg_label(seg_label))
         self._lock = threading.Lock()
@@ -231,16 +270,23 @@ class ReconstructionEngine:
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         s = self.spec
         yr, yi = self._broadcast_chains(yr), self._broadcast_chains(yi)
-        seg = {}
-        if self._has_seg:
-            label = seg_label.to(self.device).expand(
-                (s.chains,) + tuple(seg_label.shape))
-            seg = dict(seg_fn=self._seg_fn, seg_label=label,
-                       seg_lamda=seg_lamda, seg_start_time=s.seg_start_time,
-                       seg_step_type=s.seg_step_type, seg_mode=s.seg_mode)
-        recon = SteppedPairReconstructor(
-            self._score_fn, self.sigmas, lin_tfm, proximal, self.ald_config,
-            lr_scaled, device=self.device, **seg)
+        n = len(self.devices)
+        shards = []
+        for d, dev in enumerate(self.devices):
+            seg = {}
+            if self._has_seg:
+                label = seg_label.expand((s.chains // n,)
+                                         + tuple(seg_label.shape))
+                seg = dict(seg_fn=self._seg_fns[d], seg_label=label,
+                           seg_lamda=seg_lamda,
+                           seg_start_time=s.seg_start_time,
+                           seg_step_type=s.seg_step_type,
+                           seg_mode=s.seg_mode)
+            shards.append(SteppedPairReconstructor(
+                self._score_fns[d], self.sigmas, shard_rows(lin_tfm, n, d),
+                shard_rows(proximal, n, d), self.ald_config, lr_scaled,
+                device=dev, **seg))
+        recon = shards[0]
         # what the level step receives besides the chain state (whose
         # shape follows from yr): the measurement, the operator, the
         # normal kernel, the per-level weight, the seg label
@@ -250,7 +296,7 @@ class ReconstructionEngine:
             getattr(lin, "sens_im", None), recon.proximal.kernel_re,
             recon.proximal.kernel_im, recon.lr_sched,
             recon.seg_label2 if self._has_seg else None))
-        return recon(yr, yi, seed=seed, noise=noise)
+        return ShardedReconstructor(shards)(yr, yi, seed=seed, noise=noise)
 
     # ------------------------------------------------------------- public
 
@@ -381,5 +427,5 @@ class ReconstructionEngine:
             # distinct (shape, dtype) signatures the level step has seen;
             # 1 when no request changed a shape
             "input_signatures": len(self._signatures),
-            "mesh": None,
+            "mesh": _mesh_stats(self.mesh),
         }

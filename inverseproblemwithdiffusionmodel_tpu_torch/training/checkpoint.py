@@ -3,7 +3,9 @@ directory per step.
 
 Port of `Checkpointer` from inverseproblemwithdiffusionmodel_tpu/training/
 checkpoint.py, which keeps orbax checkpoints; this one keeps `torch.save`
-files and reads orbax checkpoints of the JAX package not at all.
+files. An orbax checkpoint of the JAX package is converted to one of
+these first, on a host with orbax: `convert_orbax_checkpoint.py` at the
+repository's root (the port imports no orbax).
 
 Layout: `<ckpt_dir>/<step>/state.pt`, plus `metrics.json` where a val_loss
 was given. A step is written into a temporary directory and moved into
@@ -40,15 +42,17 @@ class Checkpointer:
 
     def all_steps(self):
         """Saved steps, ascending. A step directory without the port's file
-        (an orbax checkpoint of the JAX package) raises."""
+        (an orbax checkpoint of the JAX package) raises ValueError."""
         steps = sorted(int(name) for name in os.listdir(self.directory)
                        if name.isdigit())
         for step in steps:
             if not os.path.isfile(self._path(step, STATE_FILE)):
-                raise NotImplementedError(
+                raise ValueError(
                     f"{self._path(step)} holds no {STATE_FILE}: not a "
-                    "checkpoint of the port. Reading the JAX package's orbax "
-                    "checkpoints is not ported (ROADMAP: Slice E)")
+                    "checkpoint of the port. Convert a JAX (orbax) "
+                    "checkpoint first, on a host with orbax: python "
+                    "convert_orbax_checkpoint.py --jax_ckpt_dir "
+                    f"{self.directory} --out_dir <dir> ...")
         return steps
 
     def _metrics(self, step: int) -> Optional[dict]:

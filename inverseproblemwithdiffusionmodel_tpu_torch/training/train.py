@@ -4,28 +4,105 @@ train steps (classifier and segmentation) and the discrete eval step.
 Port of `make_score_train_step` (:60), `make_continuous_score_train_step`
 (:136), `make_clf_train_step` (:185), `make_seg_train_step` (:216),
 `make_score_eval_step` (:256) and `_mixed_precision_apply` (:43) from
-inverseproblemwithdiffusionmodel_tpu/training/train.py, on one device.
-PyTorch runs eagerly, so a step has no `jax.jit` counterpart; a CUDA
-graph of it is later work.
+inverseproblemwithdiffusionmodel_tpu/training/train.py. PyTorch runs
+eagerly, so a step has no `jax.jit` counterpart; a CUDA graph of it is
+later work.
+
+With a `mesh`, the JAX step is one program over the global batch, sharded
+over the mesh's data axis. Here the step is data-parallel over the ranks
+of the default torch.distributed process group (parallel/distributed.py;
+a world of 1 without one), each rank one process on one device
+(`DataParallel`): every rank is handed the same global batch and the
+same generator state, makes the step's draws for the global batch, and
+runs the net on its rows (`local_batch_slice`); its loss is its share of
+the global loss, whose normaliser (the batch, or the foreground weight's
+sum under `filter_th`) is summed over the ranks; the gradients are summed
+over the ranks before the optimizer step, so every rank takes the step
+the one-process step takes. Tensor parallelism (`tp=True`) is not ported
+yet (ROADMAP, Queue 1 item 4).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from .state import TrainState
-from ..losses.dsm import anneal_dsm_score_estimation, continuous_dsm_loss
-from ..losses.guidance import (clf_loss_with_perturbation,
-                               seg_loss_with_perturbation)
+from ..losses.dsm import (anneal_dsm_score_estimation, continuous_draws,
+                          continuous_dsm_loss, dsm_draws)
+from ..losses.guidance import (_perturb, clf_loss_with_perturbation,
+                               dice_ce_terms, dice_term, perturb_draws,
+                               seg_draws, seg_loss_with_perturbation)
 from ..models.registry import takes_nchw, to_nchw
+from ..parallel.distributed import all_reduce_sum_, local_batch_slice
+from ..parallel.mesh import DATA_AXIS
 from ..sde.sampling import get_score_fn
 from ..utils.misc import collate_batch, filter_batch, stack_parts
 
 TrainStep = Callable[..., Tuple[TrainState, torch.Tensor]]
+
+_TP = ("tensor-parallel training (tp=True) is not ported yet (ROADMAP, "
+       "Queue 1 item 4: tensor parallelism)")
+
+
+class DataParallel:
+    """The data axis of a train step: the ranks of the default process
+    group, or a world of 1 without one. At construction every rank takes
+    rank 0's parameters (as DistributedDataParallel does)."""
+
+    def __init__(self, mesh, model: nn.Module):
+        if DATA_AXIS not in getattr(mesh, "axis_names", ()):
+            raise ValueError(f"a train step's mesh needs a {DATA_AXIS!r} "
+                             f"axis, got {mesh!r}")
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.group = dist.is_available() and dist.is_initialized()
+        if self.group:
+            with torch.no_grad():
+                for p in model.parameters():
+                    dist.broadcast(p.data, src=0)
+
+    def rows(self, batch: int, rows: int) -> slice:
+        """This rank's rows of a tensor of `rows` rows that is a global
+        batch of `batch` samples, each sample rows // batch consecutive
+        rows (the interleaved [Re, Im] rows of `stack_parts`)."""
+        mine = local_batch_slice(batch)
+        k = rows // batch
+        return slice(mine.start * k, mine.stop * k)
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the ranks, its gradient reaching this rank's t."""
+        other = all_reduce_sum_([t.detach().clone()])[0] - t.detach()
+        return t + other
+
+    def share(self, loss: torch.Tensor, local) -> torch.Tensor:
+        """This rank's share of a loss normalised over the global batch:
+        `loss`, normalised over this rank's `local` (a row count or a
+        weight sum), times local / (local summed over the ranks)."""
+        local = torch.as_tensor(local, dtype=torch.float32,
+                                device=loss.device)
+        total = all_reduce_sum_([local.clone()])[0]
+        return loss * (local / torch.clamp_min(total, 1e-12))
+
+    def counted_once(self, value: torch.Tensor) -> torch.Tensor:
+        """A term every rank computes whole: its value divided over the
+        ranks, its gradient whole."""
+        n = dist.get_world_size() if self.group else 1
+        return value - (1.0 - 1.0 / n) * value.detach()
+
+    def finish(self, loss: torch.Tensor) -> torch.Tensor:
+        """Sum the gradients and the loss over the ranks; returns the
+        global loss."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        all_reduce_sum_(grads)
+        return all_reduce_sum_([loss.detach().clone()])[0]
+
+
+def _data_parallel(mesh, model: nn.Module) -> Optional[DataParallel]:
+    return None if mesh is None else DataParallel(mesh, model)
 
 
 def _mixed_precision_apply(model: nn.Module, compute_dtype=None,
@@ -69,12 +146,14 @@ def _mixed_precision_apply(model: nn.Module, compute_dtype=None,
 
 def _discrete_loss(score_fn, batch, sigmas, data_mode, anneal_power,
                    filter_th, if_centering, generator, phi, labels,
-                   noise) -> torch.Tensor:
+                   noise, dp: Optional[DataParallel] = None
+                   ) -> torch.Tensor:
     """The loss of JAX's discrete step (train.py:97-127): centering to
     [-1, 1], the foreground weight, collation, one forward over the
     interleaved [Re, Im] rows (`stack_parts`, the weight interleaved
     alike), the annealed DSM loss. Draws, in order: phi (or the phase
-    patch of 'real-imag-random'), labels, noise."""
+    patch of 'real-imag-random'), labels, noise. With `dp`, this rank's
+    share of it on its rows of the global draws."""
     if if_centering:
         batch = 2.0 * batch - 1.0
     weight = None if filter_th is None else filter_batch(batch, filter_th)
@@ -85,9 +164,18 @@ def _discrete_loss(score_fn, batch, sigmas, data_mode, anneal_power,
             weight = stack_parts(weight, weight)
     else:
         x = parts
-    return anneal_dsm_score_estimation(
+    if dp is not None:
+        labels, noise = dsm_draws(x, sigmas.shape[0], generator, labels,
+                                  noise)
+        rows = dp.rows(batch.shape[0], x.shape[0])
+        x, labels, noise = x[rows], labels[rows], noise[rows]
+        weight = None if weight is None else weight[rows]
+    loss = anneal_dsm_score_estimation(
         score_fn, x, sigmas, generator, labels=labels,
         anneal_power=anneal_power, sample_weight=weight, noise=noise)
+    if dp is None:
+        return loss
+    return dp.share(loss, x.shape[0] if weight is None else weight.sum())
 
 
 def _device_of(model: nn.Module, state: TrainState) -> torch.device:
@@ -124,11 +212,13 @@ def make_score_train_step(
     compute_dtype=torch.bfloat16: the net in bf16 on casts of the float32
     master parameters (`_mixed_precision_apply`); the loss, gradients,
     Adam state and EMA stay float32.
+    mesh: data-parallel over the process group's ranks (the module's
+    docstring); the batch divides by the ranks, and the returned loss is
+    the global one.
     """
-    if mesh is not None or tp:
-        raise NotImplementedError("a device mesh (data- or tensor-parallel "
-                                  "training) is not ported yet (ROADMAP: "
-                                  "Slice P)")
+    if tp:
+        raise NotImplementedError(_TP)
+    dp = _data_parallel(mesh, model)
     device = next(model.parameters()).device
     sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
     net = _mixed_precision_apply(model, compute_dtype)
@@ -148,9 +238,10 @@ def make_score_train_step(
         state.optimizer.zero_grad()
         loss = _discrete_loss(score_fn, batch, sigmas, data_mode,
                               anneal_power, filter_th, if_centering,
-                              generator, phi, labels, noise)
+                              generator, phi, labels, noise, dp)
         loss.backward()
-        return state.apply_gradients(), loss.detach()
+        loss = loss.detach() if dp is None else dp.finish(loss)
+        return state.apply_gradients(), loss
 
     return step
 
@@ -213,11 +304,10 @@ def make_continuous_score_train_step(
     master parameters (`_mixed_precision_apply`); the loss, gradients, Adam
     state and EMA stay float32.
     The network runs in train() mode, as the reference trains; dropout
-    draws from torch's global generator.
+    draws from torch's global generator. mesh: data-parallel, as
+    `make_score_train_step`'s.
     """
-    if mesh is not None:
-        raise NotImplementedError("a device mesh (data-parallel training) is "
-                                  "not ported yet (ROADMAP: Slice P)")
+    dp = _data_parallel(mesh, model)
     score_fn = get_score_fn(sde, _mixed_precision_apply(
         model, compute_dtype, nchw=takes_nchw(model)),
         continuous=continuous)
@@ -227,26 +317,36 @@ def make_continuous_score_train_step(
              z: Optional[torch.Tensor] = None, *,
              phi: Optional[torch.Tensor] = None,
              patch: Optional[torch.Tensor] = None):
-        parts = collate_batch(torch.as_tensor(
-            batch, device=_device_of(model, state)), data_mode, generator,
-            phi=phi, patch=patch)
+        batch = torch.as_tensor(batch, device=_device_of(model, state))
+        parts = collate_batch(batch, data_mode, generator, phi=phi,
+                              patch=patch)
         x = stack_parts(*parts) if isinstance(parts, list) else parts
+        if dp is not None:
+            t, z = continuous_draws(x, sde.T, eps, generator, t, z)
+            rows = dp.rows(batch.shape[0], x.shape[0])
+            x, t, z = x[rows], t[rows], z[rows]
         model.train()
         state.optimizer.zero_grad()
         loss = continuous_dsm_loss(score_fn, sde, x, eps=eps,
                                    reduce_mean=reduce_mean,
                                    generator=generator, t=t, z=z)
+        if dp is not None:
+            loss = dp.share(loss, x.shape[0])
         loss.backward()
-        return state.apply_gradients(), loss.detach()
+        loss = loss.detach() if dp is None else dp.finish(loss)
+        return state.apply_gradients(), loss
 
     return step
 
 
-def _guidance_step(model: nn.Module, loss_fn) -> TrainStep:
+def _guidance_step(model: nn.Module, loss_fn,
+                   dp: Optional[DataParallel]) -> TrainStep:
     """The train step of a guidance net around `loss_fn(X, y, generator,
     draws) -> loss`: the batch (X, y), arrays or tensors, moves to the
     model's device; one backward and the optimizer update. `draws` are the
-    step's keyword arguments, the injected draws."""
+    step's keyword arguments, the injected draws. With `dp` the loss is
+    this rank's share, and the gradients and loss are summed over the
+    ranks."""
 
     def step(state: TrainState, batch, generator: Optional[
             torch.Generator] = None, **draws):
@@ -256,7 +356,8 @@ def _guidance_step(model: nn.Module, loss_fn) -> TrainStep:
         state.optimizer.zero_grad()
         loss = loss_fn(X, y, generator, draws)
         loss.backward()
-        return state.apply_gradients(), loss.detach()
+        loss = loss.detach() if dp is None else dp.finish(loss)
+        return state.apply_gradients(), loss
 
     return step
 
@@ -276,10 +377,9 @@ def make_clf_train_step(model: nn.Module, sigmas, mesh=None,
     The draws, in order: the noise labels, then the noise; each comes from
     `generator` on the model's device unless given. compute_dtype: the net
     on casts of the float32 master parameters (`_mixed_precision_apply`).
+    mesh: data-parallel, as `make_score_train_step`'s.
     """
-    if mesh is not None:
-        raise NotImplementedError("a device mesh (data-parallel training) is "
-                                  "not ported yet (ROADMAP: Slice P)")
+    dp = _data_parallel(mesh, model)
     device = next(model.parameters()).device
     sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
     net = _mixed_precision_apply(model, compute_dtype)
@@ -289,11 +389,19 @@ def make_clf_train_step(model: nn.Module, sigmas, mesh=None,
         if isinstance(X, list):
             raise ValueError(f"clf training needs a single-tensor data_mode, "
                              f"not {data_mode!r}")
-        loss, _ = clf_loss_with_perturbation(net, X, y, sigmas, generator,
-                                             **draws)
-        return loss
+        if dp is None:
+            loss, _ = clf_loss_with_perturbation(net, X, y, sigmas,
+                                                 generator, **draws)
+            return loss
+        labels, noise = perturb_draws(X, sigmas.shape[0], generator,
+                                      **draws)
+        rows = dp.rows(X.shape[0], X.shape[0])
+        loss, _ = clf_loss_with_perturbation(
+            net, X[rows], y[rows], sigmas, labels=labels[rows],
+            noise=noise[rows])
+        return dp.share(loss, rows.stop - rows.start)
 
-    return _guidance_step(model, loss_fn)
+    return _guidance_step(model, loss_fn, dp)
 
 
 def make_seg_train_step(model: nn.Module, sigmas, perturb: bool = False,
@@ -312,13 +420,32 @@ def make_seg_train_step(model: nn.Module, sigmas, perturb: bool = False,
     290-296). The draws, in order: the collation's (phi or the phase patch),
     then with `perturb` the shared noise label and the noise, per part in
     the Re/Im modes (`labels` and `noise` then take a (Re, Im) pair). Each
-    comes from `generator` on the model's device unless given."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh (data-parallel training) is "
-                                  "not ported yet (ROADMAP: Slice P)")
+    comes from `generator` on the model's device unless given. mesh:
+    data-parallel, as `make_score_train_step`'s; the Dice term's sums span
+    the ranks."""
+    dp = _data_parallel(mesh, model)
     device = next(model.parameters()).device
     sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
     net = _mixed_precision_apply(model, compute_dtype)
+
+    def part_loss(X, y, generator, draws):
+        if dp is None:
+            return seg_loss_with_perturbation(net, X, y, sigmas, generator,
+                                              perturb=perturb, **draws)[0]
+        rows = dp.rows(X.shape[0], X.shape[0])
+        if perturb:
+            # the global batch's draws, this rank's rows of them
+            labels, noise = seg_draws(X, sigmas.shape[0], generator, **draws)
+            X = _perturb(X[rows], sigmas, labels[rows], noise[rows])
+        else:
+            X = X[rows]
+        # dice_ce_loss over the global batch: the cross-entropy's share of
+        # the global mean, the Dice term on the per-class sums of every
+        # rank, counted once over the ranks
+        ce, intersection, denom = dice_ce_terms(net(X), y[rows])
+        dice = dice_term(dp.total(intersection), dp.total(denom))
+        return (0.5 * dp.share(ce, y[rows].numel())
+                + 0.5 * dp.counted_once(dice))
 
     def loss_fn(X, y, generator, draws):
         if if_centering:
@@ -327,17 +454,11 @@ def make_seg_train_step(model: nn.Module, sigmas, perturb: bool = False,
                               phi=draws.pop("phi", None),
                               patch=draws.pop("patch", None))
         if not isinstance(parts, list):
-            loss, _ = seg_loss_with_perturbation(net, parts, y, sigmas,
-                                                 generator, perturb=perturb,
-                                                 **draws)
-            return loss
+            return part_loss(parts, y, generator, draws)
         losses = []
         for i, part in enumerate(parts):
             mine = {k: v[i] for k, v in draws.items() if v is not None}
-            loss, _ = seg_loss_with_perturbation(net, part, y, sigmas,
-                                                 generator, perturb=perturb,
-                                                 **mine)
-            losses.append(loss)
+            losses.append(part_loss(part, y, generator, mine))
         return 0.5 * (losses[0] + losses[1])
 
-    return _guidance_step(model, loss_fn)
+    return _guidance_step(model, loss_fn, dp)

@@ -100,6 +100,15 @@ def _checked(params: Mapping[str, Any], build, what: str
     return state
 
 
+def flax_to_torch_model(params: Mapping[str, Any], build, what: str = "model"
+                        ) -> Dict[str, torch.Tensor]:
+    """State dict for the model `build()` makes (built on the meta device,
+    so building costs nothing) from the JAX package's params tree of numpy
+    arrays, or from any tree shaped like it (an Adam moment), with the
+    layouts above. Raises if a name or shape does not match."""
+    return _checked(params, build, what)
+
+
 def flax_to_torch_ncsnpp(params: Mapping[str, Any], config
                          ) -> Dict[str, torch.Tensor]:
     """State dict for `create_model(config)` from a Flax NCSN++ params tree

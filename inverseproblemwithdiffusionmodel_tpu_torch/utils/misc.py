@@ -8,7 +8,8 @@ Port of inverseproblemwithdiffusionmodel_tpu/utils/misc.py: `collate_batch`,
 helpers/utils.py:314-327), and `expand_like`, `logit_transform`,
 `data_transform`, `inverse_data_scaler`, `normalize`, `denormalize`,
 `normalize_phase`, `compute_angle` (reference: helpers/utils.py:20-36,
-212-226, 276-305, 402-410). The random draws (a global phase per sample, a
+212-226, 276-305, 402-410), and `get_timestamp`, the run directories'
+name. The random draws (a global phase per sample, a
 low-resolution phase patch, the kept seg pixels, the dequantization noise)
 come from a torch.Generator on the batch's device unless they are given:
 tests feed the numbers JAX draws.
@@ -16,6 +17,7 @@ tests feed the numbers JAX draws.
 from __future__ import annotations
 
 import math
+from datetime import datetime
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -36,6 +38,12 @@ def unstack_parts(x: torch.Tensor):
     """Inverse of `stack_parts`: (2B, ...) -> two (B, ...) tensors."""
     pair = x.reshape(-1, 2, *x.shape[1:])
     return pair[:, 0], pair[:, 1]
+
+
+def get_timestamp() -> str:
+    """The local time to the microsecond, e.g. 2026_10_18_20_20_26_123456:
+    the name of a run's artifact directory."""
+    return datetime.now().strftime("%Y_%m_%d_%H_%M_%S_%f")
 
 
 def _rotate(x: torch.Tensor, phase: torch.Tensor) -> List[torch.Tensor]:

@@ -596,7 +596,7 @@ def test_engine_requests_and_shapes(setup):
         device="cpu")
     res8 = q8.reconstruct(s["y"], s["yi"], seed=1)
     assert np.isfinite(res8.x_re).all() and res8.x_re.dtype == np.float32
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="'data' axis"):
         CineReconstructionEngine(s["netS"], sig, model_T=s["netT"],
                                  sigmas_T=SIG_T, mesh=object(), **base)
     tv = CineReconstructionEngine(

@@ -339,7 +339,7 @@ def test_clf_train_step_matches_jax():
     with pytest.raises(ValueError, match="single-tensor"):
         make_clf_train_step(model, get_sigmas(cfg), data_mode="real-imag")(
             state, batches[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'data' axis"):
         make_clf_train_step(model, get_sigmas(cfg), mesh=object())
 
 

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from inverseproblemwithdiffusionmodel_tpu.config import (
     load_config as jax_load_config)
@@ -227,10 +228,11 @@ def test_int8_conv_sums_are_the_exact_integer_sums():
 
 
 def test_int8_conv_outside_the_kernel_geometry():
-    """Stride 2 and rank 3 are not K7's: on the CPU the whole op's plain
-    version runs them (equal to JAX); on any other device int8_conv
-    raises NotImplementedError naming the geometry, and nothing falls
-    back to the plain version."""
+    """Stride 2 and rank 3 are not K7's: int8_conv runs them through the
+    unfold + integer matmul path (equal to JAX on the CPU); on a device
+    other than the CPU or a card the kernels' wrappers refuse them, as
+    kernel_refusal names the geometry, and nothing falls back to the
+    plain version."""
     rs = np.random.RandomState(4)
     x = (rs.randn(2, 8, 6, 6, 6)).astype(np.float32)
     w = (rs.randn(4, 8, 3, 3, 3) * 0.2).astype(np.float32)
@@ -254,16 +256,89 @@ def test_int8_conv_outside_the_kernel_geometry():
     out2 = quant.int8_conv(x2, w2, stride=2, padding=1)
     np.testing.assert_array_equal(bits(out2),
                                   bits(np.moveaxis(np.asarray(ref2), -1, 1)))
-    for kw, what in ((dict(stride=2, padding=1), "stride 2"),
-                     (dict(padding=3, dilation=3), "dilation 3")):
-        with pytest.raises(NotImplementedError, match=what):
-            quant.int8_conv(x2.to("meta"), w2.to("meta"), **kw)
-    with pytest.raises(NotImplementedError, match="kernel size"):
-        quant.int8_conv(x2.to("meta"), torch.zeros(4, 8, 5, 5,
-                                                   device="meta"), padding=2)
-    with pytest.raises(NotImplementedError, match="ndim 3"):
+    qw2 = quant.QuantWeight.of(w2)
+    for kw, what in ((dict(stride=2, dilation=1), "stride 2"),
+                     (dict(stride=1, dilation=3), "dilation 3")):
+        assert quant.kernel_refusal(x2, qw2, ndim=2, **kw) == what
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            quant.int8_conv(x2.to("meta"), w2.to("meta"),
+                            padding=kw["dilation"], **kw)
+    w5 = torch.zeros(4, 8, 5, 5)
+    assert "kernel size" in quant.kernel_refusal(
+        x2, quant.QuantWeight.of(w5), 1, 1, 2)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        quant.int8_conv(x2.to("meta"), w5.to("meta"), padding=2)
+    assert "ndim 3" in quant.kernel_refusal(
+        torch.from_numpy(x), quant.QuantWeight.of(torch.from_numpy(w)), 1,
+        1, 3)
+    with pytest.raises(ValueError, match="cpu or cuda"):
         quant.int8_conv(torch.from_numpy(x).to("meta"),
                         torch.from_numpy(w).to("meta"), padding=1, ndim=3)
+
+
+# Geometries K7 refuses: (ndim, kernel, stride, dilation, padding,
+# pre_pad). The first is the 3-D nets' temporal down convolution's shape
+# (1, 1, 4) at stride 2; the rest stride 2 in 2-D, a rank-3 3^3 kernel,
+# kernel 5 and dilation 3 in 1-D, an even kernel, a strided 1x1, a 5x5
+# with pre_pad.
+REFUSED = [(3, (1, 1, 4), 2, 1, 1, None), (3, (3, 3, 3), 1, 1, 1, None),
+           (2, (3, 3), 2, 1, 1, None), (1, (5,), 1, 3, 6, None),
+           (2, (4, 4), 2, 1, 1, None), (1, (1,), 2, 1, 0, None),
+           (2, (5, 5), 1, 1, 2, (0, 1))]
+
+
+def _refused_inputs(case, dtype, device="cpu"):
+    ndim, k, stride, dil, pad, pre = case
+    gen = torch.Generator().manual_seed(len(k) * 10 + stride)
+    x = (torch.randn((2, 40) + (9,) * ndim, generator=gen) * 3).to(
+        device, dtype)
+    w = torch.randn((24, 40) + k, generator=gen).to(device, dtype)
+    return x, quant.QuantWeight.of(w), dict(stride=stride, dilation=dil,
+                                            padding=pad, ndim=ndim,
+                                            pre_pad=pre)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", REFUSED, ids=[
+    "temporal_down", "rank3_3", "stride2", "k5_dil3", "even_k4",
+    "strided_1x1", "k5_prepad"])
+def test_unfold_path_is_the_plain_op_bit_for_bit(case, dtype, monkeypatch):
+    """int8_conv_unfold (K5, K6, the unfold and the integer matmul; their
+    plain versions here) equals int8_conv_plain bit for bit at every
+    geometry K7 refuses, in one block and a sample at a time, and
+    int8_conv takes it there."""
+    x, qw, kw = _refused_inputs(case, dtype)
+    assert quant.kernel_refusal(x, qw, kw["stride"], kw["dilation"],
+                                kw["ndim"]) is not None
+    want = quant.int8_conv_plain(x, qw, **kw)
+    got = quant.int8_conv_unfold(x, qw, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    np.testing.assert_array_equal(bits(got), bits(want))
+    np.testing.assert_array_equal(bits(quant.int8_conv(x, qw, **kw)),
+                                  bits(want))
+    monkeypatch.setattr(quant, "UNFOLD_BYTES", 1)
+    np.testing.assert_array_equal(bits(quant.int8_conv_unfold(x, qw, **kw)),
+                                  bits(want))
+
+
+def test_integer_matmul_is_exact_and_pads_what_int_mm_needs():
+    """_int_mm_s32's plain form is the exact integer product; the im2col
+    rows of the codes are those of F.unfold."""
+    rs = np.random.RandomState(3)
+    a = torch.from_numpy(rs.randint(-127, 128, (5, 96)).astype(np.int8))
+    b = torch.from_numpy(rs.randint(-127, 128, (96, 3)).astype(np.int8))
+    want = a.long() @ b.long()
+    got = quant._int_mm_s32(a, b)
+    assert got.dtype == torch.int32 and torch.equal(got.long(), want)
+    codes = torch.from_numpy(rs.randint(-127, 128, (2, 6, 7, 32)).astype(
+        np.int8))
+    rows, out = quant._unfold_codes(codes, (3, 3), 2, 1, 1, 1)
+    ref = F.unfold(codes.permute(0, 3, 1, 2).double(), 3, padding=1,
+                   stride=2)                        # (N, Cp k k, L)
+    ref = ref.reshape(2, 32, 9, -1).permute(0, 3, 2, 1).reshape(
+        rows.shape)
+    assert out == (3, 4) and torch.equal(rows.double(), ref)
 
 
 # -- the Conv layer ---------------------------------------------------------
@@ -350,10 +425,34 @@ def int8_readings(module, params, model, x, labels, ladder) -> dict:
                 jax_vs_f32=rel_l2(ref, f32), q=q, b16=b16)
 
 
-@pytest.mark.parametrize("net", ["ncsnv2", "ncsn1d"])
+@pytest.fixture(scope="module")
+def ncsn3d():
+    """The Diffusion3D task's NCSN3DShallow (tests/test_torch_ncsn3d.py's
+    tiny one: ngf 8, 4 x 4 windows of 8 frames) on 4 volumes: every
+    convolution is rank 3, which K7 does not take, so on the card they all
+    run the unfold + integer matmul path."""
+    from inverseproblemwithdiffusionmodel_tpu.models import ncsn3d as jncsn3d
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.ncsn3d import (
+        NCSN3DShallow)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        flax_to_torch_ncsn3d)
+    from tests.test_torch_ncsn3d import OVER as OVER_3D, T, WIN
+    module = jncsn3d.NCSN3DShallow(
+        config=jax_load_config("CINE127_1D", "real-imag", **OVER_3D))
+    params = init_flax(module, jnp.zeros((1, WIN, WIN, T, 1)),
+                       jnp.ones((1,)))
+    cfg = load_config("CINE127_1D", "real-imag", **OVER_3D)
+    model = NCSN3DShallow(cfg)
+    model.load_state_dict(flax_to_torch_ncsn3d(params, cfg))
+    x = np.random.RandomState(11).rand(4, WIN, WIN, T, 1).astype(np.float32)
+    return module, params, model, x
+
+
+@pytest.mark.parametrize("net", ["ncsnv2", "ncsn1d", "ncsn3d"])
 def test_int8_score_fn_holds_to_jax(net, request):
     """The int8 score in both packages, and against the port's float32
-    and bf16 scores."""
+    and bf16 scores; NCSN3D's rank-3 convolutions (K7 refuses them) on the
+    unfold path, bit for bit its plain version."""
     module, params, model, x = request.getfixturevalue(net)
     ladder = np.array([348.0, 2.0, 0.37], np.float32)
     labels = np.arange(x.shape[0]) % 3

@@ -107,16 +107,18 @@ def test_sums_are_exact_past_float32():
 
 def test_other_devices_are_refused_not_run_plain():
     """A tensor on another device than the CPU (meta here) gets no plain
-    fall-back: a geometry K7 does not take raises NotImplementedError
-    naming it, and the kernels' wrappers refuse what they cannot launch."""
+    fall-back: a geometry K7 does not take goes to the unfold path, whose
+    K5 and K6 wrappers refuse the device as K7's path does, and the
+    kernels' wrappers refuse what they cannot launch."""
     x, w, kw = _inputs(CASES[0], torch.float32, device="meta")
-    for extra, what in ((dict(stride=2), "stride 2"),
-                        (dict(dilation=3, padding=3), "dilation 3")):
-        with pytest.raises(NotImplementedError, match=what):
+    for extra in (dict(stride=2), dict(dilation=3, padding=3)):
+        with pytest.raises(ValueError, match="cpu or cuda"):
             quant.int8_conv(x, w, **{**kw, **extra})
-    with pytest.raises(NotImplementedError, match="kernel size"):
+    with pytest.raises(ValueError, match="cpu or cuda"):
         quant.int8_conv(x, torch.zeros(4, 40, 5, 5, device="meta"),
                         padding=2)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        quant.int8_conv(x, w, **kw)
     with pytest.raises(ValueError, match="cpu or cuda"):
         ik.absmax(x)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -181,3 +183,33 @@ def test_cuda_kernels_equal_their_plain_versions():
             assert torch.equal(whole, quant.int8_conv_plain(x, qw, **kw))
     import chip_smoke    # the repository's root, where pytest runs
     chip_smoke.int8_edge_checks(ik, quant)
+
+
+# Geometries K7 refuses, as tests/test_torch_int8.py's REFUSED: (ndim,
+# kernel, stride, dilation, padding, pre_pad).
+REFUSED = [(3, (1, 1, 4), 2, 1, 1, None), (3, (3, 3, 3), 1, 1, 1, None),
+           (2, (3, 3), 2, 1, 1, None), (1, (5,), 1, 3, 6, None),
+           (2, (4, 4), 2, 1, 1, None), (1, (1,), 2, 1, 0, None),
+           (2, (5, 5), 1, 1, 2, (0, 1))]
+
+
+@pytest.mark.gpu
+def test_unfold_path_on_the_card_is_the_plain_op():
+    """On a CUDA tensor the geometries K7 refuses run K5, K6, the unfold
+    and torch._int_mm (ops/quant.int8_conv_unfold), bit for bit
+    int8_conv_plain on the CPU, in float32 and bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K5 and K6 have no CPU mode")
+    for ndim, k, stride, dil, pad, pre in REFUSED:
+        gen = torch.Generator().manual_seed(len(k) * 10 + stride)
+        x = torch.randn((2, 40) + (9,) * ndim, generator=gen) * 3
+        w = torch.randn((24, 40) + k, generator=gen)
+        kw = dict(stride=stride, dilation=dil, padding=pad, ndim=ndim,
+                  pre_pad=pre)
+        for dtype in (torch.float32, torch.bfloat16):
+            qw = quant.QuantWeight.of(w.to(dtype))
+            got = quant.int8_conv(x.to("cuda", dtype), qw.to("cuda"), **kw)
+            want = quant.int8_conv_plain(x.to(dtype), qw, **kw)
+            assert torch.equal(got.cpu().float().view(torch.int32),
+                               want.float().view(torch.int32)), (k, dtype)
+

@@ -162,8 +162,10 @@ def test_geometries_the_maps_cannot_take_are_refused():
     """A pixel box corner outside a rank-4 map's range [-128, 127] (a
     padding past 128, or a dilated kernel's far corner), or an im2col
     offset past 255 with every corner in range, raises
-    NotImplementedError naming the geometry, on the plan and on a non-CPU
-    tensor through int8_conv, before any kernel."""
+    NotImplementedError naming the geometry, on the plan; int8_conv then
+    takes the unfold path instead (ops/quant.int8_conv_unfold), whose K5
+    wrapper refuses a tensor on neither the CPU nor a card, before any
+    kernel."""
     site = ((16, 40, 40), (16, 16, 3, 3), 200, 1, 1)
     with pytest.raises(NotImplementedError, match="N=2 C=16 .*corners"):
         ik.conv_plan(_geometry(2, site))
@@ -185,6 +187,8 @@ def test_geometries_the_maps_cannot_take_are_refused():
     w = torch.ones(16, 16, 3, 3)
     ik.LAUNCHES.clear()
     with pytest.raises(NotImplementedError, match="pixel box corners"):
+        ik.conv_plan(quant.geometry(x, quant.QuantWeight.of(w), 200, 1, 2))
+    with pytest.raises(ValueError, match="cpu or cuda"):
         quant.int8_conv(x, w, padding=200)
     assert not ik.LAUNCHES
     # the asymmetric pre_pad of the nets' resamplers maps

@@ -299,11 +299,11 @@ def test_reconstruction_script_runs_on_the_cpu_when_asked(tmp_path):
 
 def test_unported_checkpoint_loading_raises(tmp_path):
     # --ckpt_dir reads the port's own checkpoints; an orbax checkpoint of
-    # the JAX package (a step directory without the port's state.pt) is not
-    # ported and raises, naming the ROADMAP.
+    # the JAX package (a step directory without the port's state.pt) is
+    # converted first on a host with orbax, and the error names the tool.
     from inverseproblemwithdiffusionmodel_tpu_torch.scripts import pc_sampling
     (tmp_path / "5" / "default").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="convert_orbax_checkpoint.py"):
         pc_sampling.main(["--device", "cpu", "--ckpt_dir", str(tmp_path)])
 
 

@@ -194,7 +194,7 @@ def test_unported_sdes_and_methods_raise():
                           make_sde(cfg), SHAPE, device="cpu")
     assert ode.__qualname__.startswith("get_ode_sampler")
     for kw in ({"predictor": "leapfrog"}, {"corrector": "hmc"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(KeyError, match="unknown"):
             get_pc_sampler(make_sde(cfg), SHAPE, device="cpu", **kw)
     vp = get_continuous_config("vp/cifar10_ddpmpp_continuous")
     assert type(make_sde(vp)).__name__ == "VPSDE"

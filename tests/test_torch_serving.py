@@ -475,7 +475,9 @@ def test_spec_validation(setup):
     assert res.x_re.dtype == np.float32 and np.isfinite(res.x_re).all()
     assert all(m.quant is None for m in eng.model.modules()
                if isinstance(m, layers.Conv))
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # a mesh without a data axis (tests/test_torch_parallel.py runs the
+    # engine on one)
+    with pytest.raises(ValueError, match="'data' axis"):
         ReconstructionEngine(setup["model"], sigmas,
                              spec=EngineSpec(**SPEC), mesh=object(),
                              device="cpu")
@@ -661,16 +663,18 @@ def test_cli_builds_engine(tmp_path):
 @pytest.mark.parametrize("flags,match", [
     (["--workload", "cine", "--dtype", "int8", "--ds_name", "CINE127",
       "--frames", "3", "--override", "data.image_size=16"], None),
-    (["--data_shards", "2"], "parallel"),
+    (["--data_shards", "2"], "exceeds the 1 available"),
     (["--dtype", "int8"], None)], ids=["cine", "data_shards", "int8"])
 def test_cli_refuses_what_is_not_ported(flags, match):
-    """--data_shards (chain sharding) is not ported and raises. --dtype
+    """--data_shards (chain sharding), refused before it was ported, now
+    exits where it asks for more devices than there are (the CPU counts
+    as one; tests/test_torch_parallel.py shards the engines). --dtype
     int8, refused before it was ported, now builds both workloads' engines
     with int8 score nets (tests/test_torch_int8_serving.py holds them to
     JAX), and one request comes back finite."""
     args = serve_recon.parse_args(CLI + flags)
     if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(SystemExit, match=match):
             serve_recon.build_engine(args)
         return
     eng = serve_recon.build_engine(args)
@@ -715,7 +719,7 @@ def test_reload_model_restores_a_port_checkpoint(tmp_path):
     for a, b in zip(fresh.parameters(), trained.parameters()):
         assert torch.equal(a, b)
     (tmp_path / "orbax" / "5" / "default").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="convert_orbax_checkpoint"):
         _common.reload_model(cfg, "Diffusion", str(tmp_path / "orbax"))
 
 

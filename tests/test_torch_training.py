@@ -361,11 +361,12 @@ def test_train_step_routes_fir_gradients_through_the_kernel_functions(
 
 
 def test_train_step_refuses_what_is_not_ported(tiny):
-    # a device mesh is not ported; bf16 is (held to JAX's bf16 step in
+    # a device mesh needs a data axis (tests/test_torch_distributed.py
+    # trains on one); bf16 is ported (held to JAX's bf16 step in
     # tests/test_torch_continuous_bf16.py)
     model = create_model(tiny["cfg"])
     sde = make_sde(tiny["cfg"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'data' axis"):
         make_continuous_score_train_step(model, sde, mesh=object())
     assert callable(make_continuous_score_train_step(
         model, sde, compute_dtype=torch.bfloat16))
@@ -441,8 +442,10 @@ def test_checkpointer_restores_state_and_params(tmp_path, tiny):
 
 
 def test_checkpointer_refuses_orbax_checkpoints(tmp_path):
+    # an orbax step directory is converted first (convert_orbax_checkpoint.py,
+    # tests/test_torch_orbax.py); the port's reader names that tool
     (tmp_path / "3" / "default").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(ValueError, match="orbax"):
         Checkpointer(str(tmp_path)).latest_step()
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         Checkpointer(str(tmp_path / "empty")).restore_params()
