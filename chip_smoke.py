@@ -324,6 +324,37 @@ phases, each printing one line with its own seconds:
    chain-steps/s; TF32 off and cuDNN's algorithms from its heuristics (not
    timed), so that both runs round alike. No K1-K7 launch. The group is
    destroyed at the end.
+21. tp: tensor parallelism over the mesh's model axis on one card, two
+   entries of it (make_mesh(n_data=1, n_model=2)). The deployed ACDC
+   prior's train step (NCSNv2Deepest, 256 px, ngf 128, seed 0; the ACDC
+   config in train_ncsn's default mode, real-valued; Adam at the config's
+   lr and eps) at batch TP_BATCH (the config's 3 raised to 8) for
+   TP_STEPS steps, the same batches and injected labels and noise: the
+   plain step, then the state split by parallel.shard_tp at the default
+   min_size (the convolutions whose weights hold 4,096 elements and an
+   even number of output channels), both float32 with TF32 off
+   (float32_exact): every loss within TP_LOSS_RTOL of the plain one, the
+   EMA after TP_STEPS steps within rtol TP_RTOL, atol TP_ATOL (JAX's test
+   bounds), the parameters within them or no farther past them than a
+   control puts the plain step: the plain step again on a first batch one
+   float32 ulp away (PERF.md §6, PR 22: at this width one ulp moves
+   Adam's update past atol); then the split step in bf16
+   (compute_dtype), its losses finite, the first (the same weights,
+   batch and draws) within BF16_LOSS_REL of the float32 split step's, as
+   train_bf16 gates a bf16 step; the later ones reported. s/step of each (the first step excluded), peak
+   memory, the leaves split and whole, the state's bytes on each entry
+   against the plain state's, and the device ms by CUDA events of a
+   forward's gathers (each split convolution's output slices joined as
+   the split layer joins them). No K1-K7 launch.
+21b. int8_shards: the int8 engine's scale on a mesh, the whole batch's
+   (ops/quant.ScaleGroup): serve_recon --dtype int8 (ACDC_CHAINS chains,
+   PARALLEL_LEVELS levels of one inner step) on two entries of the card
+   against its run without a mesh, TF32 off and cuDNN's heuristics,
+   within rel L2 SHARDED, K5-K7 launched on the two-entry run (its counts
+   join the int8 kernels' launches); and the first forward, the int8 net
+   at batch 32 against its two 16-row shards run on two threads of one
+   ScaleGroup (samplers/ald_pair.run_shards), reported bit for bit or by
+   rel L2.
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -334,7 +365,8 @@ user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
 sense, map_tv, serve, cine, cine_complex, train_ncsn, each train_bf16
 run, each sample_vp run, quickstart_3d, guided, each path of natural, and
-the int8 engines) and read just after it.
+the int8 engines, tp, the two-entry int8 engine) and read just after
+it.
 Each architecture's seeded weights are drawn once a process and
 copied to its later builds (seeded_once: the same values).
 Any failure raises and exits non-zero. Phases 9 to 19 print their numbers
@@ -579,6 +611,10 @@ PARALLEL_LEVELS = 2        # the mesh CLIs' and engines' levels
 SHARDED = 1e-6             # rel L2, a run on two shards vs without a mesh
                            # (tests/test_torch_parallel.py's bound)
 TWO_ENTRY_CHAINS = 8       # chains of the two-entry SENSE and ACDC runs
+TP_BATCH = 8               # the tp phase's train step (the config's 3)
+TP_STEPS = 3
+TP_LOSS_RTOL = 1e-5        # the split step's loss vs the plain step's
+TP_RTOL, TP_ATOL = 1e-3, 1e-5  # parameters and EMA after TP_STEPS: JAX's
 QUANT = "inverseproblemwithdiffusionmodel_tpu/ops/quant.py"
 INT8_REPLACES = {"absmax": f"{QUANT}:93", "quantize_s8": f"{QUANT}:93",
                  "conv_s8s8s32": f"{QUANT}:102"}
@@ -6504,6 +6540,312 @@ def report_parallel(p: dict, t: float) -> None:
         f"{json.dumps(p['engines_two'])} (<= {SHARDED}); no K1-K7 launch")
 
 
+def state_bytes(state, tp) -> list:
+    """Bytes of the train state each model-axis entry holds: a parameter
+    or slice, its optimizer state and its EMA shadow; a whole parameter on
+    entry 0 (the lead), slice j on entry j. One entry for a plain state."""
+    opt = state.optimizer.opt.state
+    ema = state.ema.params
+    n = max([len(ts) for _, split, ts in tp.entries(state.model)
+             if split is not None] + [1])
+    held = [0] * n
+    for name, split, ts in tp.entries(state.model):
+        for j, t in enumerate(ts):
+            key = name if split is None else f"{name}[{j}]"
+            parts = [t, ema[key]] + [v for v in opt.get(t, {}).values()
+                                     if torch.is_tensor(v) and v.ndim]
+            held[j] += sum(v.numel() * v.element_size() for v in parts)
+    return held
+
+
+def tp_phase(fk, fl, ik, device="cuda") -> dict:
+    """Tensor parallelism over the model axis on one card (docstring item
+    21): the deployed ACDC prior's train step, TP_STEPS steps at batch
+    TP_BATCH, plain and split over two entries of the card, float32 with
+    TF32 off, then split in bf16; the same weights, batch and draws."""
+    from inverseproblemwithdiffusionmodel_tpu_torch import parallel
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        get_network)
+    from inverseproblemwithdiffusionmodel_tpu_torch.parallel import tp
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.sigmas import (
+        get_sigmas)
+    from inverseproblemwithdiffusionmodel_tpu_torch.training import (
+        TrainState, get_optimizer, make_score_train_step)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    cfg = load_config("ACDC", "real-valued")    # train_ncsn's default mode
+    net0 = seeded_weights(get_network(cfg), seed=0)
+    size, ch = cfg.data.image_size, cfg.data.channels
+    rs = np.random.RandomState(5)
+    batches = [torch.from_numpy(rs.rand(TP_BATCH, size, size, ch).astype(
+        np.float32)) for _ in range(TP_STEPS)]
+    draws = [dict(labels=torch.from_numpy(rs.randint(
+        0, cfg.model.num_classes, TP_BATCH)).to(device),
+        noise=torch.from_numpy(rs.randn(TP_BATCH, size, size, ch).astype(
+            np.float32)).to(device)) for _ in range(TP_STEPS)]
+    card = torch.device(device)
+    if card.type == "cuda" and card.index is None:
+        card = torch.device("cuda", torch.cuda.current_device())
+    mesh = parallel.make_mesh(n_data=1, n_model=2, devices=[card, card])
+    fk.LAUNCHES.clear()
+    fl.LAUNCHES.clear()
+    ik.LAUNCHES.clear()
+
+    def run(split: bool, compute_dtype=None, feed=batches):
+        state = TrainState.create(copy.deepcopy(net0).to(card),
+                                  get_optimizer(cfg),
+                                  ema_decay=cfg.model.ema_rate)
+        if split:
+            state = parallel.shard_tp(state, mesh)
+        step = make_score_train_step(state.model, get_sigmas(cfg),
+                                     mesh=mesh if split else None, tp=split,
+                                     compute_dtype=compute_dtype)
+        losses, seconds = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for batch, d in zip(feed, draws):
+            torch.cuda.synchronize()
+            t_step = time.perf_counter()
+            state, loss = step(state, batch, **d)
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - t_step)
+        return state, dict(losses=losses, step_s=seconds,
+                           s_per_step=float(np.mean(seconds[1:])),
+                           peak=torch.cuda.max_memory_allocated())
+
+    numbers = {"config": dict(image_size=size, ngf=cfg.model.ngf,
+                              params=sum(p.numel() for p in
+                                         net0.parameters()))}
+    def against_plain(state, record) -> dict:
+        """The losses' rel differences from the plain step's, and how far
+        the parameters and the EMA lie past JAX's rtol (the largest
+        |a - b| - rtol |b|, held to atol)."""
+        worst = dict(params=0.0, ema=0.0)
+        for what, got, ref in (("params", state.params, want),
+                               ("ema", state.eval_params, want_ema)):
+            for name, w in ref.items():
+                g = got[name].detach()
+                excess = ((g - w).abs() - TP_RTOL * w.abs()).max().item()
+                worst[what] = max(worst[what], excess)
+        return dict(loss_rel=[abs(a - b) / abs(b) for a, b in zip(
+            record["losses"], numbers["plain"]["losses"])],
+            max_excess_over_rtol=worst,
+            max_abs=max((state.params[k].detach() - w).abs().max().item()
+                        for k, w in want.items()))
+
+    with float32_exact():
+        plain, numbers["plain"] = run(False)
+        want = {k: v.detach().clone() for k, v in plain.params.items()}
+        want_ema = {k: v.clone() for k, v in plain.eval_params.items()}
+        numbers["plain"]["state_bytes"] = state_bytes(plain, tp)
+        del plain
+        torch.cuda.empty_cache()
+        # the control: the plain step on a first batch one float32 ulp up
+        ulp = [torch.nextafter(batches[0], torch.full_like(batches[0], 2.0))]
+        control, record = run(False, feed=ulp + batches[1:])
+        numbers["ulp_control_vs_plain"] = against_plain(control, record)
+        del control
+        torch.cuda.empty_cache()
+        split, numbers["tp"] = run(True)
+        entries = tp.entries(split.model)
+        numbers["tp"]["state_bytes"] = state_bytes(split, tp)
+        numbers["leaves"] = dict(
+            split=sum(s is not None for _, s, _ in entries),
+            replicated=sum(s is None for _, s, _ in entries))
+        numbers["tp_vs_plain"] = against_plain(split, numbers["tp"])
+        numbers["gathers"] = tp_gather_ms(split, batches[0].to(card), cfg)
+        del split
+        torch.cuda.empty_cache()
+    half, numbers["tp_bf16"] = run(True, torch.bfloat16)
+    del half
+    torch.cuda.empty_cache()
+    numbers["launches"] = {**fk.LAUNCHES, **fl.LAUNCHES, **ik.LAUNCHES}
+    cmp = numbers["tp_vs_plain"]
+    bf16_rel = [abs(a - b) / abs(b) for a, b in zip(
+        numbers["tp_bf16"]["losses"], numbers["tp"]["losses"])]
+    numbers["tp_bf16"]["loss_rel_to_f32"] = bf16_rel
+    # JAX's parameter bound cannot hold at this width in float32: one
+    # float32 ulp of the batch moves the plain step's parameters past it
+    # (PERF.md §6, PR 22). The split step's parameters are held within
+    # atol of JAX's bound or within the control's reach, whichever is
+    # larger; its losses and EMA to JAX's bounds.
+    reach = numbers["ulp_control_vs_plain"]["max_excess_over_rtol"]["params"]
+    excess = cmp["max_excess_over_rtol"]
+    if not (numbers["leaves"]["split"] > 0
+            and max(cmp["loss_rel"]) <= TP_LOSS_RTOL
+            and excess["ema"] <= TP_ATOL
+            and excess["params"] <= max(TP_ATOL, reach)
+            and np.isfinite(numbers["tp"]["losses"]).all()):
+        raise AssertionError(f"the split step vs the plain step: {cmp}; "
+                             f"one ulp of the batch: "
+                             f"{numbers['ulp_control_vs_plain']}")
+    # the bf16 gate of train_bf16: one step from the same weights, batch
+    # and draws (later steps start from states that have parted)
+    if not (np.isfinite(numbers["tp_bf16"]["losses"]).all()
+            and bf16_rel[0] <= BF16_LOSS_REL):
+        raise AssertionError(f"the split bf16 step: losses "
+                             f"{numbers['tp_bf16']['losses']}, rel to f32 "
+                             f"{bf16_rel} (<= {BF16_LOSS_REL})")
+    if any(numbers["launches"].values()):
+        raise AssertionError(f"the tp phase launched {numbers['launches']}")
+    return numbers
+
+
+def tp_gather_ms(state, x: torch.Tensor, cfg) -> dict:
+    """The gathers of one forward of a split state's net on x: each split
+    convolution's output slices, recorded by forward hooks, joined again
+    as Split.forward joins them (torch.cat on the lead, the slices there
+    already on one card); device ms by CUDA events over the net's
+    gathers, and the bytes they write."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.registry import (
+        to_nchw)
+    from inverseproblemwithdiffusionmodel_tpu_torch.parallel import tp
+    shapes, hooks = [], []
+    for _, module in state.model.named_modules():
+        if isinstance(getattr(module, "tp", None), tp.Split) and \
+                module.weight is None:
+            hooks.append(module.register_forward_hook(
+                lambda m, args, out: shapes.append(tuple(out.shape))))
+    sigmas = torch.ones(x.shape[0], device=x.device)
+    with torch.no_grad():
+        state.model(to_nchw(x), sigmas)
+    for h in hooks:
+        h.remove()
+    slices = [[torch.empty((s[0], s[1] // 2) + s[2:], device=x.device)
+               for _ in range(2)] for s in shapes]
+
+    def gathers():
+        for a, b in slices:
+            torch.cat([a, b], 1)
+
+    ms = cuda_ms(gathers, reps=5)
+    written = sum(4 * math.prod(s) for s in shapes)
+    return dict(calls=len(shapes), ms=ms, bytes_written=written,
+                bound_ms=1e3 * 2 * written / HBM_BYTES_PER_S)
+
+
+def int8_two_entries(ik, device="cuda") -> dict:
+    """The int8 scale of the whole batch on a mesh (docstring item 21b):
+    the ACDC int8 engine (serve_recon --dtype int8, ACDC_CHAINS chains,
+    PARALLEL_LEVELS levels of one inner step) on two entries of the card
+    against its run without a mesh, TF32 off and cuDNN's heuristics; and
+    its first forward, the int8 net on the 32-row batch against the same
+    net on two 16-row shards, each on a thread of one ScaleGroup on the
+    one stream, bit for bit. K5-K7 launch counts over the two-entry run."""
+    from unittest import mock
+    from inverseproblemwithdiffusionmodel_tpu_torch.config import load_config
+    from inverseproblemwithdiffusionmodel_tpu_torch.parallel import make_mesh
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald_pair import (
+        run_shards)
+    from inverseproblemwithdiffusionmodel_tpu_torch.scripts import (
+        serve_recon)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_matmul)
+    card = torch.device(device)
+    if card.type == "cuda" and card.index is None:
+        card = torch.device("cuda", torch.cuda.current_device())
+    two = make_mesh(devices=[card, card])
+    cfg = load_config("ACDC", "real-imag")
+    _, _, _, yr, yi = acdc_problem(cfg, device, PARALLEL_LEVELS)
+    ys = tuple(v[:, 0, ..., 0].cpu().numpy() for v in (yr, yi))
+    argv = serve_argv("int8")
+    argv[argv.index("--levels") + 1] = str(PARALLEL_LEVELS)
+    argv[argv.index("--device") + 1] = device
+    argv += ["--num_steps_each", "1", "--no_warmup"]
+
+    @contextlib.contextmanager
+    def exact():
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True,
+                allow_tf32=False), float32_matmul():
+            yield
+
+    runs, numbers = {}, {}
+    for name, mesh in (("plain", None), ("two", two)):
+        t_run = time.perf_counter()
+        with mock.patch.object(serve_recon, "_serving_mesh",
+                               lambda _: mesh), exact():
+            eng = serve_recon.build_engine(serve_recon.parse_args(argv))
+            eng.warmup()
+            ik.LAUNCHES.clear()
+            res = eng.reconstruct(*ys, seed=0)
+            torch.cuda.synchronize()
+            launches = dict(ik.LAUNCHES)
+        runs[name] = dict(x=np.concatenate([res.x_re.ravel(),
+                                            res.x_im.ravel()]),
+                          mesh=eng.stats()["mesh"], launches=launches,
+                          chain_steps_per_s=res.chain_steps_per_s,
+                          wall_s=time.perf_counter() - t_run)
+        if name == "plain":
+            score = eng._score_fns[0]
+        del eng
+        torch.cuda.empty_cache()
+    err = rel_l2(torch.from_numpy(runs["two"]["x"]),
+                 torch.from_numpy(runs["plain"]["x"]))
+    # the first forward: the whole batch against its two shards
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2 * ACDC_CHAINS, cfg.data.image_size,
+                    cfg.data.image_size, 1, generator=gen).to(card)
+    labels = torch.zeros(x.shape[0], dtype=torch.long, device=card)
+    with torch.inference_mode():
+        whole = score(x, labels)
+        out = torch.cat(run_shards(score, list(zip(x.chunk(2),
+                                                   labels.chunk(2))),
+                                   [card, card], torch.inference_mode))
+    numbers.update(
+        chains=ACDC_CHAINS, levels=PARALLEL_LEVELS, steps_each=1,
+        level_end_rel_l2=err, first_forward_equal=torch.equal(out, whole),
+        first_forward_rel_l2=rel_l2(out.float(), whole.float()),
+        launches=runs["two"]["launches"],
+        launches_plain=runs["plain"]["launches"],
+        mesh=runs["two"]["mesh"],
+        chain_steps_per_s={k: v["chain_steps_per_s"] for k, v in
+                           runs.items()},
+        wall_s={k: v["wall_s"] for k, v in runs.items()})
+    if (err > SHARDED or not np.isfinite(runs["two"]["x"]).all()
+            or runs["two"]["mesh"] != {"data": 2, "model": 1}
+            or not all(runs["two"]["launches"].get(t) for t in INT8_TAGS)):
+        raise AssertionError(f"int8 engine on two entries: {numbers}")
+    return numbers
+
+
+def report_tp(p: dict, q: dict, t: float) -> None:
+    tp_, pl = p["tp"], p["plain"]
+    c = p["config"]
+    say("tp", t, f"ACDC NCSNv2Deepest ({c['image_size']} px, ngf "
+        f"{c['ngf']}, {c['params']} params, seed 0) train step "
+        f"at batch {TP_BATCH}, {TP_STEPS} steps, split over two entries of "
+        f"the card ({p['leaves']['split']} leaves split, "
+        f"{p['leaves']['replicated']} whole) vs plain, float32 TF32 off: "
+        f"loss rel {json.dumps(p['tp_vs_plain']['loss_rel'])} (<= "
+        f"{TP_LOSS_RTOL}), parameters and EMA past rtol "
+        f"{TP_RTOL} by at most "
+        f"{json.dumps(p['tp_vs_plain']['max_excess_over_rtol'])} (EMA <= "
+        f"{TP_ATOL}; parameters <= atol or the plain step's on a batch one "
+        f"ulp away: "
+        f"{json.dumps(p['ulp_control_vs_plain']['max_excess_over_rtol'])},"
+        f" loss rel {json.dumps(p['ulp_control_vs_plain']['loss_rel'])}; "
+        f"max |diff| {p['tp_vs_plain']['max_abs']:.3g}); s/step "
+        f"plain {pl['s_per_step']:.4f}, split {tp_['s_per_step']:.4f}, "
+        f"split bf16 {p['tp_bf16']['s_per_step']:.4f} (loss rel to f32 "
+        f"{json.dumps(p['tp_bf16']['loss_rel_to_f32'])}, the first <= "
+        f"{BF16_LOSS_REL}); state bytes by entry plain "
+        f"{pl['state_bytes']}, split {tp_['state_bytes']}; peak plain "
+        f"{pl['peak']}, split {tp_['peak']}; a forward's "
+        f"{p['gathers']['calls']} gathers {p['gathers']['ms']:.3f} ms "
+        f"({p['gathers']['bytes_written']} bytes written); no K1-K7 launch")
+    say("int8_shards", t, f"ACDC int8 engine ({q['chains']} chains, "
+        f"{q['levels']} levels x 1 step) on two entries of the card vs "
+        f"without a mesh: rel L2 {q['level_end_rel_l2']:.3g} (<= "
+        f"{SHARDED}); the first forward on two shards bit for bit "
+        f"{q['first_forward_equal']} (rel L2 "
+        f"{q['first_forward_rel_l2']:.3g});"
+        f" chain-steps/s {json.dumps(q['chain_steps_per_s'])}; launches "
+        f"{json.dumps(q['launches'])}")
+
+
 def seeded_once(seeded_weights):
     """utils/convert.seeded_weights drawing each architecture's weights for
     a seed once per process: a later net with the same modules, parameter
@@ -7182,13 +7524,22 @@ def main() -> None:
     launches["parallel"] = {}
     report_parallel(par, t)
 
+    # 21. tp, 21b. int8_shards ------------------------------------------------
+    t = time.perf_counter()
+    tpn = tp_phase(fk, fl, ik)
+    launches["tp"] = {}
+    q2 = int8_two_entries(ik)
+    launches["int8_shards"] = q2["launches"]
+    report_tp(tpn, q2, t)
+
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "sense": sn,
                       "map_tv": mt, "serve": srv, "cine": cine,
                       "cine_complex": cc, "train_ncsn": tn,
                       "train_bf16": tb, "sample_vp": sv,
                       "quickstart_3d": qs, "guided": gd, "natural": nt,
                       "migrate": mg, "int8": q8, "int8_ncsn3d": q3,
-                      "parallel": par}, default=str), flush=True)
+                      "parallel": par, "tp": tpn, "int8_shards": q2},
+                     default=str), flush=True)
 
     for name, row in nt["ode_kernels"].items():
         summary[name]["err"] = max(summary[name]["err"], row["err"])
@@ -7225,6 +7576,7 @@ def main() -> None:
         by_path = {"int8": q8["launches"][tag]}
         if q3["launches_per_forward"].get(tag):
             by_path["int8_ncsn3d"] = q3["launches_per_forward"][tag]
+        by_path["int8_shards"] = q2["launches"][tag]
         kernels.append({
             "name": f"int8_{tag}", "route": "cuda",
             "source": f"{CSRC}/int8conv.cu", "replaces": INT8_REPLACES[tag],

@@ -68,7 +68,12 @@ class Conv(nn.Module):
     `quant`, None by default, holds the weight quantized by
     ops/quant.enable_int8: the conv then runs ops/quant.int8_conv (the JAX
     Conv under quantized_convs("int8")) and adds the bias after the
-    dequantization, in x's dtype."""
+    dequantization, in x's dtype.
+
+    `tp`, None by default, holds the weight's slices over a mesh's model
+    axis (parallel/tp.Split) where parallel.shard_tp split it; the weight
+    is None then, and the conv is column-parallel. A weight passed in its
+    place (torch.func.functional_call) takes the plain path."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
                  stride: int = 1, padding: Optional[int] = None,
@@ -82,6 +87,7 @@ class Conv(nn.Module):
         self.in_channels, self.out_channels = in_features, features
         self.ndim = ndim
         self.quant = None
+        self.tp = None
         self.weight = nn.Parameter(torch.empty((features, in_features)
                                                + (k,) * ndim))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
@@ -99,10 +105,16 @@ class Conv(nn.Module):
             if self.bias is None:
                 return out
             return out + self.bias.reshape(-1, *[1] * self.ndim)
+        if self.weight is None:
+            return self.tp.forward(x, self._conv, self.bias)
+        return self._conv(x, self.weight, self.bias)
+
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
         if self.pre_pad is not None:
             x = F.pad(x, tuple(self.pre_pad) * self.ndim)
-        return _CONV[self.ndim](x, self.weight, self.bias, self.stride,
-                                self.padding, self.dilation)
+        return _CONV[self.ndim](x, weight, bias, self.stride, self.padding,
+                                self.dilation)
 
 
 def conv1x1(in_features: int, features: int, stride: int = 1,
@@ -127,7 +139,8 @@ class ConvTranspose(nn.Module):
     zero-dilated input with the spatially flipped kernel (*k, I, O);
     torch's conv_transpose weight (I, O, *k) is that kernel transposed,
     unflipped (utils/convert.py). Weight and bias are drawn U(+-1 /
-    sqrt(O prod(k))), torch's default."""
+    sqrt(O prod(k))), torch's default. `tp` as `Conv`'s: the weight's
+    slices along O where parallel.shard_tp split it."""
 
     def __init__(self, in_features: int, features: int, kernel_size,
                  stride, padding, output_padding=0, ndim: int = 2):
@@ -139,6 +152,7 @@ class ConvTranspose(nn.Module):
         self.output_padding = per_axis(output_padding)
         self.in_channels, self.out_channels = in_features, features
         self.ndim = ndim
+        self.tp = None
         self.weight = nn.Parameter(torch.empty((in_features, features) + k))
         self.bias = nn.Parameter(torch.empty(features))
         bound = 1.0 / math.sqrt(features * math.prod(k))
@@ -147,7 +161,13 @@ class ConvTranspose(nn.Module):
                 p.uniform_(-bound, bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _CONV_T[self.ndim](x, self.weight, self.bias, self.stride,
+        if self.weight is None:
+            return self.tp.forward(x, self._conv, self.bias)
+        return self._conv(x, self.weight, self.bias)
+
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+        return _CONV_T[self.ndim](x, weight, bias, self.stride,
                                   self.padding, self.output_padding)
 
 

@@ -42,6 +42,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -308,8 +309,10 @@ def absmax_launch_args(p: AbsmaxPlan) -> Tuple[int, ...]:
 
 # Per device: (its SM count, K5's ticket and partials). The scratch is
 # made zero at the device's first call; the ticket wraps back to zero at
-# each launch's last draw (atomicInc).
+# each launch's last draw (atomicInc). The lock makes one scratch a
+# device where shards on threads of their own make the first calls.
 _ABSMAX_DEVICE = {}
+_ABSMAX_LOCK = threading.Lock()
 
 
 def _absmax_device(index: int) -> Tuple[int, torch.Tensor]:
@@ -317,17 +320,20 @@ def _absmax_device(index: int) -> Tuple[int, torch.Tensor]:
     must not fall inside a CUDA-graph capture (the zero fill would be
     captured with the graph, and replayed). Every K5 call on the device
     shares it (see `absmax`)."""
-    found = _ABSMAX_DEVICE.get(index)
-    if found is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "absmax: the first call on a device must come before any "
-                "CUDA-graph capture (it allocates and zeroes K5's ticket); "
-                "call it once outside the capture")
-        sms = torch.cuda.get_device_properties(index).multi_processor_count
-        found = (sms, torch.zeros(1 + sms * K5_BLOCKS_PER_SM,
-                                  dtype=torch.int32, device=f"cuda:{index}"))
-        _ABSMAX_DEVICE[index] = found
+    with _ABSMAX_LOCK:
+        found = _ABSMAX_DEVICE.get(index)
+        if found is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "absmax: the first call on a device must come before "
+                    "any CUDA-graph capture (it allocates and zeroes K5's "
+                    "ticket); call it once outside the capture")
+            sms = torch.cuda.get_device_properties(
+                index).multi_processor_count
+            found = (sms, torch.zeros(1 + sms * K5_BLOCKS_PER_SM,
+                                      dtype=torch.int32,
+                                      device=f"cuda:{index}"))
+            _ABSMAX_DEVICE[index] = found
     return found
 
 
@@ -348,9 +354,10 @@ def absmax(x: torch.Tensor) -> torch.Tensor:
     draw the last ticket, and amax comes out wrong with no error. The
     ticket wraps to 0 at each launch's last draw (atomicInc), so a ticket
     left over spoils no more than the next call. The port launches it on
-    one stream: each engine, sharded or not, from the one thread on each
-    device's current stream, a CUDA graph's replays in order on the
-    graph's stream."""
+    one stream a device: an engine's shards, each on a thread of its own,
+    on the caller's current stream of their device (samplers/ald_pair.
+    ShardedReconstructor), so two shards on one card take turns on it; a
+    CUDA graph's replays in order on the graph's stream."""
     if x.device.type == "cpu":
         return absmax_plain(x)
     suffix = _check_float("absmax", x)

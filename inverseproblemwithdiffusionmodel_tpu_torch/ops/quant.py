@@ -9,8 +9,10 @@ Port of inverseproblemwithdiffusionmodel_tpu/ops/quant.py:
   (`QuantWeight`), as XLA hoists the JAX form out of the sampler's scan;
 - activations: symmetric per-tensor int8 with a dynamic scale over the
   whole tensor, the batch included (`quantize_per_tensor`): the chains and
-  the Re / Im halves of a request share one scale, so the int8 path never
-  splits a batch;
+  the Re / Im halves of a request share one scale. Where a batch is split
+  over the shards of a mesh, each run on a thread of its own, the shards
+  meet at every int8 convolution and take the scale of the whole batch
+  (`ScaleGroup`), as JAX's max over a sharded array does;
 - the sum in int32, dequantized by the product of the two scales to x's
   dtype (`int8_conv`).
 
@@ -38,8 +40,10 @@ round has none.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -61,6 +65,61 @@ def quantize_per_tensor(x: torch.Tensor) -> Tuple[torch.Tensor,
     scale = ik.scale_of(x32.abs().amax())
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+class ScaleGroup:
+    """The n shards of one batch, each run on a thread of its own, that
+    quantize every activation with one scale: JAX's scale of the whole
+    batch, the max over the shards of absmax(x_shard). At each int8
+    convolution every shard puts its K5 result in its slot and waits for
+    the others (a barrier); each then takes the max of all the slots,
+    copied to its device: the scale stays on the devices, never read back
+    to the host. A NaN in any shard makes the scale NaN, as jnp.max over
+    the sharded array does. The slots come in two rows taken in turn, so
+    that a shard through one meeting may fill its slot for the next while
+    the others still read. The shards must make the same int8 calls in
+    the same order (one net, equal blocks of the batch)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self._barrier = threading.Barrier(n)
+        self._slots = [[None] * n, [None] * n]
+
+    @contextlib.contextmanager
+    def member(self, index: int):
+        """The calling thread's int8 convolutions as shard `index`'s. A
+        failure breaks the barrier, so that the other shards raise rather
+        than wait."""
+        _SHARD.member = (self, index, [0])
+        try:
+            yield
+        except BaseException:
+            self._barrier.abort()
+            raise
+        finally:
+            _SHARD.member = None
+
+    def _meet(self, index: int, call: int, amax: torch.Tensor
+              ) -> torch.Tensor:
+        slots = self._slots[call % 2]
+        slots[index] = amax
+        self._barrier.wait()
+        return torch.stack([s.to(amax.device) for s in slots]).amax(0)
+
+
+_SHARD = threading.local()
+
+
+def batch_absmax(x: torch.Tensor) -> torch.Tensor:
+    """K5's max |x| (`int8_kernels.absmax`), over the whole batch where the
+    calling thread runs a shard of it (`ScaleGroup.member`)."""
+    amax = ik.absmax(x)
+    member = getattr(_SHARD, "member", None)
+    if member is None:
+        return amax
+    group, index, calls = member
+    calls[0] += 1
+    return group._meet(index, calls[0], amax)
 
 
 def quantize_per_channel(w: torch.Tensor) -> Tuple[torch.Tensor,
@@ -201,7 +260,8 @@ def int8_conv_unfold(x: torch.Tensor, qw: QuantWeight, *, stride: int = 1,
                      padding: int = 0, dilation: int = 1, ndim: int = 2,
                      pre_pad=None) -> torch.Tensor:
     """The int8 convolution at any rank, stride, dilation and kernel: the
-    activation quantized by K5 and K6 (their plain versions on the CPU)
+    activation quantized by K5 (`batch_absmax`) and K6 (their plain
+    versions on the CPU)
     into channels-last codes, unfolded (`_unfold_codes`, a block of
     samples at a time, at most UNFOLD_BYTES of rows), multiplied with the
     weight codes in int32 (`_int_mm_s32`), dequantized by scale *
@@ -215,7 +275,7 @@ def int8_conv_unfold(x: torch.Tensor, qw: QuantWeight, *, stride: int = 1,
                          f"weight {C}")
     cp = -(-C // ik.CHANNEL_ALIGN) * ik.CHANNEL_ALIGN
     x = x.contiguous()
-    codes, sx = ik.quantize_s8(x, ik.absmax(x), cp)
+    codes, sx = ik.quantize_s8(x, batch_absmax(x), cp)
     lo, hi = _pads(padding, pre_pad)
     k = tuple(qw.codes.shape[2:])
     w = F.pad(qw.codes.movedim(1, -1), (0, cp - C)).reshape(O, -1)
@@ -261,7 +321,7 @@ def int8_conv(x: torch.Tensor, weight: Union[torch.Tensor, QuantWeight], *,
     if qw.kernel.device != x.device:
         qw = qw.to(x.device)
     x = x.contiguous()
-    codes, sx = ik.quantize_s8(x, ik.absmax(x), g.Cp)
+    codes, sx = ik.quantize_s8(x, batch_absmax(x), g.Cp)
     codes = codes.reshape(g.N, g.H, g.W, g.Cp)     # 1-D: height 1
     out = ik.conv_s8s8s32(codes, sx, qw.kernel, qw.scale, g, x.dtype)
     return out.reshape(out.shape[:2] + out.shape[4 - ndim:])

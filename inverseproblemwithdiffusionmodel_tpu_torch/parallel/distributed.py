@@ -95,15 +95,21 @@ def local_batch_slice(global_batch: int) -> slice:
 
 
 def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Sum each tensor over the group in place, in one collective over a
-    flat copy of them all (one bucket); with no group, nothing to do.
-    The tensors share one device and dtype. Returns them."""
+    """Sum each tensor over the group in place, in one collective per
+    device over a flat copy of its tensors (one bucket a device, in the
+    order the devices first appear: every rank must hold the same layout,
+    as each rank's row of a tensor-parallel mesh does); with no group,
+    nothing to do. The tensors share one dtype. Returns them."""
     tensors = list(tensors)
     if not tensors or not (dist.is_available() and dist.is_initialized()):
         return tensors
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
-    parts = flat.split([t.numel() for t in tensors])
-    torch._foreach_copy_(tensors, [p.view_as(t) for p, t in
-                                   zip(parts, tensors)])
+    buckets = {}
+    for t in tensors:
+        buckets.setdefault(t.device, []).append(t)
+    for bucket in buckets.values():
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat)
+        parts = flat.split([t.numel() for t in bucket])
+        torch._foreach_copy_(bucket, [p.view_as(t) for p, t in
+                                      zip(parts, bucket)])
     return tensors

@@ -19,6 +19,7 @@ consecutive rows), so a shard's rows are one block.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -77,25 +78,28 @@ def scatter_noise(noise: Noise, devices: Sequence[torch.device]
     of shape (r, ...) is rows [d r, (d + 1) r) of the stream's k-th draw of
     shape (n r, ...), on devices[d]. Each whole draw is made once and held
     until every shard has taken its rows, so shards should advance in step
-    (a level at a time)."""
+    (a level at a time), from threads of their own or from one."""
     n = len(devices)
     held = {}
     taken = [0] * n
+    lock = threading.Lock()
 
     def view(d: int) -> Noise:
         def draw(shape):
-            k = taken[d]
-            taken[d] += 1
             r, rest = int(shape[0]), tuple(shape[1:])
-            if k not in held:
-                held[k] = [noise((r * n,) + rest), n]
-            entry = held[k]
-            if tuple(entry[0].shape) != (r * n,) + rest:
-                raise ValueError(f"shard {d} draws {tuple(shape)}, the "
-                                 f"others drew {tuple(entry[0].shape)} in all")
-            entry[1] -= 1
-            if entry[1] == 0:
-                del held[k]
+            with lock:
+                k = taken[d]
+                taken[d] += 1
+                if k not in held:
+                    held[k] = [noise((r * n,) + rest), n]
+                entry = held[k]
+                if tuple(entry[0].shape) != (r * n,) + rest:
+                    raise ValueError(
+                        f"shard {d} draws {tuple(shape)}, the others drew "
+                        f"{tuple(entry[0].shape)} in all")
+                entry[1] -= 1
+                if entry[1] == 0:
+                    del held[k]
             return entry[0][d * r:(d + 1) * r].to(devices[d])
         return draw
 
@@ -105,17 +109,19 @@ def scatter_noise(noise: Noise, devices: Sequence[torch.device]
 def scatter_shift(shift: Shift, n: int) -> List[Shift]:
     """One view of the roll stream `shift` for each of n shards: every
     shard sees the same k-th roll, as the unsharded chain does (one roll
-    per temporal step for all chains)."""
+    per temporal step for all chains), from any thread."""
     drawn = []
     taken = [0] * n
+    lock = threading.Lock()
 
     def view(d: int) -> Shift:
         def draw(win: int):
-            k = taken[d]
-            taken[d] += 1
-            if k == len(drawn):
-                drawn.append(tuple(shift(win)))
-            return drawn[k]
+            with lock:
+                k = taken[d]
+                taken[d] += 1
+                if k == len(drawn):
+                    drawn.append(tuple(shift(win)))
+                return drawn[k]
         return draw
 
     return [view(d) for d in range(n)]

@@ -13,8 +13,10 @@ step (samplers/ald_pair.ShardedReconstructor, under the serving engines
 and the scripts' --use_mesh) or that the ranks of a process group take
 (training/train.py).
 
-Tensor parallelism over the `model` axis (`tp_sharding`, `shard_tp`) is
-not ported yet: it raises (ROADMAP, Queue 1 item 4).
+Tensor parallelism over the `model` axis: `tp_sharding` is JAX's rule
+for one leaf, `shard_tp` places a TrainState by it (parallel/tp.py). A
+process drives its row of the mesh (`model_row`): the model axis's
+entries, from one thread; the data axis is the process group's ranks.
 """
 from __future__ import annotations
 
@@ -26,9 +28,6 @@ import torch
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-
-_TP = ("tensor parallelism over the mesh's model axis is not ported yet "
-       "(ROADMAP, Queue 1 item 4: tensor parallelism)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,12 +129,73 @@ def replicate(tree: Any, mesh: Mesh) -> Any:
     return _tree_map(lambda a: sh.place(torch.as_tensor(a)), tree)
 
 
-def tp_sharding(mesh: Mesh, leaf, min_size: int = 4096):
-    raise NotImplementedError(_TP)
+@dataclasses.dataclass(frozen=True)
+class TPSharding:
+    """Where a leaf goes on a mesh's model axis: `axis` split into one
+    equal slice per model-axis entry of this process's row, or whole
+    (axis None, replicated)."""
+    mesh: Mesh
+    axis: Optional[int]
+
+    def place(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The leaf on each entry of the row: its slices, or copies."""
+        row = model_row(self.mesh)
+        if self.axis is None:
+            return [x.to(d) for d in row]
+        return [c.to(d) for c, d in zip(x.chunk(len(row), self.axis), row)]
+
+
+def model_row(mesh: Mesh) -> List[torch.device]:
+    """The devices of the mesh's model axis that this process drives: the
+    row of its rank in the process group (row 0 without a group), or the
+    one row of a mesh that has one (each process's mesh its own)."""
+    rank = 0
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized():
+        rank = torch.distributed.get_rank()
+    n_data = mesh.devices.shape[0]
+    if n_data == 1:
+        return list(mesh.devices[0])
+    if rank >= n_data:
+        raise ValueError(f"rank {rank} has no row in a mesh of {n_data} "
+                         "rows: its data axis must be 1 or span the ranks")
+    return list(mesh.devices[rank])
+
+
+def tp_sharding(mesh: Mesh, leaf, min_size: int = 4096, axis: int = 0
+                ) -> TPSharding:
+    """JAX's tensor-parallel rule for one parameter or optimizer leaf: a
+    leaf of ndim >= 2 with at least `min_size` elements whose output-
+    channel axis divides by the model axis is split along that axis;
+    everything else (biases, norm scales, scalars) is replicated. JAX's
+    output axis is the last of its Flax layout; `axis` names it in the
+    leaf's: 0 for a layers.Conv weight (O, I, *k) and an nn.Linear weight
+    (out, in), the default; 1 for a layers.ConvTranspose weight (I, O,
+    *k); -1 for a leaf in the Flax layout (parallel/tp.output_axis). The
+    size test is the leaf's, which both layouts share, so the port splits
+    the leaves JAX shards."""
+    n_model = mesh.shape[MODEL_AXIS]
+    shape = tuple(getattr(leaf, "shape", ()))
+    if (n_model > 1 and len(shape) >= 2 and int(np.prod(shape)) >= min_size
+            and shape[axis] % n_model == 0):
+        return TPSharding(mesh, axis % len(shape))
+    return TPSharding(mesh, None)
 
 
 def shard_tp(tree, mesh: Mesh, min_size: int = 4096):
-    raise NotImplementedError(_TP)
+    """Place a TrainState tensor-parallel over the mesh's model axis, in
+    place (parallel/tp.shard_state): every leaf `tp_sharding` splits, and
+    its Adam moments, EMA shadow and accumulators, as one slice on each
+    entry of this process's row; the rest whole on the row's first entry.
+    Returns the state. Any other tree (a tensor, or a dict / list / tuple
+    of them, conv and dense weights in the port's layout) comes back with
+    each tensor a list, its `TPSharding.place` on the row."""
+    from ..training.state import TrainState
+    if isinstance(tree, TrainState):
+        from .tp import shard_state
+        return shard_state(tree, mesh, min_size)
+    return _tree_map(lambda a: tp_sharding(mesh, a, min_size).place(
+        torch.as_tensor(a)), tree)
 
 
 def pad_to_multiple(x, multiple: int, axis: int = 0):

@@ -30,9 +30,11 @@ torch.no_grad, since its gradient needs autograd.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
-from typing import Callable, Optional, Tuple, Union
+import threading
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -42,6 +44,7 @@ from .sigmas import get_lh_weights
 from ..models.registry import make_score_fn, make_seg_fn
 from ..operators.finite_diff import FiniteDiff
 from ..operators.pair import PairL2Penalty, cg_shards
+from ..ops.quant import ScaleGroup
 from ..parallel.ensemble import scatter_noise, scatter_shift
 from ..utils.device import (Noise, Shift, gaussian_noise,
                             random_shift, resolve_device)
@@ -568,20 +571,82 @@ def _prox_shards(shards, proxes, xs, ys, c: int):
             for (fr, fi), (xr, xi) in zip(solved, xs)]
 
 
+def _callers_streams(devices: Sequence[torch.device]) -> List:
+    """This thread's current stream on each CUDA device of `devices`."""
+    cards = dict.fromkeys(d for d in devices if d.type == "cuda")
+    return [torch.cuda.current_stream(d) for d in cards]
+
+
+@contextlib.contextmanager
+def _on_streams(streams: Sequence, device: torch.device):
+    """Make `streams` (one per CUDA device) the calling thread's current
+    ones, and `device` its current device where it is a card."""
+    with contextlib.ExitStack() as stack:
+        for stream in streams:
+            stack.enter_context(torch.cuda.stream(stream))
+        if device.type == "cuda":
+            stack.enter_context(torch.cuda.device(device))
+        yield
+
+
+def run_shards(fn: Callable, args: Sequence[tuple],
+               devices: Sequence[torch.device],
+               grad_mode: Callable = contextlib.nullcontext) -> list:
+    """[fn(*args[d]) for each shard d], shard d on devices[d]. One shard
+    runs in the calling thread. Several run each on a thread of its own,
+    in one ops/quant.ScaleGroup (their int8 convolutions take the scale
+    of the whole batch), under grad_mode() and on the caller's current
+    streams, and are joined before it returns. A failure on one shard
+    breaks the group's barrier, and the first failure is raised once
+    every thread has ended."""
+    if len(args) == 1:
+        return [fn(*args[0])]
+    group = ScaleGroup(len(args))
+    streams = _callers_streams(devices)
+    out, errors = [None] * len(args), []
+
+    def run(d: int):
+        try:
+            with _on_streams(streams, devices[d]), grad_mode(), \
+                    group.member(d):
+                out[d] = fn(*args[d])
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(d,))
+               for d in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        broken = threading.BrokenBarrierError
+        raise next((e for e in errors if not isinstance(e, broken)),
+                   errors[0])
+    return out
+
+
 class ShardedReconstructor:
     """`recon(yr, yi, seed=0, noise=None, shift=None) -> (xr, xi)`: the
     level loop of stepped reconstructors (pair or 2D+time), one for each
     data-axis device of a mesh, each over an equal block of the chains,
-    all driven by the one host thread: every inner step runs the Langevin
-    update on each device in turn, then the proximal of all of them
-    (`_prox_shards`). One shard is a stepped reconstructor's own call. The
-    noise is drawn for the whole ensemble and each shard takes its rows
-    (parallel/ensemble.scatter_noise), the cine rolls likewise, so the
-    result is the unsharded chain's: bit for bit on one shard, and up to
-    the order of the CG's sums over several. The chains divide evenly
-    over the shards (the engines check it; parallel.run_sharded_ensemble
-    pads them). The output, and each snapshot's state, is gathered on the
-    first shard's device."""
+    advanced in step: every inner step runs the Langevin update of every
+    shard, then the proximal of all of them (`_prox_shards`). One shard is
+    a stepped reconstructor's own call, in the calling thread. On several,
+    each shard's Langevin update (and the final denoising) runs on a
+    thread of its own, on the caller's CUDA streams, and the threads are
+    joined before the proximal (`run_shards`): the shards' nets meet at
+    every int8 convolution to take the scale of the whole ensemble
+    (ops/quant.ScaleGroup), as JAX's one program does. Two shards on one
+    card launch on its one current stream, so their K5 calls, which share
+    the card's scratch, run one after the other. The noise is drawn for
+    the whole ensemble and each shard takes its rows (parallel/ensemble.
+    scatter_noise), the cine rolls likewise, so the result is the
+    unsharded chain's: bit for bit on one shard, and up to the order of
+    the CG's sums over several. The chains divide evenly over the shards
+    (the engines check it; parallel.run_sharded_ensemble pads them). The
+    output, and each snapshot's state, is gathered on the first shard's
+    device."""
 
     def __init__(self, shards):
         self.shards = list(shards)
@@ -592,6 +657,15 @@ class ShardedReconstructor:
             return xs[0]
         return tuple(torch.cat([x[k].to(self.device) for x in xs])
                      for k in (0, 1))
+
+    def _each(self, fn: Callable, *per_shard: Sequence) -> list:
+        """[fn(shard, *args) for each shard], args the shard's entries of
+        `per_shard` (`run_shards`, under the lead's grad mode)."""
+        shards = self.shards
+        args = [(s,) + a for s, a in zip(
+            shards, zip(*per_shard) if per_shard else [()] * len(shards))]
+        return run_shards(fn, args, [s.device for s in shards],
+                          shards[0].grad_mode)
 
     def __call__(self, yr: torch.Tensor, yi: torch.Tensor, seed: int = 0,
                  noise: Optional[Noise] = None,
@@ -615,13 +689,13 @@ class ShardedReconstructor:
             proxes = [p for _, _, p in starts]
             for c in range(lead.num_levels):
                 for _ in range(cfg.n_steps_each):
-                    xs = [s.langevin_step(xr, xi, c, nz, sh) for
-                          s, (xr, xi), nz, sh in
-                          zip(shards, xs, noises, shifts)]
+                    xs = self._each(
+                        lambda s, x, nz, sh: s.langevin_step(*x, c, nz, sh),
+                        xs, noises, shifts)
                     xs = _prox_shards(shards, proxes, xs, ys, c)
                 if (lead.snapshot_fn is not None and cfg.snapshot_every > 0
                         and c % cfg.snapshot_every == 0):
                     lead.snapshot_fn(c, lead.level_sigma(c),
                                      *self._gather(xs))
-            xs = [s.finish(*x) for s, x in zip(shards, xs)]
+            xs = self._each(lambda s, x: s.finish(*x), xs)
         return self._gather(xs)

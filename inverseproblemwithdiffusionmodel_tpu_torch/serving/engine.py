@@ -29,14 +29,14 @@ serving/engine.py.
   results; the port has only the loop).
 - `mesh` (parallel/mesh.py) splits the chains evenly over its data
   axis: each device holds a replica of the nets and runs its block of
-  chains, all driven level by level from the one thread that serves the
-  request (samplers/ald_pair.ShardedReconstructor; no extra threads or
-  streams, so K5's per-device call state is never shared by two calls
-  at once). The chains' noise is the unsharded engine's, so the result
-  is too (bit for bit on a mesh of one device; the CG proximal's sums in
-  another order on several). One difference from the JAX engine: int8's
-  per-tensor activation scale spans a shard's chains, not the whole
-  batch.
+  chains, all advanced level by level (samplers/ald_pair.
+  ShardedReconstructor: each shard's Langevin step on a thread of its
+  own, on the serving thread's streams, so two shards on one card launch
+  K5 on its one stream in turn). The chains' noise is the unsharded
+  engine's, so the result is too (bit for bit on a mesh of one device;
+  the CG proximal's sums in another order on several). int8's
+  per-tensor activation scale spans the whole batch, as JAX's does: the
+  shards meet at every int8 convolution (ops/quant.ScaleGroup).
 - Requests are serialized behind a lock: one engine is one mesh's (or
   one device's) worth of work.
 

@@ -94,16 +94,10 @@ class Checkpointer:
     def restore(self, state: TrainState, step: Optional[int] = None
                 ) -> TrainState:
         """Load the checkpoint (the latest by default) into `state`'s model,
-        optimizer and EMA, in place; returns `state`."""
+        optimizer and EMA, in place (`TrainState.load_state_dict`: a
+        tensor-parallel state cuts it into its slices); returns `state`."""
         raw, _ = self._load(step)
-        state.model.load_state_dict(raw["params"], strict=True)
-        state.optimizer.load_state_dict(raw["opt_state"])
-        if state.ema is not None:
-            if raw["ema"] is None:
-                raise ValueError("the checkpoint tracks no EMA, the state "
-                                 "does")
-            state.ema.load_state_dict(raw["ema"])
-        state.step = int(raw["step"])
+        state.load_state_dict(raw)
         return state
 
     def restore_params(self, step: Optional[int] = None,
@@ -122,12 +116,7 @@ class Checkpointer:
 
     def save(self, step: int, state: TrainState,
              val_loss: Optional[float] = None) -> None:
-        payload = {
-            "step": int(state.step),
-            "params": {k: v.detach() for k, v in state.params.items()},
-            "ema": state.ema.state_dict() if state.ema is not None else None,
-            "opt_state": state.optimizer.state_dict(),
-        }
+        payload = state.state_dict()
         tmp = os.path.join(self.directory, f".{step}.{os.getpid()}.tmp")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)

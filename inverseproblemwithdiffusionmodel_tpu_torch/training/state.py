@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..models.ema import EmaState
+from ..parallel import tp
 
 
 class Optimizer:
@@ -34,22 +35,37 @@ class Optimizer:
                  grad_clip: float = 0.0):
         self.params = params
         self.grad_clip = grad_clip
+        self.make_opt = make_opt
         self.opt = make_opt(params)
+
+    def rebind(self, params: List[torch.Tensor]) -> "Optimizer":
+        """A fresh optimizer of the same kind over `params`."""
+        return Optimizer(params, self.make_opt, self.grad_clip)
 
     @torch.no_grad()
     def clip_(self) -> None:
         """Scale the gradients in place by optax's clip_by_global_norm:
         g * max_norm / norm where norm >= max_norm, else g (no epsilon in
-        the norm, unlike torch.nn.utils.clip_grad_norm_). Runs on the
-        device, without reading the norm back to the host."""
+        the norm, unlike torch.nn.utils.clip_grad_norm_). The norm is the
+        whole gradient's, over every device the parameters lie on (the
+        slices of a tensor-parallel state): the per-tensor norms are
+        gathered on the first gradient's device. Runs on the devices,
+        without reading the norm back to the host."""
         grads = [p.grad for p in self.params if p.grad is not None]
         if not grads:
             return
+        lead = grads[0].device
         norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+            [n.to(lead) for n in torch._foreach_norm(grads)]))
         keep = norm < self.grad_clip
-        torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
-        torch._foreach_mul_(grads, torch.where(keep, 1.0, self.grad_clip))
+        div = torch.where(keep, 1.0, norm)
+        mul = torch.where(keep, 1.0, self.grad_clip)
+        by_device = {}
+        for g in grads:
+            by_device.setdefault(g.device, []).append(g)
+        for device, gs in by_device.items():
+            torch._foreach_div_(gs, div.to(device))
+            torch._foreach_mul_(gs, mul.to(device))
 
     def step(self) -> None:
         if self.grad_clip > 0:
@@ -124,6 +140,10 @@ class MultiSteps:
         """The factory of `tx` (get_optimizer's) with accumulation."""
         return lambda params: cls(tx(params), every_k_schedule)
 
+    def rebind(self, params: List[torch.Tensor]) -> "MultiSteps":
+        """A fresh MultiSteps of the same kind over `params`."""
+        return MultiSteps(self.inner.rebind(params), self.every_k)
+
     @torch.no_grad()
     def step(self) -> None:
         n = self.mini_step
@@ -164,7 +184,14 @@ class TrainState:
     `params` are the model's parameters by state-dict name (live tensors);
     `eval_params` the EMA shadow if one is tracked, else `params`: what
     sampling should use (the reference reloads EMA weights,
-    helpers/load_model.py:181-184).
+    helpers/load_model.py:181-184). `state_dict` is a checkpoint's
+    payload, {step, params, ema, opt_state}.
+
+    `tp` is set by parallel.shard_tp, which splits the model's largest
+    weights over a mesh's model axis (parallel/tp.py): the optimizer and
+    the EMA then hold one tensor per slice, and `params`, `eval_params`
+    and `state_dict` gather the slices (copies, not live tensors) into the
+    plain names and layout.
     """
 
     def __init__(self, step: int, model: nn.Module, optimizer,
@@ -173,6 +200,7 @@ class TrainState:
         self.model = model
         self.optimizer = optimizer
         self.ema = ema
+        self.tp = False
 
     @classmethod
     def create(cls, model: nn.Module,
@@ -187,11 +215,47 @@ class TrainState:
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
+        if self.tp:
+            return tp.gather(self.model)
         return dict(self.model.named_parameters())
 
     @property
     def eval_params(self) -> Dict[str, torch.Tensor]:
-        return self.ema.params if self.ema is not None else self.params
+        if self.ema is None:
+            return self.params
+        return tp.gather(self.model, self.ema.params) if self.tp \
+            else self.ema.params
+
+    def state_dict(self) -> dict:
+        """{step, params, ema, opt_state}: the parameters detached, the EMA
+        and the optimizer's state_dicts, all in the plain layout."""
+        ema = self.ema.state_dict() if self.ema is not None else None
+        opt = self.optimizer.state_dict()
+        if self.tp:
+            opt = tp.plain_opt_state(self.model, opt)
+            if ema is not None:
+                ema = {**ema, "params": tp.gather(self.model, ema["params"])}
+        return {"step": int(self.step),
+                "params": {k: v.detach() for k, v in self.params.items()},
+                "ema": ema, "opt_state": opt}
+
+    def load_state_dict(self, raw: dict) -> None:
+        """Load a `state_dict` payload in place (a tensor-parallel state
+        cuts it into its slices)."""
+        ema, opt = raw["ema"], raw["opt_state"]
+        if self.ema is not None and ema is None:
+            raise ValueError("the checkpoint tracks no EMA, the state does")
+        if self.tp:
+            tp.load_params(self.model, raw["params"])
+            opt = tp.split_opt_state(self.model, opt)
+            if ema is not None:
+                ema = {**ema, "params": tp.cut(self.model, ema["params"])}
+        else:
+            self.model.load_state_dict(raw["params"], strict=True)
+        self.optimizer.load_state_dict(opt)
+        if self.ema is not None:
+            self.ema.load_state_dict(ema)
+        self.step = int(raw["step"])
 
     def apply_gradients(self) -> "TrainState":
         """One optimizer step on the gradients in each parameter's .grad
@@ -202,6 +266,7 @@ class TrainState:
         ema_rate ** k)."""
         self.optimizer.step()
         if self.ema is not None:
-            self.ema.update(self.params)
+            self.ema.update(tp.slice_dict(self.model) if self.tp
+                            else self.params)
         self.step += 1
         return self

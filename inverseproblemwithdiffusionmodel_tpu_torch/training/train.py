@@ -18,8 +18,15 @@ runs the net on its rows (`local_batch_slice`); its loss is its share of
 the global loss, whose normaliser (the batch, or the foreground weight's
 sum under `filter_th`) is summed over the ranks; the gradients are summed
 over the ranks before the optimizer step, so every rank takes the step
-the one-process step takes. Tensor parallelism (`tp=True`) is not ported
-yet (ROADMAP, Queue 1 item 4).
+the one-process step takes.
+
+With `tp=True` (`make_score_train_step`) the state is tensor-parallel
+over the mesh's model axis (parallel.shard_tp, parallel/tp.py): each
+split convolution computes its slice of output channels on its entry of
+this process's mesh row and the slices are gathered before the next
+layer, all from this thread. The data axis composes with it unchanged:
+each rank holds the same layout, its loss is counted once (not once per
+model entry), and the gradients are summed over the ranks slice by slice.
 """
 from __future__ import annotations
 
@@ -40,29 +47,29 @@ from ..losses.guidance import (_perturb, clf_loss_with_perturbation,
 from ..models.registry import takes_nchw, to_nchw
 from ..parallel.distributed import all_reduce_sum_, local_batch_slice
 from ..parallel.mesh import DATA_AXIS
+from ..parallel.tp import tensors as model_tensors
 from ..sde.sampling import get_score_fn
 from ..utils.misc import collate_batch, filter_batch, stack_parts
 
 TrainStep = Callable[..., Tuple[TrainState, torch.Tensor]]
 
-_TP = ("tensor-parallel training (tp=True) is not ported yet (ROADMAP, "
-       "Queue 1 item 4: tensor parallelism)")
-
 
 class DataParallel:
     """The data axis of a train step: the ranks of the default process
     group, or a world of 1 without one. At construction every rank takes
-    rank 0's parameters (as DistributedDataParallel does)."""
+    rank 0's parameters (as DistributedDataParallel does). The parameters
+    are the model's tensors (parallel/tp.tensors: a split weight's slices
+    where parallel.shard_tp split it), read at each step."""
 
     def __init__(self, mesh, model: nn.Module):
         if DATA_AXIS not in getattr(mesh, "axis_names", ()):
             raise ValueError(f"a train step's mesh needs a {DATA_AXIS!r} "
                              f"axis, got {mesh!r}")
-        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.model = model
         self.group = dist.is_available() and dist.is_initialized()
         if self.group:
             with torch.no_grad():
-                for p in model.parameters():
+                for p in model_tensors(model):
                     dist.broadcast(p.data, src=0)
 
     def rows(self, batch: int, rows: int) -> slice:
@@ -96,7 +103,8 @@ class DataParallel:
     def finish(self, loss: torch.Tensor) -> torch.Tensor:
         """Sum the gradients and the loss over the ranks; returns the
         global loss."""
-        grads = [p.grad for p in self.params if p.grad is not None]
+        grads = [p.grad for p in model_tensors(self.model, trainable=True)
+                 if p.grad is not None]
         all_reduce_sum_(grads)
         return all_reduce_sum_([loss.detach().clone()])[0]
 
@@ -178,11 +186,20 @@ def _discrete_loss(score_fn, batch, sigmas, data_mode, anneal_power,
     return dp.share(loss, x.shape[0] if weight is None else weight.sum())
 
 
-def _device_of(model: nn.Module, state: TrainState) -> torch.device:
+def _device_of(model: nn.Module, state: TrainState,
+               tp_step: Optional[bool] = False) -> torch.device:
+    """The device of the model's first tensor (the lead entry of a
+    tensor-parallel model), after checking that `state` holds `model`,
+    tensor-parallel where the step is (either, with tp_step None)."""
     if state.model is not model:
         raise ValueError("the state holds another model than this step "
                          "trains")
-    return next(model.parameters()).device
+    if tp_step is not None and state.tp != tp_step:
+        raise ValueError(
+            "a tp=True step takes a state placed by parallel.shard_tp"
+            if tp_step else "a tensor-parallel state (parallel.shard_tp) "
+            "needs make_score_train_step(..., mesh=mesh, tp=True)")
+    return model_tensors(model)[0].device
 
 
 def make_score_train_step(
@@ -215,11 +232,15 @@ def make_score_train_step(
     mesh: data-parallel over the process group's ranks (the module's
     docstring); the batch divides by the ranks, and the returned loss is
     the global one.
+    tp: the state is tensor-parallel over the mesh's model axis: place it
+    with parallel.shard_tp(state, mesh) first. Every other option
+    composes with it; the clipping norm spans every slice.
     """
-    if tp:
-        raise NotImplementedError(_TP)
+    if tp and mesh is None:
+        raise ValueError("tp=True needs the mesh whose model axis "
+                         "parallel.shard_tp split the state over")
     dp = _data_parallel(mesh, model)
-    device = next(model.parameters()).device
+    device = model_tensors(model)[0].device
     sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
     net = _mixed_precision_apply(model, compute_dtype)
 
@@ -233,7 +254,7 @@ def make_score_train_step(
 
     def step(state: TrainState, batch, generator: Optional[
             torch.Generator] = None, *, phi=None, labels=None, noise=None):
-        batch = torch.as_tensor(batch, device=_device_of(model, state))
+        batch = torch.as_tensor(batch, device=_device_of(model, state, tp))
         model.train()
         state.optimizer.zero_grad()
         loss = _discrete_loss(score_fn, batch, sigmas, data_mode,
@@ -254,14 +275,16 @@ def make_score_eval_step(model: nn.Module, sigmas,
     them in around validation, helpers/pl_callbacks.py:87-108), float32,
     no foreground weight. Returns `step(state, batch, generator=None, *,
     phi=None, labels=None, noise=None) -> loss`, with the draws of the
-    train step."""
-    device = next(model.parameters()).device
+    train step. A tensor-parallel state (parallel.shard_tp) hands it its
+    parameters gathered, and the net runs them unsplit."""
+    device = model_tensors(model)[0].device
     sigmas = torch.as_tensor(sigmas, dtype=torch.float32, device=device)
 
     @torch.no_grad()
     def step(state: TrainState, batch, generator: Optional[
             torch.Generator] = None, *, phi=None, labels=None, noise=None):
-        batch = torch.as_tensor(batch, device=_device_of(model, state))
+        batch = torch.as_tensor(batch, device=_device_of(model, state,
+                                                         None))
         params = state.eval_params if use_ema else state.params
 
         def score_fn(x, labels):

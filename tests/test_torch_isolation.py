@@ -32,6 +32,7 @@ def _sources():
     yield os.path.join(ROOT, "int8_ab.py")
     yield os.path.join(ROOT, "guided_gate.py")
     yield os.path.join(ROOT, "smoke_profile.py")
+    yield os.path.join(ROOT, "tp_gate.py")
 
 
 def _imported_roots(path):

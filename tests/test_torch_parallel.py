@@ -110,10 +110,12 @@ def test_make_mesh_shapes_and_errors_are_jax():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             parallel.make_mesh()
-    from inverseproblemwithdiffusionmodel_tpu_torch.parallel import mesh as m
-    for fn in (m.tp_sharding, m.shard_tp):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            fn(mesh, torch.zeros(4, 4))
+    # tensor parallelism is ported (tests/test_torch_tp.py): on a mesh of
+    # one model entry, as in JAX, the rule splits nothing
+    assert jparallel.tp_sharding(jmesh, jnp.zeros((4, 4)), 1).spec == ()
+    assert parallel.tp_sharding(mesh, torch.zeros(4, 4), 1).axis is None
+    assert [t.shape for t in parallel.shard_tp(torch.zeros(4, 4), mesh)] \
+        == [(4, 4)]
 
 
 @pytest.mark.parametrize("n,multiple,axis", [(5, 4, 0), (5, 5, 0),

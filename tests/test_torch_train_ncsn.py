@@ -510,9 +510,10 @@ def test_eval_step_uses_the_ema_and_matches_jax(acdc):
 def test_discrete_steps_refuse_what_is_not_ported(acdc):
     state = port_state(acdc)
     sig = get_sigmas(acdc["cfg"])
-    # tensor parallelism is not ported; a mesh needs a data axis
+    # tensor parallelism needs the mesh its state was split over
+    # (tests/test_torch_tp.py); a mesh needs a data axis
     # (tests/test_torch_distributed.py trains on one)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         make_score_train_step(state.model, sig, tp=True)
     with pytest.raises(ValueError, match="'data' axis"):
         make_score_train_step(state.model, sig, mesh=object())
