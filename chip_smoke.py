@@ -195,7 +195,7 @@ phases, each printing one line with its own seconds:
 16. quickstart_3d: the README quick start's pair and the 3-D temporal
    prior at full width (weights from seed 0), torch's defaults:
    scripts.unconditioned_sampling.main --ds_name MNIST (NCSNv2Deepest 32
-   px, ngf 128; 8 samples, the ladder cut from 232 to 29 levels x 5 steps,
+   px, ngf 128; 8 samples, the ladder cut from 232 to 15 levels x 5 steps,
    and the denoise): the sampler's network evaluations/s (the set-up
    apart), wall s, peak, finite (8, 32, 32, 1) samples;
    scripts.train_ncsn.main --ds_name MNIST (synthetic digits, the config's
@@ -210,7 +210,7 @@ phases, each printing one line with its own seconds:
    and rate, a profile's top kernels and operators; UNET1D (its own width)
    card vs CPU at batch 2 and one forward at that tube batch;
    unconditioned_sampling --task_name Diffusion3D and Diffusion1D on
-   CINE127_1D, 8 samples, the 400-level ladder cut to 20;
+   CINE127_1D, 8 samples, the 400-level ladder cut to 10;
    cine_SENSE_real_img_2d_time.main --task_name_T Diffusion3D and the same
    call with Diffusion1D at the cine_complex geometry (4 chains, 2 of 1000
    levels, CG 8 on cuFFT): chain-steps/s of the sampler alone, their
@@ -247,7 +247,7 @@ phases, each printing one line with its own seconds:
    continuous step on discrete labels at the leaf's batch 128 (5 steps)
    and one step card vs CPU; train_ncsn.main --ds_name CELEBA (64 px, the
    config's batch 128, 5 steps on the synthetic stand-in);
-   unconditioned_sampling.main --ds_name CIFAR10 (8 chains, 20 of 232
+   unconditioned_sampling.main --ds_name CIFAR10 (8 chains, 10 of 232
    levels). Only the ODE path launches K1 / K2 (checked).
 18b. migrate (migrate_phase, after guided): the migration path at full
    width, weights from seeds, files in a temporary directory outside the
@@ -355,6 +355,38 @@ phases, each printing one line with its own seconds:
    at batch 32 against its two 16-row shards run on two threads of one
    ScaleGroup (samplers/ald_pair.run_shards), reported bit for bit or by
    rel L2.
+22. experiments: the repository's experiments (the port's examples/)
+   from the committed priors, read by the port's own reader
+   (utils/flax_msgpack; no flax, no conversion step). The priors:
+   artifacts/cine_priors_128/{spatial,temporal}.msgpack and
+   artifacts/continuous_demo/ncsnpp.msgpack, each file's bytes and leaf
+   count, and each net's card forward against its CPU forward at batch 2
+   in the float32 mode (EXP_FWD_REL); a missing file fails the phase.
+   The cine matrix (examples/cine_2d_time_quality_matrix.main) at the
+   priors' geometry: 128 px, T = 24, win 8, ngf 64 / 128, 8 chains,
+   --random_shift, R = 8, the tuned ALD [10, 3e5], bf16 nets, both test
+   videos, the ladder cut to EXP_CINE_LEVELS of 232 levels (never the
+   width): its ZF row equal to the JAX package's to 4 decimals (NRMSE
+   0.3001, SSIM 0.4602, and 0.4870 with bf16 windows, as the JAX run on a
+   TPU computed it), its ALD row finite and below ZF's NRMSE; no K1-K7
+   launch. Beside it, one inner step of that ALD (the first level with a
+   temporal step, one chain, float32) on the card against the CPU, fed
+   the same host noise and shifts (EXP_FIRST_STEP_REL). The continuous demo (examples/continuous_ncsnpp_demo.main) on
+   the committed NCSN++ (nf 32, 32 px): K1 and K2 at every shape one
+   forward at its EXP_CONT_SAMPLES samples gives them, against their
+   plain versions (KERNEL_RTOL, float32 mode), timed; then PC sampling at
+   EXP_CONT_SCALES of its 500 scales and ODE sampling, each twice: finite
+   samples, and K1 / K2 launches equal to the per-forward count times the
+   score evaluations (a counting wrapper).
+
+   In an exported tree (git archive, which drops everything under
+   artifacts/ by .gitattributes' export-ignore, leaving at most the empty
+   directory: the tree the GPU machine receives)
+   the priors' place is taken by seeded nets written and read back by the
+   port's writer and reader; the ALD row is then held finite, and its
+   first step card against CPU, but not below ZF. A tree that has
+   artifacts/ and lacks any of the three priors fails. `python3 chip_smoke.py --experiments` runs
+   the build and this phase alone from a tree that carries artifacts/.
 
 Every comparison with a plain or CPU version runs in the port's float32
 mode (utils/precision.float32_exact: TF32 off for cuDNN and matmul, cuDNN
@@ -365,7 +397,8 @@ user's run does: cuDNN convolutions in TF32. Launch counts are cleared just
 before each path (sample, train, sample_ckpt, the K4 op, ncsnv2, recon,
 sense, map_tv, serve, cine, cine_complex, train_ncsn, each train_bf16
 run, each sample_vp run, quickstart_3d, guided, each path of natural, and
-the int8 engines, tp, the two-entry int8 engine) and read just after
+the int8 engines, tp, the two-entry int8 engine, the cine matrix and the
+continuous demo) and read just after
 it.
 Each architecture's seeded weights are drawn once a process and
 copied to its later builds (seeded_once: the same values).
@@ -482,12 +515,14 @@ CINE_MODE_LEVELS = 2       # the tv, none and tv-only runs
 CINE_MAP_ITERS = 20        # cine_SENSE_real_img_2d_time_MAP: of the 200
 # The README quick start (MNIST) and the 3-D temporal prior
 QS_SAMPLES = 8             # unconditioned_sampling's chains (the net's batch)
-QS_MNIST_LEVELS = 29       # of the MNIST ladder's 232 (whole before the
+QS_MNIST_LEVELS = 15       # of the MNIST ladder's 232 (whole before the
                            # natural phase, then 58 before the migrate
-                           # phase; cut to keep the smoke within its time)
+                           # phase, 29 before the experiments phase; cut
+                           # to keep the smoke within its time)
 QS_TRAIN_STEPS = 5         # train_ncsn --ds_name MNIST at the config's 128
 QS_3D_TRAIN_STEPS = 5      # train_ncsn Diffusion3D at the config's batch 90
-QS_3D_LEVELS = 20          # unconditioned 1-D / 3-D runs: of the 400 levels
+QS_3D_LEVELS = 10          # unconditioned 1-D / 3-D runs: of the 400 levels
+                           # (20 before the experiments phase)
 QS_CHAINS = 4              # the cine CLIs: as the cine_complex phase
 # The cine CLIs with Diffusion3D and Diffusion1D: 2 of the 1000 levels (1
 # with a temporal step), cut to keep the smoke within its time (the 3-D
@@ -585,7 +620,8 @@ NATURAL_V1_STEPS_EACH = 10       # ALD steps a level: of the leaf's 100, cut
 NATURAL_V1_STEPS = 5             # training.fit at the leaf's batch 128
 NATURAL_TRAIN_STEPS = 5          # train_ncsn --ds_name CELEBA at 128
 NATURAL_UNCOND_SAMPLES = 8
-NATURAL_UNCOND_LEVELS = 20       # of CIFAR10's 232
+NATURAL_UNCOND_LEVELS = 10       # of CIFAR10's 232 (20 before the
+                                 # experiments phase)
 # The int8 serving mode (ops/quant.py; K5-K7 of ops/csrc/int8conv.cu)
 INT8_VS_F32 = 0.15         # int8 score vs float32: the JAX test's bound
                            # (tests/test_quant.py); also card vs CPU in
@@ -615,6 +651,21 @@ TP_BATCH = 8               # the tp phase's train step (the config's 3)
 TP_STEPS = 3
 TP_LOSS_RTOL = 1e-5        # the split step's loss vs the plain step's
 TP_RTOL, TP_ATOL = 1e-3, 1e-5  # parameters and EMA after TP_STEPS: JAX's
+EXP_PRIORS = {
+    "cine_spatial": "artifacts/cine_priors_128/spatial.msgpack",
+    "cine_temporal": "artifacts/cine_priors_128/temporal.msgpack",
+    "continuous_ncsnpp": "artifacts/continuous_demo/ncsnpp.msgpack",
+}
+EXP_FWD_REL = 1e-4         # a prior's card forward vs its CPU forward
+EXP_CINE_LEVELS = 28       # of the priors' 232-level ladder: the fewest
+                           # whose stability ratio (samplers/sigmas.
+                           # check_ladder_stability) is >= 1 (1.01; 24 gave
+                           # 0.87, 16 levels 0.58 and diverged to 7.4635)
+EXP_FIRST_STEP_REL = 1e-4  # the cine ALD's first step, card vs CPU in
+                           # float32 (one chain, video 0)
+EXP_CINE_ZF = {"nrmse": 0.3001, "ssim": 0.4602, "ssim_bf16_window": 0.487}
+EXP_CONT_SCALES = 50       # PC scales, of the demo's 500
+EXP_CONT_SAMPLES = 16      # the demo's samples
 QUANT = "inverseproblemwithdiffusionmodel_tpu/ops/quant.py"
 INT8_REPLACES = {"absmax": f"{QUANT}:93", "quantize_s8": f"{QUANT}:93",
                  "conv_s8s8s32": f"{QUANT}:102"}
@@ -6846,6 +6897,299 @@ def report_tp(p: dict, q: dict, t: float) -> None:
         f"{json.dumps(q['launches'])}")
 
 
+def exported_without_priors(root: str) -> bool:
+    """True where `root` is an export of the repository (git archive, the
+    tree the GPU machine receives) that dropped everything under
+    artifacts/ by the `artifacts/** export-ignore` of .gitattributes,
+    which keeps exported trees small: artifacts/ is absent or an empty
+    directory. A checkout, or a copy of the working tree, carries the
+    priors, and one that lacks any of them fails."""
+    attrs = os.path.join(root, ".gitattributes")
+    art = os.path.join(root, "artifacts")
+    return (os.path.isfile(attrs)
+            and "artifacts/** export-ignore" in open(attrs).read()
+            and not (os.path.isdir(art) and os.listdir(art)))
+
+
+def prior_forwards(tmp: str, device="cuda") -> tuple:
+    """The priors through the port's reader: each file's bytes and leaf
+    count, and each net's forward at batch 2 on the card against the CPU
+    in the float32 mode (the CPU sides on a thread). The committed files
+    where the tree carries them; in an export that dropped artifacts/,
+    seeded nets written to `tmp` by the port's writer in their place (a
+    missing file otherwise fails). Returns (readings, the NCSN++ demo's
+    config, {name: path read})."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.examples import (
+        _common as common, continuous_ncsnpp_demo as demo)
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.ncsn1d import (
+        NCSN1D)
+    from inverseproblemwithdiffusionmodel_tpu_torch.models.ncsnv2 import (
+        NCSNv2)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils import (
+        artifacts, flax_msgpack)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
+        seeded_weights)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    root = os.path.dirname(os.path.abspath(__file__))
+    seeded = exported_without_priors(root)
+    dargs = demo.parse_args(["--device", str(device)])
+    data = demo.make_data(dargs.data, dargs.n_train, dargs.size, dargs.seed)
+    cfg, _, ncsnpp, _ = demo.build(dargs, data)
+    gen = torch.Generator().manual_seed(23)
+    nets = {
+        "cine_spatial": (NCSNv2(common.ncsn_config(1, 128, 64)),
+                         torch.rand(2, 1, 128, 128, generator=gen)),
+        "cine_temporal": (NCSN1D(common.ncsn_config(64, 24, 128)),
+                          torch.rand(2, 64, 24, generator=gen)),
+        "continuous_ncsnpp": (ncsnpp, torch.rand(2, 32, 32, 1,
+                                                 generator=gen))}
+    cond = torch.tensor([3.0, 0.2])
+    out, paths = {}, {}
+    for seed, (name, rel) in enumerate(EXP_PRIORS.items()):
+        model, x = nets[name]
+        path = os.path.join(root, rel)
+        if seeded:
+            path = os.path.join(tmp, "priors", os.path.basename(
+                os.path.dirname(rel)), os.path.basename(rel))
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            artifacts.save_prior(seeded_weights(model, seed), path)
+        elif not os.path.isfile(path):
+            raise AssertionError(f"missing prior {rel}: this tree must "
+                                 "carry artifacts/")
+        paths[name] = path
+        t_read = time.perf_counter()
+        tree = flax_msgpack.read(path)
+        read_s = time.perf_counter() - t_read
+        model.load_state_dict(artifacts.state_dict_from_tree(tree, model))
+        model.eval()
+
+        def cpu_forward(model=model, x=x):
+            with torch.inference_mode():
+                return model(x, cond)
+
+        cpu = Background(cpu_forward)
+        out[name] = dict(source="seeded (export without artifacts/)"
+                         if seeded else rel, bytes=os.path.getsize(path),
+                         leaves=flax_msgpack.count_leaves(tree),
+                         read_s=read_s, params=sum(
+                             p.numel() for p in model.parameters()))
+        card_model = copy.deepcopy(model).to(device)
+        with torch.inference_mode(), float32_exact():
+            card = card_model(x.to(device), cond.to(device)).cpu()
+        out[name]["rel_l2"] = rel_l2(card, cpu.result())
+        del card_model
+        if not out[name]["rel_l2"] <= EXP_FWD_REL:
+            raise AssertionError(f"{name}: card vs CPU forward rel L2 "
+                                 f"{out[name]['rel_l2']} > {EXP_FWD_REL}")
+    return out, cfg, paths
+
+
+def cine_first_step(argv: list, paths: dict, device) -> Background:
+    """One inner step (spatial, temporal and proximal) of the cine
+    matrix's ALD, at the first level with a temporal step, from the
+    chain's start A^H y, video 0, one chain, in float32 on `device` and on
+    the CPU (a thread of its own; the spatial net on 48 frames is 3.8e12
+    operations there): the same measurement, ladders and priors as the
+    matrix run of `argv`, the noise drawn on the host from one seed and
+    the shifts from another, the full ladder's step sizes. Returns
+    `finish()`, which joins the CPU side and gives the card's rel L2
+    against it."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.examples import (
+        _common as common, cine_2d_time_quality_matrix as matrix)
+    from inverseproblemwithdiffusionmodel_tpu_torch.operators.pair import (
+        PairL2Penalty, PairSENSE)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald import (
+        ALDConfig)
+    from inverseproblemwithdiffusionmodel_tpu_torch.samplers.ald_pair import (
+        make_stepped_2d_time_pair_reconstructor)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils import artifacts
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.device import (
+        random_shift)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    args = matrix.parse_args(argv)
+    S, T, R = args.size, args.T, args.Rs[0]
+    frames, tubes, test_vids = matrix.make_data(args)
+    sigmas_S, sigmas_T = matrix.ladders(args, frames, tubes)
+    _, xr_true, xi_true = matrix.truth_pair(args, test_vids)
+    maps = common.sens_maps(S, 4, args.seed)
+    op = PairSENSE(mask=matrix.r_mask(args, R),
+                   sens_re=torch.as_tensor(maps[..., None],
+                                           dtype=torch.float32),
+                   sens_im=torch.zeros((4, S, S, 1)))
+    yr, yi = op(xr_true[0].reshape(T, S, S, 1),
+                xi_true[0].reshape(T, S, S, 1))
+
+    def level0(dev):
+        model_S, model_T = matrix.build_nets(args)
+        artifacts.load_prior(paths["cine_spatial"], model_S)
+        artifacts.load_prior(paths["cine_temporal"], model_T)
+        recon = make_stepped_2d_time_pair_reconstructor(
+            model_S, model_T, sigmas_S, sigmas_T, op,
+            PairL2Penalty.with_normal_kernel(op, num_iters=4),
+            ALDConfig(n_steps_each=1, step_lr=args.step_lr),
+            lr_scaled=args.lr_scaleds[0], lamda_T=args.ald_lamdas[0],
+            if_random_shift=args.random_shift, win_size=args.win,
+            num_frames=T, device=dev)
+        gen = torch.Generator().manual_seed(31)
+        noise = lambda shape: torch.randn(tuple(shape), generator=gen).to(dev)
+        shift = random_shift(37)
+        y = (yr.to(dev), yi.to(dev))
+        level = int(np.argmax(recon.sigmas_T_host > 0))
+        if not recon.sigmas_T_host[level] > 0:
+            raise AssertionError("the cine ladder has no temporal step")
+        with torch.inference_mode():
+            xr, xi, prox = recon.start(*y)
+            xr, xi = recon.level_step(prox, xr, xi, *y, level, noise, shift)
+        return torch.stack([xr, xi]).cpu()
+
+    cpu = Background(level0, torch.device("cpu"))
+    with float32_exact():
+        card = level0(torch.device(device))
+    return lambda: rel_l2(card, cpu.result())
+
+
+def experiments_phase(fk, fl, device="cuda") -> dict:
+    """The experiments on the committed priors (docstring, phase 22)."""
+    from inverseproblemwithdiffusionmodel_tpu_torch.examples import (
+        cine_2d_time_quality_matrix as matrix, continuous_ncsnpp_demo as demo)
+    from inverseproblemwithdiffusionmodel_tpu_torch.utils.precision import (
+        float32_exact)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_experiments_")
+    try:
+        t = time.perf_counter()
+        out["priors"], cfg, paths = prior_forwards(tmp, device)
+        out["priors_s"] = time.perf_counter() - t
+        committed = not out["priors"]["cine_spatial"]["source"].startswith(
+            "seeded")
+        # -- the cine matrix at the priors' geometry, the ladder cut ------
+        t = time.perf_counter()
+        argv = [
+            "--size", "128", "--T", "24", "--win", "8", "--ngf_s", "64",
+            "--ngf_t", "128", "--n_train", "60", "--levels",
+            str(EXP_CINE_LEVELS), "--levels_t", "120", "--n_steps_each",
+            "5", "--step_lr", "6.2e-6", "--lr_scaleds", "3e5",
+            "--ald_lamdas", "10", "--filter_t", "0.02", "--tube_shift_aug",
+            "3", "--random_shift", "--chains", "8", "--Rs", "8", "--only",
+            "ALD", "--prior_dir", os.path.dirname(paths["cine_spatial"]),
+            "--out", os.path.join(tmp, "cine"), "--device", str(device)]
+        first = cine_first_step(argv, paths, device)
+        fk.LAUNCHES.clear()
+        fl.LAUNCHES.clear()
+        res = matrix.main(argv)
+        torch.cuda.synchronize()
+        no_kernel_launches(fk, fl, "the cine matrix")
+        row = res["R_8"]
+        zf, ald = row["ZF"], row["ALD"]
+        if {k: zf[k] for k in EXP_CINE_ZF} != EXP_CINE_ZF:
+            raise AssertionError(f"cine ZF row {zf}, the JAX package's "
+                                 f"{EXP_CINE_ZF}")
+        first_rel = first()
+        if not first_rel <= EXP_FIRST_STEP_REL:
+            raise AssertionError(f"cine ALD's first step, card vs CPU rel "
+                                 f"L2 {first_rel} > {EXP_FIRST_STEP_REL}")
+        # a trained prior must beat ZF; seeded weights must run as the CPU
+        if not (np.isfinite([ald["nrmse"], ald["ssim"]]).all()
+                and (ald["nrmse"] < zf["nrmse"] or not committed)):
+            raise AssertionError(f"cine ALD row {ald} (ZF {zf})")
+        out["cine"] = dict(row=row, first_step_rel_l2=first_rel,
+                           wall_s=time.perf_counter() - t)
+
+        # -- the continuous demo on the committed NCSN++ ------------------
+        t = time.perf_counter()
+        rows = {}
+        with float32_exact():
+            for name, C, R in fir_shapes(cfg):
+                rows.setdefault(name, []).append(kernel_numbers(
+                    name, C, R, tuple(cfg.model.fir_kernel), fk,
+                    torch.Generator().manual_seed(29), EXP_CONT_SAMPLES))
+        out["kernels"] = summarize(
+            rows, f"one demo NCSN++ forward at batch {EXP_CONT_SAMPLES}")
+        fwd, _ = fir_counts(cfg)
+        evals, samples = [0], []
+        real_score, real_sample = demo.get_score_fn, demo.sample
+
+        def score_counted(*args, **kwargs):
+            score = real_score(*args, **kwargs)
+
+            def counted(x, tt):
+                evals[0] += 1
+                return score(x, tt)
+            return counted
+
+        def sample_kept(*args, **kwargs):
+            got = real_sample(*args, **kwargs)
+            samples.extend(got[1:])
+            return got
+
+        demo.get_score_fn, demo.sample = score_counted, sample_kept
+        try:
+            fk.LAUNCHES.clear()
+            fl.LAUNCHES.clear()
+            t_run = time.perf_counter()
+            cres = demo.main([
+                "--prior_path", paths["continuous_ncsnpp"], "--num_scales",
+                str(EXP_CONT_SCALES), "--samples", str(EXP_CONT_SAMPLES),
+                "--out", os.path.join(tmp, "cont"), "--device",
+                str(device)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            launches = dict(fk.LAUNCHES)
+        finally:
+            demo.get_score_fn, demo.sample = real_score, real_sample
+        expect = {name: n * evals[0] for name, n in fwd.items()}
+        shape = (EXP_CONT_SAMPLES, 32, 32, 1)
+        if len(samples) != 2 or any(
+                tuple(x.shape) != shape or not torch.isfinite(x).all()
+                for x in samples):
+            raise AssertionError("continuous demo samples "
+                                 f"{[tuple(x.shape) for x in samples]}")
+        if launches != expect or sum(fl.LAUNCHES.values()):
+            raise AssertionError(f"the continuous demo launched {launches}, "
+                                 f"expected {expect}")
+        pc_evals = 2 * EXP_CONT_SCALES * (cfg.sampling.n_steps_each + 1)
+        out["committed_priors"] = committed
+        out["continuous"] = dict(
+            results=cres, evals=evals[0], pc_evals=pc_evals,
+            ode_evals=evals[0] - pc_evals, launches=launches, wall_s=wall,
+            kernels_s=t_run - t)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def report_experiments(ex: dict, t: float) -> None:
+    for name, r in ex["priors"].items():
+        print(f"    {name}: {r['source']} {r['bytes']} bytes, "
+              f"{r['leaves']} leaves, read in {r['read_s']:.3f} s by the "
+              f"port's reader, {r['params']} params; card vs CPU forward "
+              f"(batch 2, float32 mode) rel L2 {r['rel_l2']:.3g}",
+              flush=True)
+    row, c = ex["cine"]["row"], ex["continuous"]
+    print(f"    cine matrix R = 8: " + json.dumps(row) +
+          f" ({ex['cine']['wall_s']:.2f} s); the ALD's first step with a "
+          f"temporal step (one chain, float32) card vs CPU rel L2 "
+          f"{ex['cine']['first_step_rel_l2']:.3g}", flush=True)
+    print(f"    continuous demo: {json.dumps(c['results'])}; "
+          f"{c['evals']} score evaluations ({c['pc_evals']} PC, "
+          f"{c['ode_evals']} ODE), launches {c['launches']}", flush=True)
+    which = ("the committed priors" if ex["committed_priors"] else
+             "seeded priors in the committed files' place (this exported "
+             "tree drops artifacts/)")
+    say("experiments", t, f"{which} read by the port (no flax), card vs "
+        f"CPU forwards <= {EXP_FWD_REL}; the cine matrix at "
+        f"128 px, T = 24, 8 chains, R = 8, {EXP_CINE_LEVELS} of 232 levels: "
+        f"ZF {row['ZF']['nrmse']:.4f} / {row['ZF']['ssim']:.4f} "
+        f"(bf16 windows {row['ZF']['ssim_bf16_window']:.4f}; the JAX "
+        f"package's {EXP_CINE_ZF}), ALD {row['ALD']['nrmse']:.4f} / "
+        f"{row['ALD']['ssim']:.4f}, its first step card vs CPU <= "
+        f"{EXP_FIRST_STEP_REL}; the continuous demo at "
+        f"{EXP_CONT_SCALES} PC scales and the ODE, K1 / K2 "
+        f"{c['launches']}")
+
+
 def seeded_once(seeded_weights):
     """utils/convert.seeded_weights drawing each architecture's weights for
     a seed once per process: a later net with the same modules, parameter
@@ -7532,17 +7876,25 @@ def main() -> None:
     launches["int8_shards"] = q2["launches"]
     report_tp(tpn, q2, t)
 
+    # 22. experiments ---------------------------------------------------------
+    t = time.perf_counter()
+    ex = experiments_phase(fk, fl)
+    launches["experiments"] = ex["continuous"]["launches"]
+    report_experiments(ex, t)
+
     print(json.dumps({"ncsnv2": nv2, "recon": rec, "sense": sn,
                       "map_tv": mt, "serve": srv, "cine": cine,
                       "cine_complex": cc, "train_ncsn": tn,
                       "train_bf16": tb, "sample_vp": sv,
                       "quickstart_3d": qs, "guided": gd, "natural": nt,
                       "migrate": mg, "int8": q8, "int8_ncsn3d": q3,
-                      "parallel": par, "tp": tpn, "int8_shards": q2},
+                      "parallel": par, "tp": tpn, "int8_shards": q2,
+                      "experiments": ex},
                      default=str), flush=True)
 
-    for name, row in nt["ode_kernels"].items():
-        summary[name]["err"] = max(summary[name]["err"], row["err"])
+    for table in (nt["ode_kernels"], ex["kernels"]):
+        for name, row in table.items():
+            summary[name]["err"] = max(summary[name]["err"], row["err"])
     kernels = []
     for name in FIR_TAGS + [f"{n}.bf16" for n in FIR_TAGS] + FLR_TAGS:
         s = summary[name]
@@ -7565,7 +7917,9 @@ def main() -> None:
         for key, table in ((f"vp_batch{VP_TRAIN_BATCH}", summary_vp),
                            (f"vp_batch{VP_SAMPLES}", summary_vp16),
                            (f"ode_batch{NATURAL_SAMPLES}",
-                            nt["ode_kernels"])):
+                            nt["ode_kernels"]),
+                           (f"continuous_demo_batch{EXP_CONT_SAMPLES}",
+                            ex["kernels"])):
             if name in table:
                 kernels[-1][key] = {k: table[name][k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "err")}
@@ -7602,5 +7956,38 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def experiments_only() -> None:
+    """`python3 chip_smoke.py --experiments`: the build and the
+    experiments phase alone, from a tree that carries artifacts/ (a
+    checkout, or a copy of the working tree): the phase on the committed
+    priors, which an exported tree drops."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch sees no CUDA device; this smoke "
+                         "runs on the GPU only")
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    if exported_without_priors(root):
+        raise SystemExit("chip_smoke --experiments: this tree carries no "
+                         "artifacts/ (an export); run it from a checkout")
+    from inverseproblemwithdiffusionmodel_tpu_torch.ops import _build
+    from inverseproblemwithdiffusionmodel_tpu_torch.ops import (
+        fir_kernels as fk, flr_kernels as fl)
+    t0 = time.perf_counter()
+    build = _build.build()
+    say("build", t0, f"nvcc {build.seconds:.2f} s -> {build.path}")
+    t = time.perf_counter()
+    ex = experiments_phase(fk, fl)
+    report_experiments(ex, t)
+    say("total", t0, "the experiments phase passed on the committed priors")
+    print(json.dumps({"experiments": ex}, default=str), flush=True)
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--experiments"]:
+        experiments_only()
+    else:
+        main()

@@ -8,3 +8,14 @@ from .sampling import (AncestralSamplingPredictor, AnnealedLangevinDynamics,
                        register_corrector, register_predictor,
                        LangevinCorrector, NoneCorrector, NonePredictor,
                        ReverseDiffusionPredictor, vanilla_pc_sampler)
+
+__all__ = [
+    "SDE", "ReverseSDE", "VPSDE", "subVPSDE", "VESDE",
+    "get_ddpm_params",
+    "register_predictor", "register_corrector", "get_predictor",
+    "get_corrector", "get_score_fn", "get_pc_sampler", "get_ode_sampler",
+    "get_sampling_fn", "vanilla_pc_sampler",
+    "EulerMaruyamaPredictor", "ReverseDiffusionPredictor",
+    "AncestralSamplingPredictor", "NonePredictor", "LangevinCorrector",
+    "AnnealedLangevinDynamics", "NoneCorrector",
+]

@@ -35,15 +35,29 @@ def nrmse(img: torch.Tensor, img_orig: torch.Tensor) -> torch.Tensor:
     return num / den
 
 
-def _uniform_filter(x: torch.Tensor, size: int) -> torch.Tensor:
-    """Mean over 'valid' size x size windows of an (H, W) tensor."""
-    return F.avg_pool2d(x[None, None], size, stride=1)[0, 0]
+def _uniform_filter(x: torch.Tensor, size: int,
+                    bf16_window: bool = False) -> torch.Tensor:
+    """Mean over 'valid' size x size windows of an (H, W) tensor. With
+    bf16_window, the window's input and its 1 / size^2 weights are
+    rounded to bfloat16 and summed in float32: a float32 convolution at a
+    TPU's default precision (one bf16 pass), where the JAX package's ssim
+    runs its window as a convolution."""
+    if not bf16_window:
+        return F.avg_pool2d(x[None, None], size, stride=1)[0, 0]
+    k = torch.full((1, 1, size, size), 1.0 / (size * size),
+                   dtype=torch.float32, device=x.device)
+    return F.conv2d(x.to(torch.bfloat16).float()[None, None],
+                    k.to(torch.bfloat16).float())[0, 0]
 
 
 def ssim(img: torch.Tensor, img_orig: torch.Tensor, win_size: int = 7,
          data_range: Optional[float] = None, K1: float = 0.01,
-         K2: float = 0.03) -> torch.Tensor:
-    """Structural similarity of 2-D single-channel images (H, W)."""
+         K2: float = 0.03, bf16_window: bool = False) -> torch.Tensor:
+    """Structural similarity of 2-D single-channel images (H, W).
+    bf16_window=True gives the SSIM the JAX package computes on a TPU,
+    whose float32 window convolutions run at bf16 input precision there
+    (`_uniform_filter`); the default is its float32 value, which the JAX
+    package gives on the CPU."""
     img = img.float()
     img_orig = img_orig.float()
     if data_range is None:
@@ -54,11 +68,11 @@ def ssim(img: torch.Tensor, img_orig: torch.Tensor, win_size: int = 7,
     NP = win_size * win_size
     cov_norm = NP / (NP - 1.0)  # skimage's sample covariance
 
-    ux = _uniform_filter(img, win_size)
-    uy = _uniform_filter(img_orig, win_size)
-    uxx = _uniform_filter(img * img, win_size)
-    uyy = _uniform_filter(img_orig * img_orig, win_size)
-    uxy = _uniform_filter(img * img_orig, win_size)
+    ux = _uniform_filter(img, win_size, bf16_window)
+    uy = _uniform_filter(img_orig, win_size, bf16_window)
+    uxx = _uniform_filter(img * img, win_size, bf16_window)
+    uyy = _uniform_filter(img_orig * img_orig, win_size, bf16_window)
+    uxy = _uniform_filter(img * img_orig, win_size, bf16_window)
     vx = cov_norm * (uxx - ux * ux)
     vy = cov_norm * (uyy - uy * uy)
     vxy = cov_norm * (uxy - ux * uy)

@@ -6,6 +6,8 @@ against them on the card by the `gpu` test at the end and by chip_smoke.py.
 Tolerance 1e-6: both sides compute the same few float32 multiply-adds per
 output, in orders that differ by at most a rounding.
 """
+import importlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -16,7 +18,10 @@ from inverseproblemwithdiffusionmodel_tpu.ops.upfirdn2d import (
     downsample_2d as jax_downsample_2d, upsample_2d as jax_upsample_2d,
     upfirdn2d as jax_upfirdn2d)
 from inverseproblemwithdiffusionmodel_tpu_torch.ops import fir_kernels as fk
-from inverseproblemwithdiffusionmodel_tpu_torch.ops import upfirdn2d as tu
+# the submodule: the package-level name ops.upfirdn2d is the function,
+# as the JAX package exports it
+tu = importlib.import_module(
+    "inverseproblemwithdiffusionmodel_tpu_torch.ops.upfirdn2d")
 
 torch.set_num_threads(1)
 

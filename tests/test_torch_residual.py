@@ -11,6 +11,7 @@ cut of the cifar10 leaf (16x16, nf 16, ch_mult (1, 2, 2), one res block,
 attention at 8x8) with the JAX params redrawn by its `perturb`.
 """
 import contextlib
+import importlib
 import io
 
 import numpy as np
@@ -31,7 +32,10 @@ from inverseproblemwithdiffusionmodel_tpu_torch.configs_continuous import (
     get_continuous_config)
 from inverseproblemwithdiffusionmodel_tpu_torch.models import create_model
 from inverseproblemwithdiffusionmodel_tpu_torch.models import layerspp
-from inverseproblemwithdiffusionmodel_tpu_torch.ops import upfirdn2d as tup
+# the submodule: the package-level name ops.upfirdn2d is the function,
+# as the JAX package exports it
+tup = importlib.import_module(
+    "inverseproblemwithdiffusionmodel_tpu_torch.ops.upfirdn2d")
 from inverseproblemwithdiffusionmodel_tpu_torch.utils.convert import (
     flax_to_torch, flax_to_torch_ncsnpp, seeded_weights)
 
